@@ -1,0 +1,129 @@
+"""Batched greedy RNN-T decoding (port of ``rnntransducer_tpu/decode/greedy.py``).
+
+Same emission rule as the JAX frame scan:
+
+* argmax of the joint; a non-blank token is fed back into the prediction
+  net (duplicates included), but a token equal to the last *appended* token
+  is not appended;
+* blank, or an exhausted ``max_symbols`` budget, advances to the next frame;
+* frames past each utterance's ``enc_lengths`` are skipped;
+* emission times are absolute encoder-frame indices (``frames_done``
+  offset), so the carry can resume across chunks.
+
+The frame loop is a Python loop of device ops with no host sync inside;
+the carry's token and time buffers are updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from rnntransducer_tpu_torch.models.cells import RNNState
+from rnntransducer_tpu_torch.models.transducer import RNNTransducer
+from rnntransducer_tpu_torch.utils.precision import match_param_dtype
+
+
+class GreedyCarry(NamedTuple):
+    """Resumable greedy-decode state across frame chunks."""
+    dec_out: torch.Tensor        # (B, Dd) last prediction-net output
+    state: RNNState              # prediction-net recurrent state
+    last_appended: torch.Tensor  # (B,) int64
+    tokens: torch.Tensor         # (B, max_output_len) int64
+    lengths: torch.Tensor        # (B,) int64 emitted so far
+    times: torch.Tensor          # (B, max_output_len) int64 emission frames
+    frames_done: torch.Tensor    # (B,) int64 valid frames consumed so far
+
+
+def _device(model: RNNTransducer) -> torch.device:
+    return next(model.parameters()).device
+
+
+@torch.inference_mode()
+def init_greedy_carry(model: RNNTransducer, batch: int, blank_id: int = 0,
+                      max_output_len: int = 256) -> GreedyCarry:
+    dev = _device(model)
+    blank = torch.full((batch,), blank_id, dtype=torch.int64, device=dev)
+    dec_out0, state0 = model.predict_step(blank, None)
+    zeros = torch.zeros((batch,), dtype=torch.int64, device=dev)
+    return GreedyCarry(
+        dec_out=dec_out0, state=state0, last_appended=blank,
+        tokens=torch.full((batch, max_output_len), blank_id, dtype=torch.int64,
+                          device=dev),
+        lengths=zeros,
+        times=torch.zeros((batch, max_output_len), dtype=torch.int64, device=dev),
+        frames_done=zeros)
+
+
+def _select_state(keep: torch.Tensor, new: RNNState, old: RNNState) -> RNNState:
+    """Per-row choice between two (L, D, B, H) states."""
+    m = keep.view(1, 1, -1, 1)
+    c = None if new.c is None else torch.where(m, new.c, old.c)
+    return RNNState(torch.where(m, new.h, old.h), c)
+
+
+@torch.inference_mode()
+def greedy_decode_frames(model: RNNTransducer, enc: torch.Tensor,
+                         enc_lengths: torch.Tensor, carry: GreedyCarry,
+                         blank_id: int = 0, max_symbols: int = 3) -> GreedyCarry:
+    """Consume encoder frames enc (B, T, De), valid up to enc_lengths, and
+    return the advanced carry."""
+    B, T = enc.shape[0], enc.shape[1]
+    max_len = carry.tokens.shape[1]
+    dec_out, state, last_app, out_buf, out_len, time_buf, frames_done = carry
+    enc_lengths = enc_lengths.to(device=enc.device, dtype=torch.int64)
+    rows = torch.arange(B, device=enc.device)
+    blank = torch.full((B,), blank_id, dtype=torch.int64, device=enc.device)
+    for t in range(T):
+        enc_i = enc[:, t]
+        abs_t = frames_done + t
+        emitting = t < enc_lengths
+        for _ in range(max_symbols):
+            tok = model.joint_step(enc_i, dec_out).argmax(dim=-1)
+            advance = emitting & (tok != blank_id)
+            do_append = advance & (tok != last_app) & (out_len < max_len)
+            idx = out_len.clamp(max=max_len - 1)
+            out_buf[rows, idx] = torch.where(do_append, tok, out_buf[rows, idx])
+            time_buf[rows, idx] = torch.where(do_append, abs_t, time_buf[rows, idx])
+            out_len = out_len + do_append.to(torch.int64)
+            last_app = torch.where(do_append, tok, last_app)
+            new_dec_out, new_state = model.predict_step(
+                torch.where(advance, tok, blank), state)
+            dec_out = torch.where(advance[:, None], new_dec_out, dec_out)
+            state = _select_state(advance, new_state, state)
+            emitting = advance
+    return GreedyCarry(dec_out, state, last_app, out_buf, out_len, time_buf,
+                       frames_done + enc_lengths)
+
+
+def _encode(model: RNNTransducer, feats, feat_lengths):
+    feats = match_param_dtype(model, feats)
+    enc, _ = model.encode(feats, feat_lengths)
+    return enc, model.cfg.transnet.output_lengths(feat_lengths.to(torch.int64))
+
+
+@torch.inference_mode()
+def greedy_decode(model: RNNTransducer, feats: torch.Tensor,
+                  feat_lengths: torch.Tensor, blank_id: int = 0,
+                  max_symbols: int = 3, max_output_len: int = 256
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode feats (B, T, n_mels), then run the frame loop.  Returns
+    (tokens (B, max_output_len) padded with blank_id, lengths (B,))."""
+    tokens, lengths, _ = greedy_decode_with_times(
+        model, feats, feat_lengths, blank_id, max_symbols, max_output_len)
+    return tokens, lengths
+
+
+@torch.inference_mode()
+def greedy_decode_with_times(model: RNNTransducer, feats: torch.Tensor,
+                             feat_lengths: torch.Tensor, blank_id: int = 0,
+                             max_symbols: int = 3, max_output_len: int = 256
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """greedy_decode plus per-token emission frames ``times`` (B,
+    max_output_len): encoder-frame indices."""
+    enc, enc_lengths = _encode(model, feats, feat_lengths)
+    carry = init_greedy_carry(model, feats.shape[0], blank_id, max_output_len)
+    carry = greedy_decode_frames(model, enc, enc_lengths, carry, blank_id,
+                                 max_symbols)
+    return carry.tokens, carry.lengths, carry.times

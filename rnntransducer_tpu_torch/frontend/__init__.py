@@ -1,0 +1,7 @@
+from rnntransducer_tpu_torch.frontend.melspec import (
+    LogMelFrontend, frame_signal, hamming_window, hann_window,
+    mean_var_normalize, mel_filterbank, num_frames, stft_power,
+)
+
+__all__ = ["LogMelFrontend", "frame_signal", "hamming_window", "hann_window",
+           "mean_var_normalize", "mel_filterbank", "num_frames", "stft_power"]

@@ -1,0 +1,189 @@
+"""Masked recurrent cells (port of ``rnntransducer_tpu/models/cells.py``).
+
+* The input projection ``x @ W_ih + b_ih`` for all timesteps is one matmul
+  hoisted out of the time loop; the loop only does the recurrent product
+  and the gates.
+* A padded step (t >= length) keeps the carry and emits zeros
+  (pack_padded semantics); the carry after the walk is the state at
+  t = length-1.
+* Bidirectional = a forward walk plus a reversed walk (``reverse=True``),
+  which for length masks equals flip -> scan -> flip.
+* Gate order and equations are torch's (i,f,g,o / r,z,n) with separate
+  b_ih and b_hh; GRU's b_hn sits inside r * (...).
+* Weights keep the JAX layout: ``w_ih`` (in, G*H) and ``w_hh`` (H, G*H).
+
+GRU layers run through ``ops.rnn_kernels.gru_scan`` (the CUDA kernel on the
+card, its plain version on the CPU).  LSTM and vanilla RNN layers use a
+plain masked loop in the activation dtype, as the JAX package's XLA scan
+does.  Dropout is identity: the port serves, it does not train yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from rnntransducer_tpu_torch.ops.rnn_kernels import gru_scan
+from rnntransducer_tpu_torch.utils.masking import length_mask
+
+GATES = {"lstm": 4, "gru": 3, "rnn": 1}
+
+
+class RNNState(NamedTuple):
+    """Stacked recurrent state: h (and c for LSTM) of shape
+    (num_layers, num_directions, B, H).  ``c`` is None for GRU/RNN."""
+
+    h: torch.Tensor
+    c: Optional[torch.Tensor] = None
+
+
+def _lstm_step(c, xw, hw):
+    i, f, g, o = torch.chunk(xw + hw, 4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def _gru_step(h, xw, hw):
+    xr, xz, xn = torch.chunk(xw, 3, dim=-1)
+    hr, hz, hn = torch.chunk(hw, 3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+class RNNLayer(nn.Module):
+    """One direction of one recurrent layer."""
+
+    def __init__(self, input_size: int, hidden_size: int, rnn_type: str = "lstm",
+                 reverse: bool = False):
+        super().__init__()
+        g = GATES[rnn_type]
+        self.rnn_type = rnn_type
+        self.hidden_size = hidden_size
+        self.reverse = reverse
+        self.w_ih = nn.Parameter(torch.empty(input_size, g * hidden_size))
+        self.w_hh = nn.Parameter(torch.empty(hidden_size, g * hidden_size))
+        self.b_ih = nn.Parameter(torch.empty(g * hidden_size))
+        self.b_hh = nn.Parameter(torch.empty(g * hidden_size))
+
+    def _cell(self, h, c, xw_t, mask_t):
+        """Plain step. xw_t: (B, G*H) input pre-activation; mask_t: (B, 1)."""
+        hw = torch.matmul(h, self.w_hh) + self.b_hh
+        if self.rnn_type == "lstm":
+            h_new, c_new = _lstm_step(c, xw_t, hw)
+            c = torch.where(mask_t, c_new, c)
+        elif self.rnn_type == "gru":
+            h_new = _gru_step(h, xw_t, hw)
+        else:
+            h_new = torch.tanh(xw_t + hw)
+        h = torch.where(mask_t, h_new, h)
+        return h, c, torch.where(mask_t, h_new, torch.zeros_like(h_new))
+
+    def init_state(self, batch: int, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        z = torch.zeros((batch, self.hidden_size), dtype=dtype, device=device)
+        return z, z
+
+    def forward(self, x, lengths, initial_state=None):
+        """x: (B, T, input_size); lengths: (B,) int.
+        Returns (outputs (B, T, H), final (h, c))."""
+        B, T = x.shape[0], x.shape[1]
+        if initial_state is None:
+            initial_state = self.init_state(B, x.dtype, x.device)
+        h, c = initial_state
+        xw_t = (torch.matmul(x, self.w_ih) + self.b_ih).transpose(0, 1).contiguous()
+        if self.rnn_type == "gru":
+            outs, h_fin = gru_scan(xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype),
+                                   lengths.clamp(0, T), self.reverse)
+            return outs.transpose(0, 1), (h_fin.to(h.dtype), c)
+        mask_t = length_mask(lengths, T).transpose(0, 1)[..., None]  # (T, B, 1)
+        outs: List[Optional[torch.Tensor]] = [None] * T
+        for t in (range(T - 1, -1, -1) if self.reverse else range(T)):
+            h, c, outs[t] = self._cell(h, c, xw_t[t], mask_t[t])
+        return torch.stack(outs, dim=1), (h, c)
+
+    def step(self, x_t, state):
+        """Single timestep (decode path). x_t: (B, input_size)."""
+        h, c = state
+        xw = torch.matmul(x_t, self.w_ih) + self.b_ih
+        ones = torch.ones((x_t.shape[0], 1), dtype=torch.bool, device=x_t.device)
+        h, c, out = self._cell(h, c, xw, ones)
+        return out, (h, c)
+
+
+class StackedRNN(nn.Module):
+    """Multi-layer (optionally bidirectional) RNN, batch first.  Layer l of
+    direction d is ``fwd[l]`` / ``bwd[l]``."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 rnn_type: str = "lstm", bidirectional: bool = False):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.rnn_type = rnn_type
+        self.bidirectional = bidirectional
+        width = (2 if bidirectional else 1) * hidden_size
+        sizes = [input_size] + [width] * (num_layers - 1)
+        self.fwd = nn.ModuleList(RNNLayer(s, hidden_size, rnn_type) for s in sizes)
+        self.bwd = nn.ModuleList(
+            RNNLayer(s, hidden_size, rnn_type, reverse=True) for s in sizes
+        ) if bidirectional else nn.ModuleList()
+
+    @property
+    def output_size(self) -> int:
+        return (2 if self.bidirectional else 1) * self.hidden_size
+
+    def _pack_state(self, finals) -> RNNState:
+        """finals: per layer, a tuple of per-direction (h, c)."""
+        h = torch.stack([torch.stack([d[0] for d in f]) for f in finals])
+        if self.rnn_type == "lstm":
+            c = torch.stack([torch.stack([d[1] for d in f]) for f in finals])
+            return RNNState(h, c)
+        return RNNState(h, None)
+
+    def _layer_state(self, state: Optional[RNNState], layer: int, direction: int,
+                     batch: int, dtype, device):
+        if state is None:
+            z = torch.zeros((batch, self.hidden_size), dtype=dtype, device=device)
+            return z, z
+        h = state.h[layer, direction]
+        c = state.c[layer, direction] if state.c is not None else torch.zeros_like(h)
+        return h, c
+
+    def forward(self, x, lengths=None, initial_state: Optional[RNNState] = None):
+        """x: (B, T, F); lengths: (B,) or None (= all T).
+        Returns (outputs (B, T, D*H), RNNState)."""
+        B, T = x.shape[0], x.shape[1]
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int64, device=x.device)
+        out = x
+        finals = []
+        for layer in range(self.num_layers):
+            f_out, f_fin = self.fwd[layer](
+                out, lengths,
+                self._layer_state(initial_state, layer, 0, B, x.dtype, x.device))
+            if self.bidirectional:
+                b_out, b_fin = self.bwd[layer](
+                    out, lengths,
+                    self._layer_state(initial_state, layer, 1, B, x.dtype, x.device))
+                out = torch.cat([f_out, b_out], dim=-1)
+                finals.append((f_fin, b_fin))
+            else:
+                out = f_out
+                finals.append((f_fin,))
+        return out, self._pack_state(finals)
+
+    def step(self, x_t, state: Optional[RNNState]):
+        """Single-step stateful mode (unidirectional only). x_t: (B, in)."""
+        if self.bidirectional:
+            raise ValueError("step() requires a unidirectional RNN")
+        B = x_t.shape[0]
+        out = x_t
+        finals = []
+        for layer in range(self.num_layers):
+            s = self._layer_state(state, layer, 0, B, x_t.dtype, x_t.device)
+            out, fin = self.fwd[layer].step(out, s)
+            finals.append((fin,))
+        return out, self._pack_state(finals)

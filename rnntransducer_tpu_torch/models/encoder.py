@@ -1,0 +1,100 @@
+"""Audio encoder (port of ``rnntransducer_tpu/models/encoder.py``).
+
+Multi-layer (bi)directional RNN over log-mel frames, then an output
+projection.  Time reduction (``time_reduction_stride > 1``): after
+``time_reduction_layer`` layers every ``stride`` consecutive frames are
+stacked into one, so the remaining layers and everything downstream run at
+1/stride the frame rate; a reduced group is valid if any of its frames is.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rnntransducer_tpu_torch.config import TransNetConfig
+from rnntransducer_tpu_torch.models.cells import RNNState, StackedRNN
+from rnntransducer_tpu_torch.utils.masking import length_mask
+
+
+def stack_frames(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """(B, T, F) -> (B, ceil(T/stride), stride*F), zero-padding a ragged
+    tail group."""
+    if stride <= 1:
+        return x
+    B, T, Fd = x.shape
+    pad = (-T) % stride
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    return x.reshape(B, (T + pad) // stride, stride * Fd)
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, cfg: TransNetConfig):
+        super().__init__()
+        if cfg.arch != "rnn":
+            raise NotImplementedError(
+                f"encoder arch {cfg.arch!r} is not ported yet; only 'rnn'")
+        self.cfg = cfg
+        stride = cfg.time_reduction_stride
+        k = cfg.time_reduction_layer if stride > 1 else 0
+        dirs = 2 if cfg.bidirectional else 1
+        rnn_type = cfg.rnn_type.lower()
+
+        def make_stack(input_size, num_layers):
+            return StackedRNN(input_size, cfg.hidden_size, num_layers, rnn_type,
+                              cfg.bidirectional)
+
+        # "rnn" = layers before the reduction point, "rnn_post" = after it
+        if stride > 1 and 0 < k < cfg.num_layers:
+            self.rnn = make_stack(cfg.input_size, k)
+            self.rnn_post = make_stack(stride * dirs * cfg.hidden_size,
+                                       cfg.num_layers - k)
+        else:
+            in_size = cfg.input_size * (stride if stride > 1 and k == 0 else 1)
+            self.rnn = make_stack(in_size, cfg.num_layers)
+            self.rnn_post = None
+        proj_in = dirs * cfg.hidden_size * (
+            stride if stride > 1 and k == cfg.num_layers else 1)
+        self.out_proj = nn.Linear(proj_in, cfg.output_size)
+
+    def forward(self, inputs, lengths=None, initial_state: Optional[RNNState] = None
+                ) -> Tuple[torch.Tensor, RNNState]:
+        """inputs: (B, T, n_mels). Returns ((B, T', output_size), state) with
+        T' = cfg.output_frames(T)."""
+        cfg = self.cfg
+        stride = cfg.time_reduction_stride
+        if stride <= 1:
+            out, state = self.rnn(inputs, lengths, initial_state)
+            return self.out_proj(out), state
+
+        k = cfg.time_reduction_layer
+        red_lengths = None if lengths is None else cfg.output_lengths(
+            lengths.to(torch.int64))
+        if k == 0:
+            # zero frames past each row's length before stacking: the last
+            # valid group may straddle the boundary
+            if lengths is not None:
+                valid = length_mask(lengths, inputs.shape[1])
+                inputs = torch.where(valid[..., None], inputs, 0.0)
+            out, state = self.rnn(stack_frames(inputs, stride), red_lengths,
+                                  initial_state)
+        elif k == cfg.num_layers:
+            out, state = self.rnn(inputs, lengths, initial_state)
+            out = stack_frames(out, stride)
+        else:
+            pre_state = post_state = None
+            if initial_state is not None:
+                c = initial_state.c
+                pre_state = RNNState(initial_state.h[:k], None if c is None else c[:k])
+                post_state = RNNState(initial_state.h[k:], None if c is None else c[k:])
+            out, s_pre = self.rnn(inputs, lengths, pre_state)
+            out = stack_frames(out, stride)
+            out, s_post = self.rnn_post(out, red_lengths, post_state)
+            state = RNNState(
+                torch.cat([s_pre.h, s_post.h], dim=0),
+                None if s_pre.c is None else torch.cat([s_pre.c, s_post.c], dim=0))
+        return self.out_proj(out), state

@@ -1,0 +1,71 @@
+"""RNN-Transducer model: encoder + prediction net + joint (port of
+``rnntransducer_tpu/models/transducer.py``), and ``build_model``."""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Union
+
+import torch
+from torch import nn
+
+from rnntransducer_tpu_torch.config import Config, ModelConfig
+from rnntransducer_tpu_torch.models.cells import RNNState
+from rnntransducer_tpu_torch.models.encoder import AudioEncoder
+from rnntransducer_tpu_torch.models.joint import JointNetwork
+from rnntransducer_tpu_torch.models.prednet import PredictionNet
+from rnntransducer_tpu_torch.utils.device import resolve_device
+
+
+class RNNTransducer(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = AudioEncoder(cfg.transnet)
+        self.prednet = PredictionNet(cfg.prednet)
+        self.joint = JointNetwork(cfg.jointnet, cfg.transnet.output_size,
+                                  cfg.prednet.output_size)
+
+    def forward(self, audio, audio_lengths, text, text_lengths):
+        """audio: (B, T, n_mels); text: (B, U+1) blank-prepended labels.
+        Returns (B, T', U+1, V) logits."""
+        enc, _ = self.encoder(audio, audio_lengths)
+        dec, _ = self.prednet(text, text_lengths)
+        return self.joint(enc, dec)
+
+    def encode(self, audio, audio_lengths=None, initial_state: Optional[RNNState] = None):
+        return self.encoder(audio, audio_lengths, initial_state)
+
+    def predict(self, text, text_lengths=None, initial_state: Optional[RNNState] = None):
+        return self.prednet(text, text_lengths, initial_state)
+
+    def predict_step(self, token, state: Optional[RNNState]):
+        return self.prednet.step(token, state)
+
+    def joint_step(self, enc_t, dec_u):
+        """enc_t (B, De), dec_u (B, Dd) -> (B, V) logits."""
+        return self.joint(enc_t, dec_u)
+
+    def joint_factors(self, enc, dec):
+        return self.joint.factors(enc, dec)
+
+
+def build_model(cfg: Union[Config, ModelConfig], device=None,
+                state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> RNNTransducer:
+    """An inference-mode ``RNNTransducer`` on ``device`` (default CUDA;
+    raises when CUDA is absent and no device is named).  Weights come from
+    ``state_dict``, else are random from seed 0."""
+    from rnntransducer_tpu_torch.utils.weights import (random_flax_params,
+                                                       state_dict_from_flax)
+    device = resolve_device(device)
+    model_cfg = cfg.model if isinstance(cfg, Config) else cfg
+    with torch.device("meta"):
+        model = RNNTransducer(model_cfg)
+    model = model.to_empty(device=device)
+    if state_dict is None:
+        state_dict = state_dict_from_flax(
+            random_flax_params(model_cfg, torch.Generator().manual_seed(0)),
+            model_cfg)
+    model.load_state_dict(state_dict)
+    model.requires_grad_(False)
+    return model.eval()

@@ -1,0 +1,3 @@
+from rnntransducer_tpu_torch.ops.rnn_kernels import gru_scan, gru_scan_reference
+
+__all__ = ["gru_scan", "gru_scan_reference"]

@@ -1,0 +1,187 @@
+"""Weight bridge from the JAX package's flax params tree to the port.
+
+Input: the flax params of ``rnntransducer_tpu``'s ``RNNTransducer`` as nested
+dicts of numpy arrays (optionally wrapped in ``{"params": ...}``).  Output:
+the port's ``state_dict``.  Layouts:
+
+* RNN cells keep ``w_ih`` (in, G*H), ``w_hh`` (H, G*H), ``b_ih``, ``b_hh``
+  in both packages; flax ``fwd_l`` / ``bwd_l`` map to ``fwd.l`` / ``bwd.l``.
+* With ``scan_layers=True`` (and more than one layer in the stack) flax keeps
+  layers 1..L-1 under ``stack/{fwd,bwd}`` with a leading (L-1) axis; the
+  bridge unstacks them.
+* flax ``Dense.kernel`` is (in, out); ``nn.Linear.weight`` is (out, in).
+* The embedding table is (V, H) in both.
+
+Every shape is checked against the port's model for ``model_cfg`` and every
+flax leaf must be used: a mismatch raises.  ``save``/``load`` keep a
+converted bundle (``config.json`` + ``params.pt``) for machines without flax.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rnntransducer_tpu_torch.config import Config, ModelConfig
+
+# (flax path, port key, index into a stacked leaf or None, transpose?)
+Entry = Tuple[Tuple[str, ...], str, Optional[int], bool]
+
+_CELL = ("w_ih", "w_hh", "b_ih", "b_hh")
+
+
+def _stack_entries(flax: Tuple[str, ...], port: str, num_layers: int,
+                   bidirectional: bool, scan: bool) -> Iterator[Entry]:
+    for d in (("fwd", "bwd") if bidirectional else ("fwd",)):
+        for layer in range(num_layers):
+            for name in _CELL:
+                key = f"{port}.{d}.{layer}.{name}"
+                if scan and num_layers > 1 and layer > 0:
+                    yield flax + ("stack", d, name), key, layer - 1, False
+                else:
+                    yield flax + (f"{d}_{layer}", name), key, None, False
+
+
+def _dense_entries(flax: Tuple[str, ...], port: str) -> Iterator[Entry]:
+    yield flax + ("kernel",), f"{port}.weight", None, True
+    yield flax + ("bias",), f"{port}.bias", None, False
+
+
+def _encoder_stacks(model_cfg: ModelConfig) -> Dict[str, int]:
+    """Layers per encoder stack: "rnn" before the time-reduction point and
+    "rnn_post" after it (as ``AudioEncoder`` splits them)."""
+    t = model_cfg.transnet
+    stride = t.time_reduction_stride
+    k = t.time_reduction_layer if stride > 1 else 0
+    if stride > 1 and 0 < k < t.num_layers:
+        return {"rnn": k, "rnn_post": t.num_layers - k}
+    return {"rnn": t.num_layers}
+
+
+def flax_layout(model_cfg: ModelConfig) -> Iterator[Entry]:
+    """Every parameter of the model as (flax path, port key, index, transpose)."""
+    t, p, j = model_cfg.transnet, model_cfg.prednet, model_cfg.jointnet
+    for name, layers in _encoder_stacks(model_cfg).items():
+        yield from _stack_entries(("encoder", name), f"encoder.{name}", layers,
+                                  t.bidirectional, t.scan_layers)
+    yield from _dense_entries(("encoder", "out_proj"), "encoder.out_proj")
+    yield ("prednet", "embedding", "embedding"), "prednet.embedding.weight", None, False
+    if p.rnn_type.lower() != "stateless":
+        yield from _stack_entries(("prednet", "rnn"), "prednet.rnn", p.num_layers,
+                                  False, False)
+    yield from _dense_entries(("prednet", "out_proj"), "prednet.out_proj")
+    for name in (("enc_proj", "dec_proj", "fc") if j.combine == "add" else ("fc",)):
+        yield from _dense_entries(("joint", name), f"joint.{name}")
+
+
+def _expected_shapes(model_cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    from rnntransducer_tpu_torch.models.transducer import RNNTransducer
+    with torch.device("meta"):
+        model = RNNTransducer(model_cfg)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, ...]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+def _get(tree: Mapping, path: Tuple[str, ...]):
+    node = tree
+    for part in path:
+        if not isinstance(node, Mapping) or part not in node:
+            raise KeyError(f"flax params lack {'/'.join(path)}")
+        node = node[part]
+    return node
+
+
+def state_dict_from_flax(params: Mapping, model_cfg: ModelConfig
+                         ) -> Dict[str, torch.Tensor]:
+    """flax params tree (nested dicts of arrays) -> the port's state_dict of
+    CPU tensors in the arrays' own dtype (float32 for a float32 tree)."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    expected = _expected_shapes(model_cfg)
+    out: Dict[str, torch.Tensor] = {}
+    used = set()
+    for path, key, index, transpose in flax_layout(model_cfg):
+        arr = np.asarray(_get(params, path))
+        if arr.dtype not in (np.float16, np.float32, np.float64):
+            arr = arr.astype(np.float32)  # e.g. bfloat16 leaves (ml_dtypes)
+        used.add(path)
+        if index is not None:
+            arr = arr[index]
+        if transpose:
+            arr = arr.T
+        if key not in expected:
+            raise ValueError(f"port model has no parameter {key}")
+        if tuple(arr.shape) != expected[key]:
+            raise ValueError(
+                f"{'/'.join(path)}: flax shape {tuple(arr.shape)} does not "
+                f"give {key} {expected[key]} — the ModelConfig does not match "
+                "these params")
+        out[key] = torch.tensor(arr)
+    extra = sorted("/".join(p) for p in set(_leaves(params)) - used)
+    if extra:
+        raise ValueError(f"flax params hold leaves the config does not use: {extra}")
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise ValueError(f"no flax leaves for port parameters: {missing}")
+    return out
+
+
+def random_flax_params(model_cfg: ModelConfig, generator: torch.Generator) -> Dict:
+    """Random weights in the JAX package's flax layout (nested dicts of
+    float32 numpy arrays), drawn from ``generator``: RNN tensors uniform in
+    +-1/sqrt(H), dense kernels and biases uniform in +-1/sqrt(fan_in), the
+    embedding standard normal."""
+    expected = _expected_shapes(model_cfg)
+    tree: Dict = {}
+    for path, key, index, transpose in flax_layout(model_cfg):
+        shape = expected[key]
+        if key.endswith("embedding.weight"):
+            value = torch.randn(shape, generator=generator)
+        else:
+            if ".w_" in key or ".b_" in key:
+                fan = expected[key.rsplit(".", 1)[0] + ".w_hh"][0]
+            else:
+                fan = expected[key.rsplit(".", 1)[0] + ".weight"][1]
+            scale = 1.0 / float(fan) ** 0.5
+            value = (torch.rand(shape, generator=generator) * 2.0 - 1.0) * scale
+        arr = value.numpy()
+        if transpose:
+            arr = np.ascontiguousarray(arr.T)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if index is None:
+            node[path[-1]] = arr
+        else:
+            layers = _encoder_stacks(model_cfg)[path[1]]
+            stacked = node.setdefault(
+                path[-1], np.zeros((layers - 1,) + arr.shape, np.float32))
+            stacked[index] = arr
+    return tree
+
+
+def save(directory: str, cfg: Config, state_dict: Mapping[str, torch.Tensor]) -> str:
+    """Write ``config.json`` + ``params.pt`` (a plain tensor dict)."""
+    os.makedirs(directory, exist_ok=True)
+    cfg.to_json(os.path.join(directory, "config.json"))
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
+               os.path.join(directory, "params.pt"))
+    return directory
+
+
+def load(directory: str) -> Tuple[Config, Dict[str, torch.Tensor]]:
+    """Read a bundle written by :func:`save` -> (Config, state_dict)."""
+    cfg = Config.from_json(os.path.join(directory, "config.json"))
+    sd = torch.load(os.path.join(directory, "params.pt"), map_location="cpu",
+                    weights_only=True)
+    return cfg, sd

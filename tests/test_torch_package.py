@@ -1,0 +1,133 @@
+"""Guards of the PyTorch port: it stands apart from the JAX package, its
+entry points never fall back to the CPU unasked, and its CUDA wrapper never
+falls back to the plain version."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rnntransducer_tpu_torch import Recognizer, build_model, tiny_config
+from rnntransducer_tpu_torch.ops import build, rnn_kernels
+from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer
+from rnntransducer_tpu_torch.utils.weights import random_flax_params
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rnntransducer_tpu")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "rnntransducer_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) > 10
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
+    params = random_flax_params(cfg.model, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Recognizer(cfg, params, GraphemeTokenizer.default(72))
+    assert next(build_model(cfg, "cpu").parameters()).device.type == "cpu"
+
+
+def _gru_args(device="cpu"):
+    rng = np.random.RandomState(0)
+    T, B, H = 3, 2, 8
+    xw = torch.from_numpy(rng.randn(T, B, 3 * H).astype(np.float32))
+    w = torch.from_numpy(rng.randn(H, 3 * H).astype(np.float32))
+    b = torch.zeros(3 * H)
+    h0 = torch.zeros(B, H)
+    lengths = torch.tensor([3, 1])
+    return [a.to(device) for a in (xw, w, b, h0, lengths)]
+
+
+def test_cuda_gru_wrapper_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    """The kernel path, given tensors on a machine without nvcc, raises: it
+    never hands the work to the plain version."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_LOADED", {})
+    before = rnn_kernels.gru_scan.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        rnn_kernels._gru_scan_cuda(*_gru_args(), False)
+    assert rnn_kernels.gru_scan.launches == before
+
+
+def test_gru_wrapper_checks_its_inputs():
+    xw, w, b, h0, lengths = _gru_args()
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        rnn_kernels.gru_scan(xw.to("meta"), w, b, h0, lengths)
+    with pytest.raises(ValueError, match="do not agree"):
+        rnn_kernels._gru_scan_cuda(xw, w[:, :-3], b, h0, lengths, False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rnn_kernels._gru_scan_cuda(xw.half(), w, b, h0, lengths, False)
+    with pytest.raises(TypeError, match="one dtype"):
+        rnn_kernels._gru_scan_cuda(xw, w.to(torch.bfloat16), b, h0, lengths, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        rnn_kernels._gru_scan_cuda(xw.transpose(0, 1).contiguous().transpose(0, 1),
+                                   w, b, h0, lengths, False)
+
+
+def test_weight_tiles_hold_each_blocks_gate_columns():
+    """The kernel's weight layout: block i, row g*jt + jj, column k holds
+    W_hh[k, g*H + i*jt + jj], zero where k or j is padding."""
+    H, Hk, jt = 12, 64, 8
+    w = torch.arange(H * 3 * H, dtype=torch.float32).view(H, 3 * H)
+    tiles = rnn_kernels._tile_weights(w, H, Hk, jt)
+    assert tiles.shape == (2, 3 * jt, Hk)
+    for i in range(2):
+        for g in range(3):
+            for jj in range(jt):
+                j = i * jt + jj
+                col = tiles[i, g * jt + jj]
+                if j < H:
+                    assert torch.equal(col[:H], w[:, g * H + j])
+                else:
+                    assert not col.any()
+                assert not col[H:].any()
+
+
+@pytest.mark.cuda
+def test_gru_kernel_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(1)
+    T, B, H = 40, 5, 96
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for reverse in (False, True):
+            xw = torch.randn(T, B, 3 * H, generator=gen).to("cuda", dtype)
+            w = (torch.randn(H, 3 * H, generator=gen) * 0.1).to("cuda", dtype)
+            b = (torch.randn(3 * H, generator=gen) * 0.1).to("cuda", dtype)
+            h0 = torch.randn(B, H, generator=gen).to("cuda", dtype)
+            lengths = torch.tensor([T, 17, 1, 40, 9], device="cuda")
+            got = rnn_kernels.gru_scan(xw, w, b, h0, lengths, reverse)
+            want = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths, reverse)
+            for g, r in zip(got, want):
+                assert (g.float() - r.float()).abs().max().item() <= tol
