@@ -5,10 +5,14 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
 Phases (each raises, and the script exits non-zero, on failure):
 
 1. Print the card's name and power limit, require CUDA, build every kernel
-   of the serving path from ``rnntransducer_tpu_torch/csrc`` (one ``nvcc``
-   per source, started together).
+   from ``rnntransducer_tpu_torch/csrc`` (one ``nvcc`` per source, started
+   together): gru_fwd (K1), gru_bwd (K2), rnnt_sweep (K5).
 2. Hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, and time both.
+   shapes the training and serving paths give it, and time both: K1 and K2
+   at H=1024, T=512, B in {1, 8, 64, 100}, both directions, fp32 and bf16
+   (K2 also against autograd through the plain forward loop); K5 at the
+   flagship lattice (B=64 and the 2B of one loss, T=512, U+1=49) and a
+   ragged T=300.
 3. Drive the serving path: ``Recognizer.transcribe_batch`` / ``transcribe``
    with greedy decoding on ``base_config()`` at full width (8-layer
    bidirectional GRU encoder, H=1024), random weights from a seeded
@@ -17,7 +21,17 @@ Phases (each raises, and the script exits non-zero, on failure):
    every GRU scan must have gone through the kernel.  Then the encoder is
    run again with the plain GRU on the card, and outputs and greedy tokens
    are compared.
-4. Print one JSON line describing every kernel, then, as the last line,
+4. Drive the training path (the main path of this slice): ``TrainState`` /
+   ``train_step`` on a trainable ``base_config()`` model at full width from
+   the same seeded weights, B=64, T=512, U=48, bf16, precomputed features
+   (the shape of ``bench.py``).  Warm-up steps, then timed steps with the
+   launch counts set to 0 before and read after each: every GRU scan and
+   its backward and every loss must have gone through K1, K2 and K5.  Step
+   time, utt/s, MFU, and a profiler window over one step.
+5. One fp32 step at full width (B=8: the plain GRU backward is a Python
+   loop of small launches), kernels against plain versions: loss and the
+   grads of named params.
+6. Print one JSON line describing every kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -25,6 +39,8 @@ Imports nothing from JAX or from the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,15 +53,18 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from rnntransducer_tpu_torch.config import base_config  # noqa: E402
+from rnntransducer_tpu_torch.config import TrainConfig, base_config  # noqa: E402
 from rnntransducer_tpu_torch.decode import greedy as greedy_mod  # noqa: E402
 from rnntransducer_tpu_torch.models import cells  # noqa: E402
-from rnntransducer_tpu_torch.ops import build, rnn_kernels  # noqa: E402
+from rnntransducer_tpu_torch.models.transducer import build_model  # noqa: E402
+from rnntransducer_tpu_torch.ops import build, rnn_kernels, rnnt_kernels  # noqa: E402
 from rnntransducer_tpu_torch.serve import Recognizer  # noqa: E402
 from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer  # noqa: E402
-from rnntransducer_tpu_torch.utils.weights import random_flax_params  # noqa: E402
+from rnntransducer_tpu_torch.train import TrainState, loss_fn, train_step  # noqa: E402
+from rnntransducer_tpu_torch.utils.weights import (  # noqa: E402
+    random_flax_params, state_dict_from_flax)
 
-KERNELS = ["gru_fwd"]
+KERNELS = ["gru_fwd", "gru_bwd", "rnnt_sweep"]
 T_FRAMES = 512                  # 5.11 s at a 10 ms hop: 81760 samples
 N_SAMPLES = (T_FRAMES - 1) * 160
 SEED = 0
@@ -68,6 +87,34 @@ ENCODER_TOL = {"fp32": 1e-4, "bf16": 6.25e-2}
 # Joint logits: first-symbol decisions are compared where the top-2 margin
 # exceeds this (the encoder tolerance through the 1024-wide joint).
 LOGIT_TOL = {"fp32": 1e-3, "bf16": 0.125}
+# GRU backward, kernel vs plain, same inputs (max |err| over dxw, dnr, dh0,
+# and the assembled dW_hh / db_hh, each relative to its largest magnitude):
+# fp32: both compute in fp32 and differ only in summation order (~1e-7 per
+#   product); the dh chain's gates keep that from growing over 512 steps.
+# bf16: outputs are rounded to bf16 (ulp 2^-8 of the value); a one-ulp flip
+#   of a rounded dhw feeds the chain, so allow 4 ulps of the largest output.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 4 * 2.0 ** -8}
+# RNN-T sweep, kernel vs plain, fp32: alpha is a sum of ~T+U log-probs, in
+# the thousands at T=512, where one fp32 ulp is ~1e-4; the two scans add in
+# another order.  Relative to max(|alpha|, 1).
+SWEEP_TOL = 1e-5
+# Full-width fp32 training step, kernels vs plain versions: the same
+# function in another summation order through 16 GRU scans and their
+# backward; loss relative, grads relative to the param grad's largest entry.
+# Every grad passes through the loss's occupancy exp(alpha + beta - logZ),
+# whose terms are in the thousands at T=512: one fp32 ulp there (~1.2e-4)
+# is that much relative error in every grad, so allow ~10 ulps.
+STEP_LOSS_TOL = 1e-5
+STEP_GRAD_TOL = 1e-3
+STEP_GRAD_PARAMS = ("encoder.rnn.fwd.0.w_hh", "encoder.rnn.bwd.7.w_hh",
+                    "prednet.rnn.fwd.0.w_hh", "joint.fc.weight", "joint.fc.bias")
+# Training path shape (bench.py): B utterances of T frames, U labels
+TRAIN_B, TRAIN_U = 64, 48
+# the fp32 kernels-vs-plain step: ragged frame and label counts, B=8
+PLAIN_STEP_LENGTHS = ([512, 400, 300, 511, 64, 1, 256, 512],
+                      [48, 40, 30, 48, 8, 0, 20, 47])
+WARMUP_STEPS, TIMED_STEPS = 2, 3
+PEAK_BF16_FLOPS = 989e12
 
 
 def _sync_time(fn, reps: int) -> float:
@@ -149,6 +196,138 @@ def phase_kernels(gen):
     return worst, times
 
 
+def gru_bwd_bound_ms(T, B, H, dtype, lengths) -> tuple:
+    """Least time for one backward scan: xw, h_prev and g_out read once at
+    valid steps, W_hh once; dxw, dnr and dh0 written once, over HBM; the two
+    products (gate recompute and dh chain) at valid steps over the peak rate
+    of the inputs' type.  Returns (ms, bound_by)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    valid = int(lengths.sum())
+    nbytes = (valid * 5 * H * e + 3 * H * H * e + 3 * H * e + B * H * e + B * 4
+              + T * B * 4 * H * e + B * H * e)
+    flops = 2.0 * (2.0 * valid * H * 3 * H)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_bound_ms(N, T, U1) -> tuple:
+    """Least time for one sweep: be and le read and alpha written once
+    (3 N T (U+1) fp32 words) over HBM, against ~10 fp32 operations per
+    lattice point (the sum scan's add, d = prev + le - cb, the logaddexp
+    scan's combine, cb + lse) over the fp32 peak without tensor cores."""
+    t_bytes = 3 * N * T * U1 * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 10.0 * N * T * U1 / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_gru_bwd(gen):
+    """GRU backward kernel vs its plain version at H=1024, T=512, and vs
+    autograd through the plain forward loop."""
+    H, T = 1024, T_FRAMES
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 8, 64, 100):
+            for reverse in (False, True):
+                xw, w, b, h0, lengths = _gru_inputs(T, B, H, dtype, gen)
+                h_all, _ = rnn_kernels.gru_scan(xw, w, b, h0, lengths, reverse)
+                h_prev = rnn_kernels.prev_all(h_all, h0, lengths, reverse)
+                gout = torch.randn(T, B, H, device=DEVICE, generator=gen).to(dtype)
+                gfin = torch.randn(B, H, device=DEVICE, generator=gen).to(dtype)
+                args = (xw, h_prev, w, b, lengths, gout, gfin, reverse)
+                got = rnn_kernels.gru_scan_backward(*args)
+                want = rnn_kernels.gru_scan_backward_reference(*args)
+                got += rnn_kernels.gru_weight_grads(h_prev, got[0], got[1], dtype)
+                want += rnn_kernels.gru_weight_grads(h_prev, want[0], want[1], dtype)
+                torch.cuda.synchronize()
+                errs = [_rel_err(g, r) for g, r in zip(got, want)]
+                # the kernel's own outputs (dW / db are the GEMMs' afterwards)
+                abs_err = max((g.float() - r.float()).abs().max().item()
+                              for g, r in zip(got[:3], want[:3]))
+                print(f"gru_bwd check dtype={str(dtype)[6:]} B={B} T={T} H={H} "
+                      f"reverse={reverse} rel_err dxw/dnr/dh0/dW/db="
+                      f"{'/'.join(f'{e:.2e}' for e in errs)} max_abs_err(dxw,dnr,dh0)="
+                      f"{abs_err:.3e} tol={BWD_TOL[dtype]:.1e}", flush=True)
+                if not max(errs) <= BWD_TOL[dtype]:
+                    raise AssertionError(f"gru_bwd disagrees with its plain version: "
+                                         f"{errs} > {BWD_TOL[dtype]}")
+                worst = max(worst, abs_err)
+    # against autograd through the plain forward loop, fp32, B=8
+    for reverse in (False, True):
+        xw, w, b, h0, lengths = _gru_inputs(T, 8, H, torch.float32, gen)
+        leaves = [a.clone().requires_grad_() for a in (xw, w, b, h0)]
+        gout = torch.randn(T, 8, H, device=DEVICE, generator=gen)
+        gfin = torch.randn(8, H, device=DEVICE, generator=gen)
+        outs = rnn_kernels.gru_scan_reference(*leaves, lengths, reverse)
+        want = torch.autograd.grad(outs, leaves, (gout, gfin))
+        outs = rnn_kernels.GRUScanFunction.apply(*leaves, lengths, reverse)
+        got = torch.autograd.grad(outs, leaves, (gout, gfin))
+        errs = [_rel_err(g, r) for g, r in zip(got, want)]
+        print(f"gru_bwd vs autograd of the plain forward fp32 B=8 reverse={reverse}: "
+              f"rel_err dxw/dW/db/dh0={'/'.join(f'{e:.2e}' for e in errs)} "
+              f"tol={BWD_TOL[torch.float32]:.0e}", flush=True)
+        if not max(errs) <= BWD_TOL[torch.float32]:
+            raise AssertionError(f"GRUScanFunction disagrees with autograd: {errs}")
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 8, 64):
+            xw, w, b, h0, lengths = _gru_inputs(T, B, H, dtype, gen)
+            h_all, _ = rnn_kernels.gru_scan(xw, w, b, h0, lengths)
+            h_prev = rnn_kernels.prev_all(h_all, h0, lengths)
+            gout = torch.randn(T, B, H, device=DEVICE, generator=gen).to(dtype)
+            gfin = torch.zeros(B, H, device=DEVICE, dtype=dtype)
+            args = (xw, h_prev, w, b, lengths, gout, gfin)
+            ms = _sync_time(lambda: rnn_kernels.gru_scan_backward(*args), 3)
+            plain = _sync_time(lambda: rnn_kernels.gru_scan_backward_reference(*args), 1)
+            bound, bound_by = gru_bwd_bound_ms(T, B, H, dtype, lengths)
+            times[(dtype, B)] = (ms, plain, bound, bound_by)
+            print(f"gru_bwd time dtype={str(dtype)[6:]} B={B} T={T} H={H}: kernel "
+                  f"{ms:.3f} ms ({ms / (T + 1) * 1e3:.2f} us/launch), plain "
+                  f"{plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
+    return worst, times
+
+
+def _lattice_edges(N, T, U1, gen):
+    """Blank / label log-probs of a random V=72 lattice, (N, T, U+1) fp32."""
+    lp = torch.log_softmax(torch.randn(N, T, U1, 72, device=DEVICE, generator=gen), -1)
+    return lp[..., 0].contiguous(), lp[..., 5].contiguous()
+
+
+def phase_sweep(gen):
+    """RNN-T sweep kernel vs its plain version: the flagship lattice, the 2B
+    lattices of one loss (alpha and beta in one launch), a ragged T."""
+    U1 = TRAIN_U + 1
+    worst = 0.0
+    for N, T in ((TRAIN_B, T_FRAMES), (2 * TRAIN_B, T_FRAMES), (TRAIN_B, 300)):
+        be, le = _lattice_edges(N, T, U1, gen)
+        got = rnnt_kernels.sweep(be, le)
+        want = rnnt_kernels.sweep_reference(be, le)
+        torch.cuda.synchronize()
+        abs_err = (got - want).abs().max().item()
+        rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        print(f"rnnt_sweep check N={N} T={T} U+1={U1}: max_abs_err {abs_err:.3e} "
+              f"(|alpha| up to {want.abs().max().item():.1f}), rel {rel:.2e} "
+              f"tol {SWEEP_TOL:.0e}", flush=True)
+        if not rel <= SWEEP_TOL:
+            raise AssertionError(f"rnnt_sweep disagrees with its plain version: {rel}")
+        worst = max(worst, abs_err)
+    times = {}
+    for N in (TRAIN_B, 2 * TRAIN_B):
+        be, le = _lattice_edges(N, T_FRAMES, U1, gen)
+        ms = _sync_time(lambda: rnnt_kernels.sweep(be, le), 20)
+        plain = _sync_time(lambda: rnnt_kernels.sweep_reference(be, le), 3)
+        bound, bound_by = sweep_bound_ms(N, T_FRAMES, U1)
+        times[N] = (ms, plain, bound, bound_by)
+        print(f"rnnt_sweep time N={N} T={T_FRAMES} U+1={U1}: kernel {ms:.4f} ms, "
+              f"plain {plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
+    return worst, times
+
+
 def _waves(n):
     """Seeded synthetic speech-band signals, the longest exactly T_FRAMES."""
     rng = np.random.RandomState(SEED)
@@ -213,6 +392,190 @@ def phase_profile(rec, waves):
     for dev_us, count, name in sorted(rows, reverse=True)[:8]:
         print(f"profile   {dev_us / 1e3:9.2f} ms  {count:7d} calls  {name[:70]}",
               flush=True)
+
+
+def step_model_flops(cfg, batch: int, t_frames: int, u_labels: int) -> float:
+    """Matmul FLOPs of one training step (fwd + bwd) from the config: 2 m n k
+    per forward GEMM, 3x forward for training (the port's copy of
+    ``bench.py::step_model_flops`` with its prediction-net and joint
+    terms)."""
+    tn, pn, jn = cfg.model.transnet, cfg.model.prednet, cfg.model.jointnet
+    gates = {"gru": 3, "lstm": 4, "rnn": 1}
+    H, dirs = tn.hidden_size, 2 if tn.bidirectional else 1
+    fwd, in_size = 0.0, tn.input_size
+    for _ in range(tn.num_layers):
+        fwd += dirs * 2 * batch * t_frames * gates[tn.rnn_type.lower()] * H * (in_size + H)
+        in_size = dirs * H
+    fwd += 2 * batch * t_frames * in_size * tn.output_size
+    Hp, u1 = pn.hidden_size, u_labels + 1
+    pg = {**gates, "stateless": 0}[pn.rnn_type.lower()]
+    fwd += pn.num_layers * 2 * batch * u1 * pg * Hp * (Hp + Hp) if pg else 0.0
+    fwd += 2 * batch * u1 * Hp * pn.output_size
+    fwd += 2 * batch * t_frames * tn.output_size * jn.num_classes
+    fwd += 2 * batch * u1 * pn.output_size * jn.num_classes
+    return 3.0 * fwd
+
+
+def _train_batch(cfg, B, T, U, seed=SEED):
+    """A seeded batch built like ``__graft_entry__._example_batch``, with
+    full feature lengths as ``bench.py`` uses, on the card."""
+    rng = np.random.RandomState(seed)
+    V = cfg.model.jointnet.num_classes
+    targets = rng.randint(1, V, size=(B, U)).astype(np.int64)
+    text_in = np.concatenate([np.zeros((B, 1), np.int64), targets], axis=1)
+    feats = rng.randn(B, T, cfg.model.transnet.input_size).astype(np.float32)
+    batch = {"feats": feats, "feat_lengths": np.full((B,), T, np.int64),
+             "text_in": text_in, "text_lengths": np.full((B,), U + 1, np.int64),
+             "targets": targets, "target_lengths": np.full((B,), U, np.int64)}
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def _counts():
+    return (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches,
+            rnnt_kernels.sweep.launches)
+
+
+def _zero_counts():
+    rnn_kernels.gru_scan.launches = 0
+    rnn_kernels.gru_scan_backward.launches = 0
+    rnnt_kernels.sweep.launches = 0
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel of the training and serving paths swapped for its plain
+    version (comparison only)."""
+    saved = (cells.gru_scan, rnn_kernels.gru_scan, rnn_kernels.gru_scan_backward,
+             rnnt_kernels.sweep)
+    cells.gru_scan = rnn_kernels.gru_scan = rnn_kernels.gru_scan_reference
+    rnn_kernels.gru_scan_backward = rnn_kernels.gru_scan_backward_reference
+    rnnt_kernels.sweep = rnnt_kernels.sweep_reference
+    try:
+        yield
+    finally:
+        (cells.gru_scan, rnn_kernels.gru_scan, rnn_kernels.gru_scan_backward,
+         rnnt_kernels.sweep) = saved
+
+
+def phase_profile_step(state, batch):
+    """Device busy share and device time by kernel over one training step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(r[0] for r in rows) / 1e3
+    if device_ms == 0.0:
+        print("train profile: the profiler saw no device time (not measured)",
+              flush=True)
+        return None
+    print(f"train profile bf16 step (profiler on): wall {wall_ms:.1f} ms, device "
+          f"busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%)", flush=True)
+    for dev_us, count, name in sorted(rows, reverse=True)[:10]:
+        print(f"train profile   {dev_us / 1e3:9.2f} ms  {count:7d} calls  "
+              f"{name[:70]}", flush=True)
+    return device_ms / wall_ms
+
+
+def phase_training(flax_params):
+    """The main path: bf16 train_step at the flagship shape."""
+    cfg = base_config()
+    cfg = dataclasses.replace(cfg, train=TrainConfig(
+        precision="bf16", accumulate_grad_batches=1, max_steps=1000))
+    tn = cfg.model.transnet
+    scans = tn.num_layers * (2 if tn.bidirectional else 1)
+    B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
+    sd = state_dict_from_flax(flax_params, cfg.model)
+    state = TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED)
+    batch = _train_batch(cfg, B, T, U)
+    for _ in range(WARMUP_STEPS):
+        metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    print(f"train warm-up: loss {metrics['loss'].item():.4f} grad_norm "
+          f"{metrics['grad_norm'].item():.4f}", flush=True)
+    watch = state.params["encoder.rnn.fwd.0.w_hh"]
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0 before each step, read after -----
+    want = (scans * T, scans * (T + 1), 1)
+    step_ms, launches = [], [0, 0, 0]
+    for i in range(TIMED_STEPS):
+        before = watch.detach().clone()
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = _counts()
+        launches = [a + b for a, b in zip(launches, got)]
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        moved = (watch.detach() - before).abs().max().item()
+        print(f"train step {i}: {step_ms[-1]:.1f} ms loss {loss:.4f} grad_norm "
+              f"{gnorm:.4f} max |d w_hh| {moved:.3e}; launches gru_fwd/gru_bwd/"
+              f"rnnt_sweep {got} (expected {want})", flush=True)
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"train step {i}: loss {loss}, grad_norm {gnorm}")
+        if not moved > 0.0:
+            raise AssertionError(f"train step {i}: the params did not change")
+        if tuple(got) != want:
+            raise AssertionError(f"train step {i}: launches {got}, expected {want}")
+    ms = float(np.mean(step_ms))
+    mfu = step_model_flops(cfg, B, T, U) / (ms / 1e3) / PEAK_BF16_FLOPS
+    result = {"step_ms": ms, "step_ms_each": step_ms, "utt_per_s": B / (ms / 1e3),
+              "mfu": mfu, "max_memory_allocated_mib":
+              torch.cuda.max_memory_allocated() / 2 ** 20}
+    print(f"train bf16 B={B} T={T} U={U}: step {ms:.1f} ms, {result['utt_per_s']:.2f} "
+          f"utt/s, MFU {mfu:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), "
+          f"max_memory_allocated {result['max_memory_allocated_mib']:.0f} MiB",
+          flush=True)
+    result["device_busy_share"] = phase_profile_step(state, batch)
+    del state
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def phase_step_vs_plain(flax_params):
+    """One fp32 loss + grads at full width with the kernels, then with every
+    kernel's plain version; deterministic (no SpecAugment, no dropout)."""
+    cfg = base_config()
+    cfg = dataclasses.replace(cfg, train=TrainConfig(precision="fp32"))
+    model = build_model(cfg, DEVICE, state_dict_from_flax(flax_params, cfg.model),
+                        trainable=True)
+    params = dict(model.named_parameters())
+    feat_lengths, target_lengths = PLAIN_STEP_LENGTHS
+    batch = _train_batch(cfg, len(feat_lengths), T_FRAMES, TRAIN_U, seed=SEED + 1)
+    batch["feat_lengths"] = torch.tensor(feat_lengths, device=DEVICE).clamp(max=T_FRAMES)
+    batch["target_lengths"] = torch.tensor(target_lengths, device=DEVICE)
+
+    def run():
+        t0 = time.perf_counter()
+        loss = loss_fn(model, cfg, params, batch, None, deterministic=True)
+        grads = torch.autograd.grad(loss, [params[n] for n in STEP_GRAD_PARAMS])
+        torch.cuda.synchronize()
+        return loss.item(), grads, (time.perf_counter() - t0) * 1e3
+
+    loss_k, grads_k, ms_k = run()
+    with _plain_kernels():
+        loss_p, grads_p, ms_p = run()
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs = {n: _rel_err(g, r) for n, g, r in zip(STEP_GRAD_PARAMS, grads_k, grads_p)}
+    print(f"fp32 step B={len(feat_lengths)} kernels vs plain: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {loss_err:.2e}, tol {STEP_LOSS_TOL:.0e}); grad rel err "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (tol {STEP_GRAD_TOL:.0e}); loss+grads {ms_k:.0f} ms with kernels, "
+          f"{ms_p:.0f} ms plain", flush=True)
+    if not (loss_err <= STEP_LOSS_TOL and max(errs.values()) <= STEP_GRAD_TOL):
+        raise AssertionError("the fp32 step with kernels disagrees with the plain one")
+    del model, params
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "grad_rel_err": errs, "kernel_ms": ms_k,
+            "plain_ms": ms_p}
 
 
 def phase_serving(flax_params, tokenizer, waves):
@@ -325,23 +688,37 @@ def main() -> int:
     print(f"built {KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    worst, times = phase_kernels(gen)
+    fwd_err, fwd_times = phase_kernels(gen)
+    bwd_err, bwd_times = phase_gru_bwd(gen)
+    sweep_err, sweep_times = phase_sweep(gen)
 
     cfg = base_config()
     flax_params = random_flax_params(cfg.model, torch.Generator().manual_seed(SEED))
     tokenizer = GraphemeTokenizer.default(cfg.model.jointnet.num_classes)
-    launches, results = phase_serving(flax_params, tokenizer, _waves(8))
+    serve_launches, results = phase_serving(flax_params, tokenizer, _waves(8))
     print("serving " + json.dumps(results), flush=True)
+    if not serve_launches > 0:
+        raise AssertionError("the serving path launched no GRU kernel")
+    torch.cuda.empty_cache()
 
-    ms, plain, bound, bound_by = times[(torch.bfloat16, 8)]
-    kernels = [{
-        "name": "gru_fwd", "route": "cuda",
-        "source": "rnntransducer_tpu_torch/csrc/gru_fwd.cu",
-        "replaces": "rnntransducer_tpu/ops/rnn_pallas.py:92",
-        "launches": launches, "max_abs_err": worst,
-        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None,
-    }]
+    launches, train = phase_training(flax_params)
+    print("training " + json.dumps(train), flush=True)
+    vs_plain = phase_step_vs_plain(flax_params)
+    print("step_vs_plain " + json.dumps(vs_plain), flush=True)
+
+    rows = (("gru_fwd", "rnn_pallas.py:92", fwd_err, fwd_times[(torch.bfloat16, TRAIN_B)]),
+            ("gru_bwd", "rnn_pallas.py:163", bwd_err, bwd_times[(torch.bfloat16, TRAIN_B)]),
+            ("rnnt_sweep", "rnnt_pallas.py:71", sweep_err, sweep_times[2 * TRAIN_B]))
+    kernels = []
+    for (name, replaces, err, (ms, plain, bound, bound_by)), n in zip(rows, launches):
+        if not n > 0:
+            raise AssertionError(f"{name} was not launched on the training path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"rnntransducer_tpu_torch/csrc/{name}.cu",
+            "replaces": ("rnntransducer_tpu/ops/" + replaces), "launches": n,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

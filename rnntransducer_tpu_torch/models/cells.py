@@ -13,9 +13,16 @@
 * Weights keep the JAX layout: ``w_ih`` (in, G*H) and ``w_hh`` (H, G*H).
 
 GRU layers run through ``ops.rnn_kernels.gru_scan`` (the CUDA kernel on the
-card, its plain version on the CPU).  LSTM and vanilla RNN layers use a
-plain masked loop in the activation dtype, as the JAX package's XLA scan
-does.  Dropout is identity: the port serves, it does not train yet.
+card, its plain version on the CPU); when autograd records, through
+``GRUScanFunction``, whose backward is the backward kernel.  LSTM and
+vanilla RNN layers use a plain masked loop in the activation dtype, which
+autograd differentiates, as the JAX package's XLA scan does.
+
+Dropout (training only) follows the JAX package's ``FastDropout``: the rate
+is quantized to n/256, uint8 bits come from an explicit
+``torch.Generator``, kept values are rescaled by the quantized keep
+probability.  It is active exactly when a generator is passed; the masks
+differ from the JAX package's (another generator), their statistics do not.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from rnntransducer_tpu_torch.ops.rnn_kernels import gru_scan
+from rnntransducer_tpu_torch.ops.rnn_kernels import GRUScanFunction, gru_scan
 from rnntransducer_tpu_torch.utils.masking import length_mask
 
 GATES = {"lstm": 4, "gru": 3, "rnn": 1}
@@ -37,6 +44,30 @@ class RNNState(NamedTuple):
 
     h: torch.Tensor
     c: Optional[torch.Tensor] = None
+
+
+def drop_thresh(rate: float) -> int:
+    """Drop rate quantized to n/256 (the uint8 mask granularity)."""
+    return int(round(rate * 256))
+
+
+def fast_dropout(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``FastDropout`` (``cells.py:61-124`` of the JAX package): identity
+    without a generator or at a rate below 1/512; else zero each element
+    whose uint8 draw is below round(rate * 256) and rescale the rest by
+    1 / (1 - thresh / 256), so E[output] == x."""
+    if generator is None or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    thresh = drop_thresh(rate)
+    if thresh == 0:
+        return x
+    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, device=x.device,
+                         generator=generator)
+    keep_scale = 1.0 / (1.0 - thresh / 256.0)
+    return torch.where(bits >= thresh, x * keep_scale, torch.zeros_like(x))
 
 
 def _lstm_step(c, xw, hw):
@@ -95,8 +126,13 @@ class RNNLayer(nn.Module):
         h, c = initial_state
         xw_t = (torch.matmul(x, self.w_ih) + self.b_ih).transpose(0, 1).contiguous()
         if self.rnn_type == "gru":
-            outs, h_fin = gru_scan(xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype),
-                                   lengths.clamp(0, T), self.reverse)
+            args = (xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype),
+                    lengths.clamp(0, T), self.reverse)
+            if torch.is_grad_enabled() and any(
+                    a.requires_grad for a in args[:4]):
+                outs, h_fin = GRUScanFunction.apply(*args)
+            else:
+                outs, h_fin = gru_scan(*args)
             return outs.transpose(0, 1), (h_fin.to(h.dtype), c)
         mask_t = length_mask(lengths, T).transpose(0, 1)[..., None]  # (T, B, 1)
         outs: List[Optional[torch.Tensor]] = [None] * T
@@ -115,12 +151,16 @@ class RNNLayer(nn.Module):
 
 class StackedRNN(nn.Module):
     """Multi-layer (optionally bidirectional) RNN, batch first.  Layer l of
-    direction d is ``fwd[l]`` / ``bwd[l]``."""
+    direction d is ``fwd[l]`` / ``bwd[l]``.  Inter-layer dropout goes on the
+    input of layers 1..L-1 (torch's dropout on every layer's output but the
+    last), never on the last layer's output."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
-                 rnn_type: str = "lstm", bidirectional: bool = False):
+                 rnn_type: str = "lstm", bidirectional: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.hidden_size = hidden_size
+        self.dropout = dropout
         self.num_layers = num_layers
         self.rnn_type = rnn_type
         self.bidirectional = bidirectional
@@ -152,8 +192,10 @@ class StackedRNN(nn.Module):
         c = state.c[layer, direction] if state.c is not None else torch.zeros_like(h)
         return h, c
 
-    def forward(self, x, lengths=None, initial_state: Optional[RNNState] = None):
-        """x: (B, T, F); lengths: (B,) or None (= all T).
+    def forward(self, x, lengths=None, initial_state: Optional[RNNState] = None,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, T, F); lengths: (B,) or None (= all T); ``generator``
+        turns inter-layer dropout on (training).
         Returns (outputs (B, T, D*H), RNNState)."""
         B, T = x.shape[0], x.shape[1]
         if lengths is None:
@@ -161,6 +203,8 @@ class StackedRNN(nn.Module):
         out = x
         finals = []
         for layer in range(self.num_layers):
+            if layer > 0:
+                out = fast_dropout(out, self.dropout, generator)
             f_out, f_fin = self.fwd[layer](
                 out, lengths,
                 self._layer_state(initial_state, layer, 0, B, x.dtype, x.device))

@@ -6,6 +6,9 @@ in a full-sequence mode and a single-step decode mode.  ``rnn_type=
 concatenated embeddings of the last ``num_layers + 1`` labels through one
 projection, with the context carried in the same ``RNNState`` layout
 (``h[i]`` = embedding of the (i+1)-back label, shape (num_layers, 1, B, H)).
+With a ``generator`` (training), the recurrent mode applies the stack's
+inter-layer dropout and the stateless mode plain dropout on the context
+features (flax ``nn.Dropout`` semantics: keep with 1 - rate, rescale).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ class PredictionNet(nn.Module):
             proj_in = (cfg.num_layers + 1) * cfg.hidden_size
         else:
             self.rnn = StackedRNN(cfg.hidden_size, cfg.hidden_size, cfg.num_layers,
-                                  cfg.rnn_type.lower(), bidirectional=False)
+                                  cfg.rnn_type.lower(), bidirectional=False,
+                                  dropout=cfg.dropout)
             proj_in = cfg.hidden_size
         self.out_proj = nn.Linear(proj_in, cfg.output_size)
 
@@ -39,7 +43,7 @@ class PredictionNet(nn.Module):
         return torch.where(pad, emb, torch.zeros_like(emb))
 
     # ---- stateless (n-gram context) mode -------------------------------
-    def _stateless_call(self, tokens, lengths, initial_state):
+    def _stateless_call(self, tokens, lengths, initial_state, generator):
         emb = self._embed(tokens)                          # (B, U1, H)
         B, U1, H = emb.shape
         nctx = self.cfg.num_layers
@@ -50,6 +54,11 @@ class PredictionNet(nn.Module):
         ext = torch.cat([pre, emb], dim=1)                 # (B, nctx+U1, H)
         feats = torch.cat([ext[:, nctx - s:nctx - s + U1] for s in range(nctx + 1)],
                           dim=-1)
+        rate = self.cfg.dropout
+        if generator is not None and rate > 0.0:
+            keep = torch.rand(feats.shape, device=feats.device,
+                              generator=generator) < 1.0 - rate
+            feats = torch.where(keep, feats / (1.0 - rate), torch.zeros_like(feats))
         out = self.out_proj(feats)
         ln = (torch.full((B,), U1, dtype=torch.int64, device=emb.device)
               if lengths is None else lengths.to(torch.int64))
@@ -70,12 +79,14 @@ class PredictionNet(nn.Module):
         return out, RNNState(new_h, None)
 
     # ---- public API (both modes) ---------------------------------------
-    def forward(self, tokens, lengths=None, initial_state: Optional[RNNState] = None
+    def forward(self, tokens, lengths=None, initial_state: Optional[RNNState] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, RNNState]:
-        """tokens: (B, U+1) blank-prepended ids -> ((B, U+1, out), state)."""
+        """tokens: (B, U+1) blank-prepended ids -> ((B, U+1, out), state).
+        ``generator`` turns dropout on."""
         if self.stateless:
-            return self._stateless_call(tokens, lengths, initial_state)
-        out, state = self.rnn(self._embed(tokens), lengths, initial_state)
+            return self._stateless_call(tokens, lengths, initial_state, generator)
+        out, state = self.rnn(self._embed(tokens), lengths, initial_state, generator)
         return self.out_proj(out), state
 
     def step(self, token, state: Optional[RNNState]) -> Tuple[torch.Tensor, RNNState]:

@@ -25,18 +25,21 @@ class RNNTransducer(nn.Module):
         self.joint = JointNetwork(cfg.jointnet, cfg.transnet.output_size,
                                   cfg.prednet.output_size)
 
-    def forward(self, audio, audio_lengths, text, text_lengths):
+    def forward(self, audio, audio_lengths, text, text_lengths,
+                generator: Optional[torch.Generator] = None):
         """audio: (B, T, n_mels); text: (B, U+1) blank-prepended labels.
-        Returns (B, T', U+1, V) logits."""
-        enc, _ = self.encoder(audio, audio_lengths)
-        dec, _ = self.prednet(text, text_lengths)
+        Returns (B, T', U+1, V) logits.  ``generator`` turns dropout on."""
+        enc, _ = self.encoder(audio, audio_lengths, generator=generator)
+        dec, _ = self.prednet(text, text_lengths, generator=generator)
         return self.joint(enc, dec)
 
-    def encode(self, audio, audio_lengths=None, initial_state: Optional[RNNState] = None):
-        return self.encoder(audio, audio_lengths, initial_state)
+    def encode(self, audio, audio_lengths=None, initial_state: Optional[RNNState] = None,
+               generator: Optional[torch.Generator] = None):
+        return self.encoder(audio, audio_lengths, initial_state, generator)
 
-    def predict(self, text, text_lengths=None, initial_state: Optional[RNNState] = None):
-        return self.prednet(text, text_lengths, initial_state)
+    def predict(self, text, text_lengths=None, initial_state: Optional[RNNState] = None,
+                generator: Optional[torch.Generator] = None):
+        return self.prednet(text, text_lengths, initial_state, generator)
 
     def predict_step(self, token, state: Optional[RNNState]):
         return self.prednet.step(token, state)
@@ -50,11 +53,13 @@ class RNNTransducer(nn.Module):
 
 
 def build_model(cfg: Union[Config, ModelConfig], device=None,
-                state_dict: Optional[Mapping[str, torch.Tensor]] = None
-                ) -> RNNTransducer:
-    """An inference-mode ``RNNTransducer`` on ``device`` (default CUDA;
-    raises when CUDA is absent and no device is named).  Weights come from
-    ``state_dict``, else are random from seed 0."""
+                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                trainable: bool = False) -> RNNTransducer:
+    """An ``RNNTransducer`` on ``device`` (default CUDA; raises when CUDA is
+    absent and no device is named).  Weights come from ``state_dict``, else
+    are random from seed 0.  By default the model is frozen and in eval
+    mode (serving); ``trainable=True`` gives float32 params that require
+    grad, in train mode."""
     from rnntransducer_tpu_torch.utils.weights import (random_flax_params,
                                                        state_dict_from_flax)
     device = resolve_device(device)
@@ -67,5 +72,7 @@ def build_model(cfg: Union[Config, ModelConfig], device=None,
             random_flax_params(model_cfg, torch.Generator().manual_seed(0)),
             model_cfg)
     model.load_state_dict(state_dict)
+    if trainable:
+        return model.float().requires_grad_(True).train()
     model.requires_grad_(False)
     return model.eval()

@@ -1,13 +1,23 @@
-"""Masked GRU recurrence: the CUDA kernel's wrapper and its plain version.
+"""Masked GRU recurrence, forward and backward: the CUDA kernels' wrappers
+and their plain versions.
 
 ``gru_scan`` has the signature and layout of the JAX package's
 ``rnntransducer_tpu/ops/rnn_pallas.py::gru_scan``.  It dispatches on the
 device of ``xw``: a CPU tensor goes to :func:`gru_scan_reference`; a CUDA
 tensor goes to the hand-written kernel ``csrc/gru_fwd.cu`` or the call
-raises.  There is no fallback from the kernel to the plain version.
+raises.  ``gru_scan_backward`` does the same for the backward through time
+(``csrc/gru_bwd.cu`` / :func:`gru_scan_backward_reference`).  There is no
+fallback from a kernel to its plain version.
 
-``gru_scan.launches`` counts the kernel launches the wrapper made (one per
-timestep), so a run can show that its GRU layers went through the kernel.
+:class:`GRUScanFunction` is the autograd form: its forward is ``gru_scan``,
+its backward ``gru_scan_backward`` plus the off-loop dW_hh / db_hh GEMMs
+(:func:`gru_weight_grads`), as the JAX package's custom VJP
+(``rnn_pallas.py:479-558``).  It looks both up in this module when it runs,
+so a caller may swap either for its plain version.
+
+``gru_scan.launches`` / ``gru_scan_backward.launches`` count the kernel
+launches each wrapper made (T per forward scan, T + 1 per backward scan),
+so a run can show that its GRU layers went through the kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from rnntransducer_tpu_torch.ops import build
+from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_WIDTH = 8                    # hidden units per block (kJT in the kernel)
@@ -139,3 +150,200 @@ def gru_scan(xw, w_hh, b_hh, h0, lengths, reverse: bool = False):
 
 
 gru_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward through time
+# ---------------------------------------------------------------------------
+
+
+def prev_all(h_all, h0, lengths, reverse: bool = False):
+    """Predecessor state of every step, (T, B, H) in h_all's dtype.
+    Forward: h0, then h_all[:-1].  Reversed: h_all[t+1] where step t+1 is
+    valid, else h0 (the masked steps form a prefix of the reversed walk and
+    leave the carry at h0).  Port of ``rnn_pallas.py::_prev_all``."""
+    T = h_all.shape[0]
+    h0 = h0.to(h_all.dtype)
+    if not reverse:
+        return torch.cat([h0[None], h_all[:-1]], dim=0)
+    shifted = torch.cat([h_all[1:], torch.zeros_like(h_all[:1])], dim=0)
+    steps = torch.arange(1, T + 1, device=h_all.device)
+    valid = lengths.to(h_all.device)[None, :, None] > steps[:, None, None]
+    return torch.where(valid, shifted, h0[None])
+
+
+def gru_scan_backward_reference(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
+                                reverse: bool = False):
+    """Plain PyTorch version of the backward kernel, under its numeric
+    contract: fp32 dh carry; gates rebuilt in fp32 from xw and h_prev (h_prev
+    rounded to W's dtype for the product, b_hh added in fp32); dhw rounded to
+    W's dtype for the dh-chain product with fp32 accumulation; dxw and dnr in
+    xw's dtype.
+
+    xw (T, B, 3H); h_prev (T, B, H) from :func:`prev_all`; g_hall (T, B, H)
+    and g_hfin (B, H) are the cotangents of h_all and h_final.  Returns
+    (dxw (T, B, 3H), dnr (T, B, H), dh0 (B, H)): dxw = [dr, dz, dn] of the
+    pre-activations, dnr = dn * r the n third of d(hw)."""
+    T, B, G = xw.shape
+    H = G // 3
+    w = w_hh.float()
+    b = b_hh.float()
+    lengths = lengths.to(xw.device)
+    dh = g_hfin.float()
+    dxw = torch.empty((T, B, G), dtype=xw.dtype, device=xw.device)
+    dnr = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        hp = h_prev[t]
+        hw = torch.matmul(hp.to(w_hh.dtype).float(), w) + b
+        x = xw[t].float()
+        hn = hw[:, 2 * H:]
+        r = torch.sigmoid(x[:, :H] + hw[:, :H])
+        z = torch.sigmoid(x[:, H:2 * H] + hw[:, H:2 * H])
+        n = torch.tanh(x[:, 2 * H:] + r * hn)
+        m = (lengths > t)[:, None]
+        g = torch.where(m, dh + g_hall[t].float(), 0.0)
+        dz = g * (hp.float() - n) * z * (1.0 - z)
+        dn = g * (1.0 - z) * (1.0 - n * n)
+        dr = dn * hn * r * (1.0 - r)
+        dnr_t = dn * r
+        dxw[t] = torch.cat([dr, dz, dn], dim=1).to(xw.dtype)
+        dnr[t] = dnr_t.to(xw.dtype)
+        dhw = torch.cat([dr, dz, dnr_t], dim=1).to(w_hh.dtype).float()
+        dh = torch.matmul(dhw, w.t()) + g * z + torch.where(m, 0.0, dh)
+    return dxw, dnr, dh.to(xw.dtype)
+
+
+def gru_weight_grads(h_prev, dxw, dnr, w_dtype):
+    """dW_hh (H, 3H) and db_hh (3H,) from the backward scan's outputs: the
+    large GEMMs the JAX package runs outside the loop (``rnn_pallas.py:
+    518-535``).  d(hw) = [dxw[..., :2H], dnr] (b_hn sits inside r * (...),
+    so the n third reduces dnr); fp32 accumulation, results in ``w_dtype``
+    and dxw's dtype."""
+    T, B, H = dnr.shape
+    hp = h_prev.reshape(T * B, H).to(dxw.dtype)
+    with full_precision_matmul():
+        dw_rz = torch.matmul(hp.t(), dxw[:, :, :2 * H].reshape(T * B, 2 * H))
+        dw_n = torch.matmul(hp.t(), dnr.reshape(T * B, H))
+    dw = torch.cat([dw_rz, dw_n], dim=1).to(w_dtype)
+    db = torch.cat([dxw[:, :, :2 * H].float().sum((0, 1)),
+                    dnr.float().sum((0, 1))]).to(dxw.dtype)
+    return dw, db
+
+
+def _bwd_library():
+    lib = build.load("gru_bwd")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gru_scan_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
+        lib.gru_scan_bwd.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _chain_tiles(w_hh: torch.Tensor, H: int, Kc: int, jt: int) -> torch.Tensor:
+    """(H, 3H) -> (ceil(H/jt), jt, Kc): block i's jt contiguous rows of W_hh
+    (the dh chain dh_j = dhw . W_hh[j, :]), zero padded for j >= H and
+    k >= 3H."""
+    Hp = -(-H // jt) * jt
+    return F.pad(w_hh, (0, Kc - 3 * H, 0, Hp - H)).view(Hp // jt, jt, Kc).contiguous()
+
+
+def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
+                            reverse):
+    dev = xw.device
+    if xw.dim() != 3 or xw.shape[2] % 3:
+        raise ValueError(f"gru_scan_backward: xw must be (T, B, 3H), got "
+                         f"{tuple(xw.shape)}")
+    T, B, G = xw.shape
+    H = G // 3
+    named = (("h_prev", h_prev, (T, B, H)), ("w_hh", w_hh, (H, G)),
+             ("b_hh", b_hh, (G,)), ("lengths", lengths, (B,)),
+             ("g_hall", g_hall, (T, B, H)), ("g_hfin", g_hfin, (B, H)))
+    for name, x, shape in named:
+        if x.device != dev:
+            raise ValueError(f"gru_scan_backward: {name} is on {x.device}, xw on {dev}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"gru_scan_backward: {name} has shape {tuple(x.shape)}, "
+                             f"expected {shape} for xw {tuple(xw.shape)}")
+    if xw.dtype not in _DTYPE_CODES:
+        raise TypeError(f"gru_scan_backward kernel takes float32 or bfloat16, "
+                        f"got {xw.dtype}")
+    for name, x in (("h_prev", h_prev), ("w_hh", w_hh), ("b_hh", b_hh),
+                    ("g_hall", g_hall), ("g_hfin", g_hfin)):
+        if x.dtype != xw.dtype:
+            raise TypeError(f"gru_scan_backward kernel needs {name} in xw's dtype "
+                            f"{xw.dtype}, got {x.dtype}")
+    if not all(x.is_contiguous() for x in (xw, w_hh, b_hh, g_hall)):
+        raise ValueError("gru_scan_backward kernel needs contiguous xw, w_hh, "
+                         "b_hh and g_hall")
+
+    lib = _bwd_library()
+    Hk = -(-H // _K_ALIGN) * _K_ALIGN
+    Kc = -(-G // _K_ALIGN) * _K_ALIGN
+    with torch.cuda.device(dev):
+        dxw = torch.empty((T, B, G), dtype=xw.dtype, device=dev)
+        dnr = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
+        if T == 0:
+            return dxw, dnr, g_hfin.clone()
+        rec = _tile_weights(w_hh, H, Hk, _TILE_WIDTH)
+        chain = _chain_tiles(w_hh, H, Kc, _TILE_WIDTH)
+        hprev = F.pad(h_prev, (0, Hk - H)).contiguous()
+        dhw = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
+        rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+        rest[0] = g_hfin.float()
+        lens = lengths.to(torch.int32).contiguous()
+        dh0 = torch.empty((B, H), dtype=xw.dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gru_scan_bwd(
+            xw.data_ptr(), hprev.data_ptr(), g_hall.data_ptr(), rec.data_ptr(),
+            chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(), dhw[0].data_ptr(),
+            dhw[1].data_ptr(), rest[0].data_ptr(), rest[1].data_ptr(),
+            dxw.data_ptr(), dnr.data_ptr(), dh0.data_ptr(), T, B, H, Hk, Kc,
+            _TILE_WIDTH, int(reverse), _DTYPE_CODES[xw.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"gru_scan_backward kernel failed with CUDA error {err}")
+    gru_scan_backward.launches += T + 1
+    return dxw, dnr, dh0
+
+
+def gru_scan_backward(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
+                      reverse: bool = False):
+    """Backward through a masked GRU scan; see
+    :func:`gru_scan_backward_reference` for the arguments and results."""
+    if xw.device.type == "cpu":
+        return gru_scan_backward_reference(xw, h_prev, w_hh, b_hh, lengths,
+                                           g_hall, g_hfin, reverse)
+    if xw.device.type != "cuda":
+        raise ValueError(f"gru_scan_backward runs on cpu or cuda, not {xw.device}")
+    return _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall,
+                                   g_hfin, reverse)
+
+
+gru_scan_backward.launches = 0
+
+
+class GRUScanFunction(torch.autograd.Function):
+    """``gru_scan`` with the JAX package's custom VJP: the backward is the
+    backward scan plus the off-loop weight GEMMs.  Returns grads for xw,
+    w_hh, b_hh and h0 (in their dtypes), none for lengths and reverse; a
+    missing cotangent of h_all or h_final counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh, b_hh, h0, lengths, reverse):
+        h_all, h_fin = gru_scan(xw, w_hh, b_hh, h0, lengths, reverse)
+        ctx.save_for_backward(xw, h_all, w_hh, b_hh, h0, lengths)
+        ctx.reverse = reverse
+        return h_all, h_fin
+
+    @staticmethod
+    def backward(ctx, g_hall, g_hfin):
+        xw, h_all, w_hh, b_hh, h0, lengths = ctx.saved_tensors
+        g_hall = (torch.zeros_like(h_all) if g_hall is None
+                  else g_hall.to(h_all.dtype).contiguous())
+        g_hfin = (torch.zeros_like(h0, dtype=h_all.dtype) if g_hfin is None
+                  else g_hfin.to(h_all.dtype))
+        h_prev = prev_all(h_all, h0, lengths, ctx.reverse)
+        dxw, dnr, dh0 = gru_scan_backward(xw, h_prev, w_hh, b_hh, lengths,
+                                          g_hall, g_hfin, ctx.reverse)
+        dw, db = gru_weight_grads(h_prev, dxw, dnr, w_hh.dtype)
+        return dxw, dw, db.to(b_hh.dtype), dh0.to(h0.dtype), None, None

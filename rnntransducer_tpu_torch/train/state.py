@@ -1,0 +1,219 @@
+"""Train state and the training / eval steps (port of
+``rnntransducer_tpu/train/state.py``).
+
+* Mixed precision: master params stay float32 in the model; each forward
+  casts every float param to the compute dtype (``cfg.train.precision``)
+  and runs the model on the cast copies through ``torch.func.
+  functional_call``, so gradients flow back to the float32 masters, as the
+  JAX package's ``_cast`` does.  The RNN-T loss upcasts to float32.
+* Gradient accumulation over contiguous microbatches, float32 grads.
+* The batch holds precomputed features; SpecAugment, weight noise and
+  dropout draw from the state's ``torch.Generator``.
+* The default (factored) joint+loss path never builds the (B, T, U+1, V)
+  lattice; ``combine="add"`` takes the fused per-chunk path and
+  ``joint_chunk_frames=0`` the full lattice, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+from torch import nn
+
+from rnntransducer_tpu_torch.config import Config
+from rnntransducer_tpu_torch.frontend.specaugment import spec_augment
+from rnntransducer_tpu_torch.models.transducer import RNNTransducer, build_model
+from rnntransducer_tpu_torch.ops.rnnt_loss import (rnnt_loss, rnnt_loss_factored,
+                                                   rnnt_loss_fused)
+from rnntransducer_tpu_torch.train.optim import (clip_by_global_norm, global_norm,
+                                                 make_optimizer, make_schedule)
+from rnntransducer_tpu_torch.utils.device import resolve_device
+from rnntransducer_tpu_torch.utils.precision import train_compute_dtype
+
+
+class _Bound(nn.Module):
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.m = model
+
+    def forward(self, fn, *args):
+        return fn(self.m, *args)
+
+
+def with_params(model: nn.Module, params: Mapping[str, torch.Tensor],
+                fn: Callable, *args):
+    """``fn(model, *args)`` with the model's parameters replaced by
+    ``params`` (name -> tensor, as ``named_parameters``) for the call."""
+    return torch.func.functional_call(
+        _Bound(model), {"m." + k: v for k, v in params.items()}, (fn,) + args)
+
+
+class TrainState:
+    """step; the model holding the float32 master params; the optimizer and
+    its lr schedule; the generator of SpecAugment / dropout / weight noise;
+    the EMA shadow of the params (``cfg.train.ema_decay > 0``, else None).
+
+    ``updates`` counts the optimizer updates actually applied: a step skipped
+    for non-finite grads advances ``step`` but neither ``updates`` nor the
+    optimizer's moments, as the JAX package keeps its whole optimizer state
+    (schedule count included) on such a step."""
+
+    def __init__(self, cfg: Config, model: RNNTransducer,
+                 optimizer: torch.optim.Optimizer, generator: torch.Generator,
+                 ema: Optional[Dict[str, torch.Tensor]] = None):
+        self.cfg = cfg
+        self.model = model
+        self.optimizer = optimizer
+        self.schedule = make_schedule(cfg.train)
+        self.generator = generator
+        self.ema = ema
+        self.step = 0
+        self.updates = 0
+
+    @classmethod
+    def create(cls, cfg: Config, device=None,
+               state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+               seed: Optional[int] = None) -> "TrainState":
+        """A fresh state on ``device`` (default CUDA; raises when CUDA is
+        absent and no device is named).  Weights from ``state_dict``, else
+        random from seed 0; the generator is seeded with ``seed``, else
+        ``cfg.train.seed``."""
+        device = resolve_device(device)
+        model = build_model(cfg, device, state_dict, trainable=True)
+        optimizer = make_optimizer(cfg.train, model.parameters())
+        generator = torch.Generator(device=device).manual_seed(
+            cfg.train.seed if seed is None else seed)
+        ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+               if cfg.train.ema_decay > 0 else None)
+        return cls(cfg, model, optimizer, generator, ema)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor],
+            batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
+            deterministic: bool, reduction: str = "mean") -> torch.Tensor:
+    """RNN-T loss of ``batch`` ('feats' (B, T, M), 'feat_lengths',
+    'text_in' (B, U+1), 'text_lengths', 'targets' (B, U), 'target_lengths')
+    under ``params`` (name -> float32 master).  ``deterministic=False``
+    applies SpecAugment, weight noise and dropout, drawing from
+    ``generator``."""
+    if "feats" not in batch:
+        raise NotImplementedError("raw-PCM batches need the on-device log-mel "
+                                  "frontend, which is not ported yet")
+    dtype = train_compute_dtype(cfg.train.precision)
+    feats, feat_lengths = batch["feats"], batch["feat_lengths"]
+    audio = cfg.data.audio
+    if not deterministic and audio.spec_augment:
+        feats = spec_augment(feats, generator, feat_lengths,
+                             freq_para=audio.freq_mask_para,
+                             time_para=audio.time_mask_para,
+                             freq_cnt=audio.freq_mask_cnt,
+                             time_cnt=audio.time_mask_cnt)
+    p = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+    std = cfg.train.weight_noise_std
+    if not deterministic and std > 0:
+        # variational weight noise (Graves 2012): fresh noise on every float
+        # param per microbatch; grads are taken at the noisy point
+        p = {k: v + std * torch.randn(v.shape, dtype=v.dtype, device=v.device,
+                                      generator=generator)
+             if v.is_floating_point() else v for k, v in p.items()}
+    gen = None if deterministic else generator
+    feats = feats.to(dtype)
+    blank = cfg.data.text.pad_token_id
+    enc_lengths = cfg.model.transnet.output_lengths(feat_lengths)
+    fastemit = cfg.train.fastemit_lambda
+    text_in, text_lengths = batch["text_in"], batch["text_lengths"]
+
+    def encode_predict(m):
+        enc, _ = m.encode(feats, feat_lengths, generator=gen)
+        dec, _ = m.predict(text_in, text_lengths, generator=gen)
+        return enc, dec
+
+    chunk_frames = cfg.train.joint_chunk_frames
+    if chunk_frames > 0 and cfg.model.jointnet.combine == "concat":
+        # factored GEMM form: no (T, U) lattice of any width, no recompute
+        A, C = with_params(model, p, lambda m: m.joint_factors(*encode_predict(m)))
+        return rnnt_loss_factored(A, C, batch["targets"], enc_lengths,
+                                  batch["target_lengths"], blank=blank,
+                                  reduction=reduction, fastemit_lambda=fastemit)
+    if chunk_frames > 0:
+        # fused per-chunk path (the additive joint does not factor); the
+        # chunk rebuilds a (B, Tc, U+1, hidden) lattice, so bound Tc
+        enc, dec = with_params(model, p, encode_predict)
+
+        def joint_fn(e, d):
+            return with_params(model, p, lambda m: m.joint_step(e, d))
+        return rnnt_loss_fused(joint_fn, enc, dec, batch["targets"], enc_lengths,
+                               batch["target_lengths"], blank=blank,
+                               reduction=reduction,
+                               chunk_frames=min(chunk_frames, 64),
+                               fastemit_lambda=fastemit)
+    logits = with_params(model, p, lambda m: m(feats, feat_lengths, text_in,
+                                               text_lengths, generator=gen))
+    return rnnt_loss(logits, batch["targets"], enc_lengths, batch["target_lengths"],
+                     blank=blank, reduction=reduction, fastemit_lambda=fastemit)
+
+
+def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer step over ``cfg.train.accumulate_grad_batches``
+    contiguous microbatches of ``batch``, updating ``state`` in place.
+    Returns {'loss', 'grad_norm' (before clipping), 'nonfinite_grad'} as
+    device tensors."""
+    cfg = state.cfg
+    accum = max(cfg.train.accumulate_grad_batches, 1)
+    names, masters = zip(*state.model.named_parameters())
+    params = dict(zip(names, masters))
+    B = next(iter(batch.values())).shape[0]
+    mb = B // accum
+    loss = torch.zeros((), dtype=torch.float32, device=masters[0].device)
+    grads = None
+    for i in range(accum):
+        part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        loss_i = loss_fn(state.model, cfg, params, part, state.generator,
+                         deterministic=False)
+        g_i = [g.float() for g in torch.autograd.grad(loss_i, masters)]
+        grads = g_i if grads is None else [a + b for a, b in zip(grads, g_i)]
+        loss = loss + loss_i.detach().float()
+    if accum > 1:
+        loss = loss / accum
+        grads = [g / accum for g in grads]
+
+    grad_norm = global_norm(grads)
+    nonfinite = ~torch.isfinite(grad_norm)
+    if cfg.train.grad_clip_norm is not None:
+        grads = clip_by_global_norm(grads, cfg.train.grad_clip_norm, grad_norm)
+    if not (cfg.train.skip_nonfinite_grads and bool(nonfinite)):
+        with torch.no_grad():
+            for p, g in zip(masters, grads):
+                p.grad = g
+            for group in state.optimizer.param_groups:
+                group["lr"] = state.schedule(state.updates)
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+        state.updates += 1
+    if state.ema is not None:
+        d = cfg.train.ema_decay
+        with torch.no_grad():
+            for n, p in zip(names, masters):
+                state.ema[n].mul_(d).add_(p, alpha=1.0 - d)
+    state.step += 1
+    return {"loss": loss, "grad_norm": grad_norm,
+            "nonfinite_grad": nonfinite.to(torch.int32)}
+
+
+def eval_step(cfg: Config, model: RNNTransducer, batch: Mapping[str, torch.Tensor],
+              reduction: str = "mean") -> torch.Tensor:
+    """Validation loss under the model's own params: no SpecAugment, no
+    dropout, no weight noise.  ``reduction="none"`` gives per-sample losses."""
+    with torch.no_grad():
+        return loss_fn(model, cfg, dict(model.named_parameters()), batch, None,
+                       deterministic=True, reduction=reduction)
+
+
+def learning_rate_at(cfg: Config, step: int) -> float:
+    return float(make_schedule(cfg.train)(step))
