@@ -6,31 +6,44 @@ Phases (each raises, and the script exits non-zero, on failure):
 
 1. Print the card's name and power limit, require CUDA, build every kernel
    from ``rnntransducer_tpu_torch/csrc`` (one ``nvcc`` per source, started
-   together): gru_fwd (K1), gru_bwd (K2), rnnt_sweep (K5).
+   together): gru_fwd (K1), gru_bwd (K2), lstm_fwd (K3), lstm_bwd (K4),
+   rnnt_sweep (K5), logmel (K6).
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the training and serving paths give it, and time both: K1 and K2
    at H=1024, T=512, B in {1, 8, 64, 100}, both directions, fp32 and bf16
-   (K2 also against autograd through the plain forward loop); K5 at the
+   (K2 also against autograd through the plain forward loop); K3 and K4 at
+   the flagship prediction network (B=64, T=49, H=1024) and tiny_config's
+   encoder (B in {8, 64}, T=512, H=320), both directions, fp32 and bf16,
+   ragged lengths including 1 and T (K4 also against autograd); K5 at the
    flagship lattice (B=64 and the 2B of one loss, T=512, U+1=49) and a
-   ragged T=300.
+   ragged T=300; K6 at the flagship raw-PCM shape (32768 frame rows) and a
+   ragged batch, in both precision modes, the power spectrum and the mel
+   stage apart and end to end.
 3. Drive the serving path: ``Recognizer.transcribe_batch`` / ``transcribe``
    with greedy decoding on ``base_config()`` at full width (8-layer
    bidirectional GRU encoder, H=1024), random weights from a seeded
    ``torch.Generator`` passed through the flax-layout weight bridge, in bf16
-   and fp32.  The kernels' launch counts are set to 0 before and read after;
-   every GRU scan must have gone through the kernel.  Then the encoder is
-   run again with the plain GRU on the card, and outputs and greedy tokens
-   are compared.
-4. Drive the training path (the main path of this slice): ``TrainState`` /
-   ``train_step`` on a trainable ``base_config()`` model at full width from
-   the same seeded weights, B=64, T=512, U=48, bf16, precomputed features
-   (the shape of ``bench.py``).  Warm-up steps, then timed steps with the
-   launch counts set to 0 before and read after each: every GRU scan and
-   its backward and every loss must have gone through K1, K2 and K5.  Step
-   time, utt/s, MFU, and a profiler window over one step.
-5. One fp32 step at full width (B=8: the plain GRU backward is a Python
-   loop of small launches), kernels against plain versions: loss and the
-   grads of named params.
+   and fp32.  The GRU kernel's launch count is set to 0 before and read
+   after; every GRU scan must have gone through the kernel.  Then the
+   encoder is run again with the plain GRU on the card, and outputs and
+   greedy tokens are compared.
+4. The main paths, each with every launch count set to 0 before each timed
+   step and read after it, against the count the design gives
+   (``step_launches``):
+   a. the flagship step: ``TrainState`` / ``train_step`` on a trainable
+      ``base_config()`` at full width from the same seeded weights, B=64,
+      T=512, U=48, bf16, precomputed features (the shape of ``bench.py``):
+      K1 and K2 for the encoder, K3 and K4 for the 2-layer LSTM prediction
+      network, K5 for the loss.  Step time, utt/s, MFU, a profile;
+   b. the same step on raw PCM: 64 seeded waves of up to 81760 samples as
+      int16 plus a per-utterance scale; K6 in every step.  Step time and
+      the frontend's share of it;
+   c. ``tiny_config()`` at full width (2-layer bidirectional LSTM encoder,
+      H=320): bf16 steps at the same shape, then one greedy
+      ``transcribe_batch`` of 8 waves; every LSTM scan through K3 / K4.
+5. One fp32 step at full width (B=8: the plain backward scans are Python
+   loops of small launches), kernels against plain versions (GRU, LSTM and
+   the sweep): loss and the grads of named params.
 6. Print one JSON line describing every kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -53,18 +66,22 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from rnntransducer_tpu_torch.config import TrainConfig, base_config  # noqa: E402
+from rnntransducer_tpu_torch.config import (  # noqa: E402
+    AudioConfig, TrainConfig, base_config, tiny_config)
 from rnntransducer_tpu_torch.decode import greedy as greedy_mod  # noqa: E402
+from rnntransducer_tpu_torch.frontend import fused_frontend  # noqa: E402
 from rnntransducer_tpu_torch.models import cells  # noqa: E402
 from rnntransducer_tpu_torch.models.transducer import build_model  # noqa: E402
 from rnntransducer_tpu_torch.ops import build, rnn_kernels, rnnt_kernels  # noqa: E402
 from rnntransducer_tpu_torch.serve import Recognizer  # noqa: E402
 from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer  # noqa: E402
 from rnntransducer_tpu_torch.train import TrainState, loss_fn, train_step  # noqa: E402
+from rnntransducer_tpu_torch.train.state import (  # noqa: E402
+    dequantize_wav, device_frontend)
 from rnntransducer_tpu_torch.utils.weights import (  # noqa: E402
     random_flax_params, state_dict_from_flax)
 
-KERNELS = ["gru_fwd", "gru_bwd", "rnnt_sweep"]
+KERNELS = ["gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd", "rnnt_sweep", "logmel"]
 T_FRAMES = 512                  # 5.11 s at a 10 ms hop: 81760 samples
 N_SAMPLES = (T_FRAMES - 1) * 160
 SEED = 0
@@ -94,6 +111,25 @@ LOGIT_TOL = {"fp32": 1e-3, "bf16": 0.125}
 # bf16: outputs are rounded to bf16 (ulp 2^-8 of the value); a one-ulp flip
 #   of a rounded dhw feeds the chain, so allow 4 ulps of the largest output.
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 4 * 2.0 ** -8}
+# LSTM forward and backward, kernel vs plain, same inputs, each output
+# relative to its largest magnitude: fp32 differs only in summation order;
+# bf16 outputs are rounded (ulp 2^-8 of the value) and a one-ulp flip of a
+# rounded h or dgates feeds the carries, so allow 4 ulps.
+LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 4 * 2.0 ** -8}
+# (B, T, H) of the LSTM checks: the flagship prediction network (U+1 = 49)
+# and tiny_config's encoder at two batches
+LSTM_SHAPES = ((64, 49, 1024), (8, 512, 320), (64, 512, 320))
+# Log-mel, kernel vs plain, checked in two stages on the same frames: the
+# power spectrum relative to its largest value (fp32 sums of exact bf16
+# products in two orders), and the mel stage on the kernel's own power
+# (log1p of fp32 sums of exact products: 1e-4 absolute).  End to end the
+# mel product rounds power to bf16, and a power value within the summation
+# noise of a rounding boundary lands on either side of it: one ulp, up to
+# 2^-7 relative, moves a mel value dominated by that bin by as much, and
+# its log1p by up to 2^-7 absolute.  That is the end-to-end bound.
+LOGMEL_POWER_TOL = 1e-5
+LOGMEL_MEL_TOL = 1e-4
+LOGMEL_END_TOL = 2.0 ** -7 + 1e-4
 # RNN-T sweep, kernel vs plain, fp32: alpha is a sum of ~T+U log-probs, in
 # the thousands at T=512, where one fp32 ulp is ~1e-4; the two scans add in
 # another order.  Relative to max(|alpha|, 1).
@@ -107,13 +143,15 @@ SWEEP_TOL = 1e-5
 STEP_LOSS_TOL = 1e-5
 STEP_GRAD_TOL = 1e-3
 STEP_GRAD_PARAMS = ("encoder.rnn.fwd.0.w_hh", "encoder.rnn.bwd.7.w_hh",
-                    "prednet.rnn.fwd.0.w_hh", "joint.fc.weight", "joint.fc.bias")
+                    "prednet.rnn.fwd.0.w_hh", "prednet.rnn.fwd.1.w_hh",
+                    "joint.fc.weight", "joint.fc.bias")
 # Training path shape (bench.py): B utterances of T frames, U labels
 TRAIN_B, TRAIN_U = 64, 48
 # the fp32 kernels-vs-plain step: ragged frame and label counts, B=8
 PLAIN_STEP_LENGTHS = ([512, 400, 300, 511, 64, 1, 256, 512],
                       [48, 40, 30, 48, 8, 0, 20, 47])
 WARMUP_STEPS, TIMED_STEPS = 2, 3
+RAW_PCM_STEPS, TINY_STEPS = 3, 3  # timed, after one warm-up step each
 PEAK_BF16_FLOPS = 989e12
 
 
@@ -292,6 +330,208 @@ def phase_gru_bwd(gen):
     return worst, times
 
 
+def _lstm_inputs(T, B, H, dtype, gen):
+    s = 1.0 / H ** 0.5
+    xw = torch.randn(T, B, 4 * H, device=DEVICE, generator=gen).to(dtype)
+    w = ((torch.rand(H, 4 * H, device=DEVICE, generator=gen) * 2 - 1) * s).to(dtype)
+    b = ((torch.rand(4 * H, device=DEVICE, generator=gen) * 2 - 1) * s).to(dtype)
+    h0 = (torch.randn(B, H, device=DEVICE, generator=gen) * 0.5).to(dtype)
+    c0 = (torch.randn(B, H, device=DEVICE, generator=gen) * 0.5).to(dtype)
+    lengths = torch.randint(1, T + 1, (B,), device=DEVICE, generator=gen)
+    lengths[0] = T
+    lengths[-1] = 1
+    return xw, w, b, h0, c0, lengths
+
+
+def lstm_bound_ms(T, B, H, dtype, lengths, backward: bool) -> tuple:
+    """Least time for one LSTM scan.  Forward: xw read at valid steps, W_hh,
+    b_hh, h0, c0 and lengths once; h_all and c_all (T, B, H), h_final and
+    c_final written once; the recurrent product at valid steps.  Backward:
+    xw, h_prev, c_prev and g_out read at valid steps, W_hh, b_hh, g_hfin,
+    g_cfin once; dxw (T, B, 4H), dh0 and dc0 written once; the gate
+    recompute and the dh-chain products at valid steps.  Bytes over HBM,
+    products over the peak rate of the inputs' type; (ms, bound_by)."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    valid = int(lengths.sum())
+    weights = 4 * H * H * e + 4 * H * e + B * 4
+    if backward:
+        nbytes = (valid * 7 * H * e + weights + 2 * B * H * e
+                  + T * B * 4 * H * e + 2 * B * H * e)
+        flops = 2.0 * (2.0 * valid * H * 4 * H)
+    else:
+        nbytes = (valid * 4 * H * e + weights + 2 * B * H * e + 2 * T * B * H * e
+                  + 2 * B * H * e)
+        flops = 2.0 * valid * H * 4 * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_lstm(gen):
+    """LSTM forward and backward kernels vs their plain versions at the
+    flagship prediction network's shape and tiny_config's encoder shapes,
+    both directions, fp32 and bf16; the backward also against autograd
+    through the plain forward loop; times of both at the main paths'
+    shapes."""
+    fwd_worst = bwd_worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, H in LSTM_SHAPES:
+            for reverse in (False, True):
+                xw, w, b, h0, c0, lengths = _lstm_inputs(T, B, H, dtype, gen)
+                args = (xw, w, b, h0, c0, lengths, reverse)
+                got = rnn_kernels.lstm_scan(*args, with_carry=True)
+                want = rnn_kernels.lstm_scan_reference(*args, with_carry=True)
+                h_prev = rnn_kernels.prev_all(want[0], h0, lengths, reverse)
+                c_prev = rnn_kernels.prev_all(want[1], c0, lengths, reverse)
+                cot = [torch.randn(*s, device=DEVICE, generator=gen).to(dtype)
+                       for s in ((T, B, H), (B, H), (B, H))]
+                bargs = (xw, h_prev, c_prev, w, b, lengths, *cot, reverse)
+                gotb = rnn_kernels.lstm_scan_backward(*bargs)
+                wantb = rnn_kernels.lstm_scan_backward_reference(*bargs)
+                gotb += rnn_kernels.lstm_weight_grads(h_prev, gotb[0], dtype)
+                wantb += rnn_kernels.lstm_weight_grads(h_prev, wantb[0], dtype)
+                torch.cuda.synchronize()
+                errs = [_rel_err(g, r) for g, r in zip(got, want)]
+                berrs = [_rel_err(g, r) for g, r in zip(gotb, wantb)]
+                fwd_worst = max(fwd_worst, max((g.float() - r.float()).abs().max().item()
+                                               for g, r in zip(got, want)))
+                bwd_worst = max(bwd_worst, max((g.float() - r.float()).abs().max().item()
+                                               for g, r in zip(gotb[:3], wantb[:3])))
+                print(f"lstm check dtype={str(dtype)[6:]} B={B} T={T} H={H} "
+                      f"reverse={reverse}: fwd rel_err h_all/c_all/h_fin/c_fin="
+                      f"{'/'.join(f'{e:.2e}' for e in errs)}; bwd rel_err dxw/dh0/dc0/"
+                      f"dW/db={'/'.join(f'{e:.2e}' for e in berrs)} "
+                      f"tol={LSTM_TOL[dtype]:.1e}", flush=True)
+                if not max(errs + berrs) <= LSTM_TOL[dtype]:
+                    raise AssertionError(f"lstm kernels disagree with their plain "
+                                         f"versions: {errs} {berrs}")
+    # against autograd through the plain forward loop, fp32, B=8
+    B, T, H = 8, LSTM_SHAPES[0][1], LSTM_SHAPES[0][2]
+    for reverse in (False, True):
+        xw, w, b, h0, c0, lengths = _lstm_inputs(T, B, H, torch.float32, gen)
+        leaves = [a.clone().requires_grad_() for a in (xw, w, b, h0, c0)]
+        cot = [torch.randn(*s, device=DEVICE, generator=gen)
+               for s in ((T, B, H), (B, H), (B, H))]
+        outs = rnn_kernels.lstm_scan_reference(*leaves, lengths, reverse)
+        want = torch.autograd.grad(outs, leaves, cot)
+        outs = rnn_kernels.LSTMScanFunction.apply(*leaves, lengths, reverse)
+        got = torch.autograd.grad(outs, leaves, cot)
+        errs = [_rel_err(g, r) for g, r in zip(got, want)]
+        print(f"lstm_bwd vs autograd of the plain forward fp32 B={B} T={T} H={H} "
+              f"reverse={reverse}: rel_err dxw/dW/db/dh0/dc0="
+              f"{'/'.join(f'{e:.2e}' for e in errs)} "
+              f"tol={LSTM_TOL[torch.float32]:.0e}", flush=True)
+        if not max(errs) <= LSTM_TOL[torch.float32]:
+            raise AssertionError(f"LSTMScanFunction disagrees with autograd: {errs}")
+    times = {}
+    for B, T, H in (LSTM_SHAPES[0], LSTM_SHAPES[2]):
+        for dtype in (torch.bfloat16, torch.float32):
+            xw, w, b, h0, c0, lengths = _lstm_inputs(T, B, H, dtype, gen)
+            lengths[:] = T
+            fwd = (xw, w, b, h0, c0, lengths)
+            h_all, c_all, _, _ = rnn_kernels.lstm_scan(*fwd, with_carry=True)
+            bwd = (xw, rnn_kernels.prev_all(h_all, h0, lengths),
+                   rnn_kernels.prev_all(c_all, c0, lengths), w, b, lengths,
+                   torch.randn(T, B, H, device=DEVICE, generator=gen).to(dtype),
+                   torch.zeros(B, H, device=DEVICE, dtype=dtype),
+                   torch.zeros(B, H, device=DEVICE, dtype=dtype))
+            row = {}
+            for what, fn, ref, a in (
+                    ("fwd", rnn_kernels.lstm_scan, rnn_kernels.lstm_scan_reference, fwd),
+                    ("bwd", rnn_kernels.lstm_scan_backward,
+                     rnn_kernels.lstm_scan_backward_reference, bwd)):
+                ms = _sync_time(lambda: fn(*a), 5)
+                plain = _sync_time(lambda: ref(*a), 1)
+                bound, bound_by = lstm_bound_ms(T, B, H, dtype, lengths, what == "bwd")
+                row[what] = (ms, plain, bound, bound_by)
+                print(f"lstm_{what} time dtype={str(dtype)[6:]} B={B} T={T} H={H}: "
+                      f"kernel {ms:.3f} ms ({ms / T * 1e3:.2f} us/step), plain "
+                      f"{plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
+            times[(dtype, B, T, H)] = row
+    return fwd_worst, bwd_worst, times
+
+
+def _pcm(n, lengths=None, seed=SEED):
+    """``_waves(n, lengths, seed)`` zero padded into (n, max length) float32,
+    with their lengths."""
+    waves = _waves(n, lengths, seed)
+    wav = np.zeros((n, max(len(w) for w in waves)), np.float32)
+    for i, w in enumerate(waves):
+        wav[i, :len(w)] = w
+    return wav, np.asarray([len(w) for w in waves], np.int64)
+
+
+def logmel_bound_ms(rows, n_fft, n_bins, n_mels, high: bool) -> tuple:
+    """Least time for one log-mel launch: the fp32 frames read once, the
+    bf16 DFT matrices (two, or four with their low parts) and filterbank
+    once, the (rows, n_mels) fp32 output written once, over HBM; the DFT
+    (3 products in high mode) and the mel product over their real widths
+    (n_fft samples, n_bins bins, n_mels filters) at the bf16 peak."""
+    nbytes = (rows * n_fft * 4 + (4 if high else 2) * n_fft * n_bins * 2
+              + n_bins * n_mels * 2 + rows * n_mels * 4)
+    flops = (2.0 * rows * n_fft * 2 * n_bins * (3 if high else 1)
+             + 2.0 * rows * n_bins * n_mels)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_logmel():
+    """Log-mel kernel vs its plain version at the flagship raw-PCM shape
+    (B=64 waves up to 81760 samples, 32768 frame rows) and a ragged batch
+    with short utterances, in both precision modes; timed at the flagship
+    shape."""
+    cfg = base_config().data.audio
+    n_bins = cfg.n_fft // 2 + 1
+    worst, times = 0.0, {}
+    batches = {"flagship": _pcm(TRAIN_B),
+               "ragged": _pcm(8, [N_SAMPLES, 4800, 3333, 1601, 250, 161, 40000, 1])}
+    for name, (wav, lengths) in batches.items():
+        wav = torch.from_numpy(wav).to(DEVICE)
+        lengths = torch.from_numpy(lengths).to(DEVICE)
+        rows, F = fused_frontend._frames(wav, cfg, lengths)
+        for high in (False, True):
+            power = torch.empty((rows.shape[0], 256), device=DEVICE)
+            got = fused_frontend.logmel_rows_cuda(rows, cfg, high, power)
+            want_power = fused_frontend.dft_power_reference(rows, cfg, high)
+            want = fused_frontend.mel_reference(want_power, cfg)
+            staged = fused_frontend.mel_reference(power, cfg)
+            feats, flen = fused_frontend.logmel_fused(wav, cfg, lengths, high)
+            torch.cuda.synchronize()
+            p_err = _rel_err(power, want_power)
+            m_err = (got - staged).abs().max().item()
+            end = (got - want).abs()
+            e_err = end.max().item()
+            over = (end > LOGMEL_MEL_TOL).float().mean().item()
+            print(f"logmel check {name} rows={rows.shape[0]} high={high}: power rel_err "
+                  f"{p_err:.2e} (tol {LOGMEL_POWER_TOL:.0e}); mel stage on the kernel's "
+                  f"power max_abs_err {m_err:.2e} (tol {LOGMEL_MEL_TOL:.0e}); end to end "
+                  f"max_abs_err {e_err:.2e} (tol {LOGMEL_END_TOL:.2e}), share above "
+                  f"{LOGMEL_MEL_TOL:.0e}: {over:.2e}", flush=True)
+            if not (p_err <= LOGMEL_POWER_TOL and m_err <= LOGMEL_MEL_TOL
+                    and e_err <= LOGMEL_END_TOL):
+                raise AssertionError("logmel disagrees with its plain version")
+            if not (feats.shape == (wav.shape[0], F, cfg.n_mels)
+                    and torch.isfinite(feats).all()
+                    and torch.equal(flen.cpu(), (lengths.cpu() // cfg.hop_length + 1)
+                                    .to(torch.int32))
+                    and torch.equal(feats.reshape(-1, cfg.n_mels), got)):
+                raise AssertionError("logmel_fused: wrong shape, lengths or values")
+            worst = max(worst, e_err)
+            if name == "flagship":
+                ms = _sync_time(
+                    lambda: fused_frontend.logmel_rows_cuda(rows, cfg, high), 20)
+                plain = _sync_time(lambda: fused_frontend.mel_reference(
+                    fused_frontend.dft_power_reference(rows, cfg, high), cfg), 5)
+                bound, bound_by = logmel_bound_ms(rows.shape[0], cfg.n_fft, n_bins,
+                                                  cfg.n_mels, high)
+                times[high] = (ms, plain, bound, bound_by)
+                print(f"logmel time rows={rows.shape[0]} high={high}: kernel {ms:.4f} "
+                      f"ms, plain {plain:.3f} ms, bound {bound:.4f} ms by {bound_by}",
+                      flush=True)
+    return worst, times
+
+
 def _lattice_edges(N, T, U1, gen):
     """Blank / label log-probs of a random V=72 lattice, (N, T, U+1) fp32."""
     lp = torch.log_softmax(torch.randn(N, T, U1, 72, device=DEVICE, generator=gen), -1)
@@ -328,13 +568,17 @@ def phase_sweep(gen):
     return worst, times
 
 
-def _waves(n):
-    """Seeded synthetic speech-band signals, the longest exactly T_FRAMES."""
-    rng = np.random.RandomState(SEED)
+def _waves(n, lengths=None, seed=SEED):
+    """Seeded synthetic speech-band signals; without ``lengths`` the first
+    is exactly T_FRAMES long and the others 3/4 of that or more."""
+    rng = np.random.RandomState(seed)
     out = []
     for i in range(n):
-        length = N_SAMPLES if i == 0 else int(rng.randint(N_SAMPLES * 3 // 4,
-                                                          N_SAMPLES))
+        if lengths is not None:
+            length = lengths[i]
+        else:
+            length = N_SAMPLES if i == 0 else int(rng.randint(N_SAMPLES * 3 // 4,
+                                                              N_SAMPLES))
         t = np.arange(length) / 16000.0
         f0 = rng.uniform(100, 300)
         sig = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6.3)) / k
@@ -430,15 +674,39 @@ def _train_batch(cfg, B, T, U, seed=SEED):
     return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
 
 
+KERNEL_WRAPPERS = {"gru_fwd": rnn_kernels.gru_scan,
+                   "gru_bwd": rnn_kernels.gru_scan_backward,
+                   "lstm_fwd": rnn_kernels.lstm_scan,
+                   "lstm_bwd": rnn_kernels.lstm_scan_backward,
+                   "rnnt_sweep": rnnt_kernels.sweep,
+                   "logmel": fused_frontend.logmel_fused}
+
+
 def _counts():
-    return (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches,
-            rnnt_kernels.sweep.launches)
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
 def _zero_counts():
-    rnn_kernels.gru_scan.launches = 0
-    rnn_kernels.gru_scan_backward.launches = 0
-    rnnt_kernels.sweep.launches = 0
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def step_launches(cfg, T: int, U: int, raw_pcm: bool = False) -> dict:
+    """Kernel launches of one train_step: every directional scan of the
+    encoder (T steps) and of the prediction network (U+1 steps) takes T
+    launches forward and T + 1 backward in its cell type's kernels (neither
+    config here reduces time); the loss one sweep; a raw-PCM batch one
+    log-mel."""
+    tn, pn = cfg.model.transnet, cfg.model.prednet
+    want = dict.fromkeys(KERNELS, 0)
+    for rnn_type, scans, steps in (
+            (tn.rnn_type, tn.num_layers * (2 if tn.bidirectional else 1), T),
+            (pn.rnn_type, pn.num_layers, U + 1)):
+        want[f"{rnn_type.lower()}_fwd"] += scans * steps
+        want[f"{rnn_type.lower()}_bwd"] += scans * (steps + 1)
+    want["rnnt_sweep"] = 1
+    want["logmel"] = int(raw_pcm)
+    return want
 
 
 @contextlib.contextmanager
@@ -446,14 +714,18 @@ def _plain_kernels():
     """Every kernel of the training and serving paths swapped for its plain
     version (comparison only)."""
     saved = (cells.gru_scan, rnn_kernels.gru_scan, rnn_kernels.gru_scan_backward,
+             cells.lstm_scan, rnn_kernels.lstm_scan, rnn_kernels.lstm_scan_backward,
              rnnt_kernels.sweep)
     cells.gru_scan = rnn_kernels.gru_scan = rnn_kernels.gru_scan_reference
     rnn_kernels.gru_scan_backward = rnn_kernels.gru_scan_backward_reference
+    cells.lstm_scan = rnn_kernels.lstm_scan = rnn_kernels.lstm_scan_reference
+    rnn_kernels.lstm_scan_backward = rnn_kernels.lstm_scan_backward_reference
     rnnt_kernels.sweep = rnnt_kernels.sweep_reference
     try:
         yield
     finally:
         (cells.gru_scan, rnn_kernels.gru_scan, rnn_kernels.gru_scan_backward,
+         cells.lstm_scan, rnn_kernels.lstm_scan, rnn_kernels.lstm_scan_backward,
          rnnt_kernels.sweep) = saved
 
 
@@ -476,36 +748,31 @@ def phase_profile_step(state, batch):
         return None
     print(f"train profile bf16 step (profiler on): wall {wall_ms:.1f} ms, device "
           f"busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%)", flush=True)
-    for dev_us, count, name in sorted(rows, reverse=True)[:10]:
+    for dev_us, count, name in sorted(rows, reverse=True)[:12]:
         print(f"train profile   {dev_us / 1e3:9.2f} ms  {count:7d} calls  "
               f"{name[:70]}", flush=True)
     return device_ms / wall_ms
 
 
-def phase_training(flax_params):
-    """The main path: bf16 train_step at the flagship shape."""
-    cfg = base_config()
+def _bf16_train_state(cfg, flax_params):
     cfg = dataclasses.replace(cfg, train=TrainConfig(
         precision="bf16", accumulate_grad_batches=1, max_steps=1000))
-    tn = cfg.model.transnet
-    scans = tn.num_layers * (2 if tn.bidirectional else 1)
-    B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
     sd = state_dict_from_flax(flax_params, cfg.model)
-    state = TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED)
-    batch = _train_batch(cfg, B, T, U)
-    for _ in range(WARMUP_STEPS):
+    return cfg, TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED)
+
+
+def _run_steps(label, state, batch, want, warmup, steps, watch):
+    """``warmup`` steps, then ``steps`` timed steps with the launch counts set
+    to 0 before and read after each: they must equal ``want``, the loss and
+    grad norm must be finite and ``watch`` (a param name) must move.
+    Returns (step ms list, summed launches, last metrics)."""
+    for _ in range(warmup):
         metrics = train_step(state, batch)
     torch.cuda.synchronize()
-    print(f"train warm-up: loss {metrics['loss'].item():.4f} grad_norm "
-          f"{metrics['grad_norm'].item():.4f}", flush=True)
-    watch = state.params["encoder.rnn.fwd.0.w_hh"]
-    torch.cuda.reset_peak_memory_stats()
-
-    # ---- the main path: counts from 0 before each step, read after -----
-    want = (scans * T, scans * (T + 1), 1)
-    step_ms, launches = [], [0, 0, 0]
-    for i in range(TIMED_STEPS):
-        before = watch.detach().clone()
+    param = state.params[watch]
+    step_ms, launches = [], dict.fromkeys(KERNELS, 0)
+    for i in range(steps):
+        before = param.detach().clone()
         _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -513,22 +780,36 @@ def phase_training(flax_params):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         got = _counts()
-        launches = [a + b for a, b in zip(launches, got)]
+        launches = {k: launches[k] + got[k] for k in KERNELS}
         loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
-        moved = (watch.detach() - before).abs().max().item()
-        print(f"train step {i}: {step_ms[-1]:.1f} ms loss {loss:.4f} grad_norm "
-              f"{gnorm:.4f} max |d w_hh| {moved:.3e}; launches gru_fwd/gru_bwd/"
-              f"rnnt_sweep {got} (expected {want})", flush=True)
+        moved = (param.detach() - before).abs().max().item()
+        print(f"{label} step {i}: {step_ms[-1]:.1f} ms loss {loss:.4f} grad_norm "
+              f"{gnorm:.4f} max |d {watch}| {moved:.3e}; launches "
+              f"{json.dumps(got)}", flush=True)
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            raise AssertionError(f"train step {i}: loss {loss}, grad_norm {gnorm}")
+            raise AssertionError(f"{label} step {i}: loss {loss}, grad_norm {gnorm}")
         if not moved > 0.0:
-            raise AssertionError(f"train step {i}: the params did not change")
-        if tuple(got) != want:
-            raise AssertionError(f"train step {i}: launches {got}, expected {want}")
+            raise AssertionError(f"{label} step {i}: the params did not change")
+        if got != want:
+            raise AssertionError(f"{label} step {i}: launches {got}, expected {want}")
+    return step_ms, launches, metrics
+
+
+def phase_training(flax_params):
+    """The flagship path: bf16 train_step of base_config() at B=64, T=512,
+    U=48 on precomputed features."""
+    cfg, state = _bf16_train_state(base_config(), flax_params)
+    B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
+    batch = _train_batch(cfg, B, T, U)
+    want = step_launches(cfg, T, U)
+    print(f"train expected launches per step {json.dumps(want)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, launches, _ = _run_steps("train", state, batch, want, WARMUP_STEPS,
+                                      TIMED_STEPS, "encoder.rnn.fwd.0.w_hh")
     ms = float(np.mean(step_ms))
     mfu = step_model_flops(cfg, B, T, U) / (ms / 1e3) / PEAK_BF16_FLOPS
     result = {"step_ms": ms, "step_ms_each": step_ms, "utt_per_s": B / (ms / 1e3),
-              "mfu": mfu, "max_memory_allocated_mib":
+              "mfu": mfu, "launches_per_step": want, "max_memory_allocated_mib":
               torch.cuda.max_memory_allocated() / 2 ** 20}
     print(f"train bf16 B={B} T={T} U={U}: step {ms:.1f} ms, {result['utt_per_s']:.2f} "
           f"utt/s, MFU {mfu:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), "
@@ -536,6 +817,96 @@ def phase_training(flax_params):
           flush=True)
     result["device_busy_share"] = phase_profile_step(state, batch)
     del state
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def quantize_pcm(wav: np.ndarray, lengths: np.ndarray):
+    """Peak-scaled int16 and per-utterance float32 scales, wav[b] ~= q[b] *
+    scale[b] (the numpy recipe of ``data/collate.py::quantize_waveforms``)."""
+    q = np.zeros(wav.shape, np.int16)
+    scales = np.zeros((wav.shape[0],), np.float32)
+    for i, n in enumerate(lengths):
+        peak = float(np.max(np.abs(wav[i, :n]))) if n else 0.0
+        scales[i] = peak / 32767.0 if peak > 0 else 0.0
+        if scales[i] > 0:
+            q[i, :n] = np.round(wav[i, :n] / scales[i]).astype(np.int16)
+    return q, scales
+
+
+def phase_raw_pcm(flax_params):
+    """bf16 train_step of base_config() on raw PCM at the flagship shape:
+    B=64 seeded waves of up to 81760 samples (512 frames) shipped as int16
+    plus a per-utterance scale, U=48; the log-mel kernel runs in every
+    step.  Step time and the frontend's share of it."""
+    cfg, state = _bf16_train_state(base_config(), flax_params)
+    B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
+    wav, lengths = _pcm(B, seed=SEED + 2)
+    q, scale = quantize_pcm(wav, lengths)
+    text = {k: v for k, v in _train_batch(cfg, B, T, U).items()
+            if k not in ("feats", "feat_lengths")}
+    batch = {"wav": torch.from_numpy(q).to(DEVICE),
+             "wav_scale": torch.from_numpy(scale).to(DEVICE),
+             "wav_lengths": torch.from_numpy(lengths).to(DEVICE), **text}
+    want = step_launches(cfg, T, U, raw_pcm=True)
+    print(f"raw-PCM expected launches per step {json.dumps(want)}", flush=True)
+    step_ms, launches, metrics = _run_steps("raw-PCM", state, batch, want, 1,
+                                            RAW_PCM_STEPS, "encoder.rnn.fwd.0.w_hh")
+    feats, flen = device_frontend(cfg.data.audio, dequantize_wav(batch),
+                                  batch["wav_lengths"])
+    if not (feats.shape == (B, T, cfg.data.audio.n_mels)
+            and torch.isfinite(feats).all() and int(flen.max()) == T):
+        raise AssertionError(f"raw-PCM features {tuple(feats.shape)}, lengths up "
+                             f"to {int(flen.max())}")
+    frontend_ms = _sync_time(lambda: device_frontend(
+        cfg.data.audio, dequantize_wav(batch), batch["wav_lengths"]), 5)
+    ms = float(np.mean(step_ms))
+    result = {"step_ms": ms, "step_ms_each": step_ms, "utt_per_s": B / (ms / 1e3),
+              "frontend_ms": frontend_ms, "frontend_share": frontend_ms / ms,
+              "loss": metrics["loss"].item(), "launches_per_step": want}
+    print(f"raw-PCM bf16 B={B} S={wav.shape[1]} (int16) U={U}: step {ms:.1f} ms, "
+          f"{result['utt_per_s']:.2f} utt/s; frontend (dequantize, normalise, "
+          f"frame, log-mel kernel) {frontend_ms:.3f} ms = "
+          f"{100 * frontend_ms / ms:.2f}% of the step", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def phase_tiny(tokenizer, waves):
+    """tiny_config() at full width (2-layer bidirectional LSTM encoder and a
+    1-layer LSTM prediction network, H=320) from seeded flax-layout
+    weights: bf16 train_steps at B=64, T=512, U=48, then one greedy
+    transcribe_batch of 8 waves; every LSTM scan through K3 / K4."""
+    cfg = tiny_config()
+    flax_params = random_flax_params(cfg.model, torch.Generator().manual_seed(SEED + 3))
+    cfg, state = _bf16_train_state(cfg, flax_params)
+    B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
+    batch = _train_batch(cfg, B, T, U)
+    want = step_launches(cfg, T, U)
+    print(f"tiny expected launches per step {json.dumps(want)}", flush=True)
+    step_ms, launches, metrics = _run_steps("tiny", state, batch, want, 1,
+                                            TINY_STEPS, "encoder.rnn.bwd.1.w_hh")
+    del state
+    rec = Recognizer(cfg, flax_params, tokenizer, precision="bf16", device=DEVICE)
+    rec.transcribe(waves[0][:16000])  # warm-up
+    _zero_counts()
+    texts, req_ms, _ = _request(rec.transcribe_batch, waves)
+    got = _counts()
+    scans = cfg.model.transnet.num_layers * 2
+    want_serve = dict.fromkeys(KERNELS, 0)
+    want_serve["lstm_fwd"] = scans * T_FRAMES
+    print(f"tiny bf16 transcribe_batch of {len(waves)}: {req_ms:.1f} ms, launches "
+          f"{json.dumps(got)} (expected {json.dumps(want_serve)}); {texts}", flush=True)
+    if got != want_serve or not all(isinstance(x, str) for x in texts):
+        raise AssertionError("tiny transcribe_batch: wrong launches or transcripts")
+    launches["lstm_fwd"] += got["lstm_fwd"]
+    ms = float(np.mean(step_ms))
+    result = {"step_ms": ms, "step_ms_each": step_ms, "utt_per_s": B / (ms / 1e3),
+              "loss": metrics["loss"].item(), "launches_per_step": want,
+              "transcribe_batch8_ms": req_ms}
+    print(f"tiny bf16 B={B} T={T} U={U}: step {ms:.1f} ms, "
+          f"{result['utt_per_s']:.2f} utt/s", flush=True)
     torch.cuda.empty_cache()
     return launches, result
 
@@ -690,33 +1061,48 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     fwd_err, fwd_times = phase_kernels(gen)
     bwd_err, bwd_times = phase_gru_bwd(gen)
+    lstm_fwd_err, lstm_bwd_err, lstm_times = phase_lstm(gen)
     sweep_err, sweep_times = phase_sweep(gen)
+    logmel_err, logmel_times = phase_logmel()
 
     cfg = base_config()
     flax_params = random_flax_params(cfg.model, torch.Generator().manual_seed(SEED))
     tokenizer = GraphemeTokenizer.default(cfg.model.jointnet.num_classes)
-    serve_launches, results = phase_serving(flax_params, tokenizer, _waves(8))
+    waves = _waves(8)
+    serve_launches, results = phase_serving(flax_params, tokenizer, waves)
     print("serving " + json.dumps(results), flush=True)
     if not serve_launches > 0:
         raise AssertionError("the serving path launched no GRU kernel")
     torch.cuda.empty_cache()
 
-    launches, train = phase_training(flax_params)
-    print("training " + json.dumps(train), flush=True)
+    # ---- the main paths: each sets the counts to 0 before every step -------
+    launches = dict.fromkeys(KERNELS, 0)
+    for name, run in (("training", lambda: phase_training(flax_params)),
+                      ("raw_pcm", lambda: phase_raw_pcm(flax_params)),
+                      ("tiny", lambda: phase_tiny(tokenizer, waves))):
+        got, result = run()
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+        print(f"{name} " + json.dumps(result), flush=True)
     vs_plain = phase_step_vs_plain(flax_params)
     print("step_vs_plain " + json.dumps(vs_plain), flush=True)
 
-    rows = (("gru_fwd", "rnn_pallas.py:92", fwd_err, fwd_times[(torch.bfloat16, TRAIN_B)]),
-            ("gru_bwd", "rnn_pallas.py:163", bwd_err, bwd_times[(torch.bfloat16, TRAIN_B)]),
-            ("rnnt_sweep", "rnnt_pallas.py:71", sweep_err, sweep_times[2 * TRAIN_B]))
+    flagship_lstm = lstm_times[(torch.bfloat16,) + LSTM_SHAPES[0]]
+    rows = (("gru_fwd", "ops/rnn_pallas.py:92", fwd_err,
+             fwd_times[(torch.bfloat16, TRAIN_B)]),
+            ("gru_bwd", "ops/rnn_pallas.py:163", bwd_err,
+             bwd_times[(torch.bfloat16, TRAIN_B)]),
+            ("lstm_fwd", "ops/rnn_pallas.py:121", lstm_fwd_err, flagship_lstm["fwd"]),
+            ("lstm_bwd", "ops/rnn_pallas.py:226", lstm_bwd_err, flagship_lstm["bwd"]),
+            ("rnnt_sweep", "ops/rnnt_pallas.py:71", sweep_err, sweep_times[2 * TRAIN_B]),
+            ("logmel", "frontend/pallas_frontend.py:84", logmel_err, logmel_times[False]))
     kernels = []
-    for (name, replaces, err, (ms, plain, bound, bound_by)), n in zip(rows, launches):
-        if not n > 0:
-            raise AssertionError(f"{name} was not launched on the training path")
+    for name, replaces, err, (ms, plain, bound, bound_by) in rows:
+        if not launches[name] > 0:
+            raise AssertionError(f"{name} was not launched on the main paths")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"rnntransducer_tpu_torch/csrc/{name}.cu",
-            "replaces": ("rnntransducer_tpu/ops/" + replaces), "launches": n,
+            "replaces": "rnntransducer_tpu/" + replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None})
     print(smi, flush=True)

@@ -12,11 +12,15 @@
   b_ih and b_hh; GRU's b_hn sits inside r * (...).
 * Weights keep the JAX layout: ``w_ih`` (in, G*H) and ``w_hh`` (H, G*H).
 
-GRU layers run through ``ops.rnn_kernels.gru_scan`` (the CUDA kernel on the
-card, its plain version on the CPU); when autograd records, through
-``GRUScanFunction``, whose backward is the backward kernel.  LSTM and
-vanilla RNN layers use a plain masked loop in the activation dtype, which
-autograd differentiates, as the JAX package's XLA scan does.
+GRU and LSTM layers run through ``ops.rnn_kernels.gru_scan`` /
+``lstm_scan`` (the CUDA kernels on the card, their plain versions on the
+CPU); when autograd records, through ``GRUScanFunction`` /
+``LSTMScanFunction``, whose backward is the backward kernel.  Both keep an
+fp32 carry, as the JAX package's Pallas kernels do (its XLA scan carries
+the activation dtype).  Vanilla RNN layers, which have no kernel in the JAX
+package either, use a plain masked loop in the activation dtype that
+autograd differentiates.  ``step()`` (the decode path) is the plain single
+step for every cell type.
 
 Dropout (training only) follows the JAX package's ``FastDropout``: the rate
 is quantized to n/256, uint8 bits come from an explicit
@@ -32,7 +36,9 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from rnntransducer_tpu_torch.ops.rnn_kernels import GRUScanFunction, gru_scan
+from rnntransducer_tpu_torch.ops.rnn_kernels import (GRUScanFunction,
+                                                    LSTMScanFunction, gru_scan,
+                                                    lstm_scan)
 from rnntransducer_tpu_torch.utils.masking import length_mask
 
 GATES = {"lstm": 4, "gru": 3, "rnn": 1}
@@ -125,15 +131,25 @@ class RNNLayer(nn.Module):
             initial_state = self.init_state(B, x.dtype, x.device)
         h, c = initial_state
         xw_t = (torch.matmul(x, self.w_ih) + self.b_ih).transpose(0, 1).contiguous()
+        lengths_t = lengths.clamp(0, T)
         if self.rnn_type == "gru":
-            args = (xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype),
-                    lengths.clamp(0, T), self.reverse)
+            args = (xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype), lengths_t,
+                    self.reverse)
             if torch.is_grad_enabled() and any(
                     a.requires_grad for a in args[:4]):
                 outs, h_fin = GRUScanFunction.apply(*args)
             else:
                 outs, h_fin = gru_scan(*args)
             return outs.transpose(0, 1), (h_fin.to(h.dtype), c)
+        if self.rnn_type == "lstm":
+            args = (xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype),
+                    c.to(xw_t.dtype), lengths_t, self.reverse)
+            if torch.is_grad_enabled() and any(
+                    a.requires_grad for a in args[:5]):
+                outs, h_fin, c_fin = LSTMScanFunction.apply(*args)
+            else:
+                outs, h_fin, c_fin = lstm_scan(*args)
+            return outs.transpose(0, 1), (h_fin.to(h.dtype), c_fin.to(c.dtype))
         mask_t = length_mask(lengths, T).transpose(0, 1)[..., None]  # (T, B, 1)
         outs: List[Optional[torch.Tensor]] = [None] * T
         for t in (range(T - 1, -1, -1) if self.reverse else range(T)):

@@ -1,23 +1,27 @@
-"""Masked GRU recurrence, forward and backward: the CUDA kernels' wrappers
-and their plain versions.
+"""Masked GRU and LSTM recurrences, forward and backward: the CUDA
+kernels' wrappers and their plain versions.
 
-``gru_scan`` has the signature and layout of the JAX package's
-``rnntransducer_tpu/ops/rnn_pallas.py::gru_scan``.  It dispatches on the
-device of ``xw``: a CPU tensor goes to :func:`gru_scan_reference`; a CUDA
-tensor goes to the hand-written kernel ``csrc/gru_fwd.cu`` or the call
-raises.  ``gru_scan_backward`` does the same for the backward through time
-(``csrc/gru_bwd.cu`` / :func:`gru_scan_backward_reference`).  There is no
-fallback from a kernel to its plain version.
+``gru_scan`` and ``lstm_scan`` have the signatures and layouts of the JAX
+package's ``rnntransducer_tpu/ops/rnn_pallas.py::gru_scan`` / ``lstm_scan``.
+Each dispatches on the device of ``xw``: a CPU tensor goes to the plain
+version (:func:`gru_scan_reference`, :func:`lstm_scan_reference`); a CUDA
+tensor goes to the hand-written kernel (``csrc/gru_fwd.cu``,
+``csrc/lstm_fwd.cu``) or the call raises.  ``gru_scan_backward`` and
+``lstm_scan_backward`` do the same for the backward through time
+(``csrc/gru_bwd.cu``, ``csrc/lstm_bwd.cu``).  There is no fallback from a
+kernel to its plain version.
 
-:class:`GRUScanFunction` is the autograd form: its forward is ``gru_scan``,
-its backward ``gru_scan_backward`` plus the off-loop dW_hh / db_hh GEMMs
-(:func:`gru_weight_grads`), as the JAX package's custom VJP
-(``rnn_pallas.py:479-558``).  It looks both up in this module when it runs,
-so a caller may swap either for its plain version.
+:class:`GRUScanFunction` and :class:`LSTMScanFunction` are the autograd
+forms: the forward is the scan, the backward the backward scan plus the
+off-loop dW_hh / db_hh GEMMs (:func:`gru_weight_grads`,
+:func:`lstm_weight_grads`), as the JAX package's custom VJPs
+(``rnn_pallas.py:479-558``, ``:628-698``).  They look the scans up in this
+module when they run, so a caller may swap any of them for its plain
+version.
 
-``gru_scan.launches`` / ``gru_scan_backward.launches`` count the kernel
-launches each wrapper made (T per forward scan, T + 1 per backward scan),
-so a run can show that its GRU layers went through the kernels.
+Each wrapper's ``.launches`` counts the kernel launches it made (T per
+forward scan, T + 1 per backward scan), so a run can show that its
+recurrent layers went through the kernels.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from rnntransducer_tpu_torch.ops import build
 from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_WIDTH = 8                    # hidden units per block (kJT in the kernel)
+_TILE_WIDTH = 8                    # GRU hidden units per block (kJT in the kernels)
+_LSTM_TILE_WIDTH = 4               # LSTM hidden units per block (kJT in the kernels)
 _K_ALIGN = 64                      # the kernel's K loop walks 64 at a time
 
 
@@ -75,13 +80,14 @@ def _library():
 
 
 def _tile_weights(w_hh: torch.Tensor, H: int, Hk: int, jt: int) -> torch.Tensor:
-    """(H, 3H) -> (ceil(H/jt), 3*jt, Hk): block i's r, z, n columns for its
-    jt hidden units, transposed so K runs contiguously, zero padded for
-    k >= H and j >= H."""
+    """(H, G*H) -> (ceil(H/jt), G*jt, Hk): block i's gate columns (r, z, n
+    or i, f, g, o) for its jt hidden units, transposed so K runs
+    contiguously, zero padded for k >= H and j >= H."""
     Hp = -(-H // jt) * jt
-    w3 = F.pad(w_hh.view(H, 3, H), (0, Hp - H, 0, 0, 0, Hk - H))
-    return (w3.view(Hk, 3, Hp // jt, jt).permute(2, 1, 3, 0)
-            .reshape(Hp // jt, 3 * jt, Hk).contiguous())
+    G = w_hh.shape[1] // H
+    wg = F.pad(w_hh.view(H, G, H), (0, Hp - H, 0, 0, 0, Hk - H))
+    return (wg.view(Hk, G, Hp // jt, jt).permute(2, 1, 3, 0)
+            .reshape(Hp // jt, G * jt, Hk).contiguous())
 
 
 def _gru_scan_cuda(xw, w_hh, b_hh, h0, lengths, reverse):
@@ -241,11 +247,12 @@ def _bwd_library():
 
 
 def _chain_tiles(w_hh: torch.Tensor, H: int, Kc: int, jt: int) -> torch.Tensor:
-    """(H, 3H) -> (ceil(H/jt), jt, Kc): block i's jt contiguous rows of W_hh
-    (the dh chain dh_j = dhw . W_hh[j, :]), zero padded for j >= H and
-    k >= 3H."""
+    """(H, G*H) -> (ceil(H/jt), jt, Kc): block i's jt contiguous rows of
+    W_hh (the dh chain dh_j = dhw . W_hh[j, :]), zero padded for j >= H and
+    k >= G*H."""
     Hp = -(-H // jt) * jt
-    return F.pad(w_hh, (0, Kc - 3 * H, 0, Hp - H)).view(Hp // jt, jt, Kc).contiguous()
+    return (F.pad(w_hh, (0, Kc - w_hh.shape[1], 0, Hp - H))
+            .view(Hp // jt, jt, Kc).contiguous())
 
 
 def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
@@ -347,3 +354,301 @@ class GRUScanFunction(torch.autograd.Function):
                                           g_hall, g_hfin, ctx.reverse)
         dw, db = gru_weight_grads(h_prev, dxw, dnr, w_hh.dtype)
         return dxw, dw, db.to(b_hh.dtype), dh0.to(h0.dtype), None, None
+
+
+# ---------------------------------------------------------------------------
+# LSTM
+# ---------------------------------------------------------------------------
+
+
+def _lstm_gates(s):
+    """s = xw + hw, (B, 4H) fp32 -> sigmoid i, f, tanh g, sigmoid o."""
+    i, f, g, o = torch.chunk(s, 4, dim=1)
+    return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+
+
+def lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
+                        with_carry: bool = False):
+    """Plain PyTorch version of the LSTM kernel, under K1's numeric contract:
+    fp32 h and c carry, h rounded to W's dtype for the product, fp32
+    accumulation, b_hh added in fp32, xw read as fp32, outputs in xw's dtype.
+
+    xw (T, B, 4H); w_hh (H, 4H); b_hh (4H,); h0, c0 (B, H); lengths (B,).
+    Gate order i, f, g, o.  Returns (h_all (T, B, H), h_final, c_final);
+    steps t >= lengths[b] keep the carry and emit zeros in h_all.  With
+    ``with_carry`` it returns (h_all, c_all, h_final, c_final), c_all being
+    the cell-state carry after every step (not zeroed at padded steps), which
+    the backward reads its predecessor c from."""
+    T, B, G = xw.shape
+    w = w_hh.float()
+    b = b_hh.float()
+    h = h0.float()
+    c = c0.float()
+    lengths = lengths.to(xw.device)
+    h_all = torch.empty((T, B, G // 4), dtype=xw.dtype, device=xw.device)
+    c_all = torch.empty_like(h_all)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        hw = torch.matmul(h.to(w_hh.dtype).float(), w) + b
+        i, f, g, o = _lstm_gates(xw[t].float() + hw)
+        c_new = f * c + i * g
+        h_new = o * torch.tanh(c_new)
+        m = (lengths > t)[:, None]
+        h = torch.where(m, h_new, h)
+        c = torch.where(m, c_new, c)
+        h_all[t] = torch.where(m, h_new, 0.0).to(xw.dtype)
+        c_all[t] = c.to(xw.dtype)
+    h_fin, c_fin = h.to(xw.dtype), c.to(xw.dtype)
+    return (h_all, c_all, h_fin, c_fin) if with_carry else (h_all, h_fin, c_fin)
+
+
+def _check_lstm_args(op, xw, named, contiguous):
+    """Device, shape and dtype checks of an LSTM kernel call: ``named``
+    holds (name, tensor, shape, must share xw's dtype); the kernel reads xw
+    and the tensors in ``contiguous`` as they are, so they must be dense."""
+    if xw.dim() != 3 or xw.shape[2] % 4:
+        raise ValueError(f"{op}: xw must be (T, B, 4H), got {tuple(xw.shape)}")
+    if xw.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{op} kernel takes float32 or bfloat16, got {xw.dtype}")
+    for name, x, shape, same_dtype in named:
+        if x.device != xw.device:
+            raise ValueError(f"{op}: {name} is on {x.device}, xw on {xw.device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{op}: {name} has shape {tuple(x.shape)}, expected "
+                             f"{shape} for xw {tuple(xw.shape)}")
+        if same_dtype and x.dtype != xw.dtype:
+            raise TypeError(f"{op} kernel needs {name} in xw's dtype {xw.dtype}, "
+                            f"got {x.dtype}")
+    if not all(x.is_contiguous() for x in (xw,) + contiguous):
+        raise ValueError(f"{op} kernel needs contiguous xw, weights and streams")
+
+
+def _fp32_copy(x):
+    """A dense fp32 copy of x, which a kernel may update in place."""
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device).copy_(x)
+
+
+def _lstm_fwd_library():
+    lib = build.load("lstm_fwd")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_scan_fwd.argtypes = [p] * 11 + [i] * 7 + [p]
+        lib.lstm_scan_fwd.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths, reverse):
+    T, B, G = xw.shape
+    H = G // 4
+    _check_lstm_args("lstm_scan", xw, (
+        ("w_hh", w_hh, (H, G), True), ("b_hh", b_hh, (G,), True),
+        ("h0", h0, (B, H), False), ("c0", c0, (B, H), False),
+        ("lengths", lengths, (B,), False)), (w_hh, b_hh))
+    dev = xw.device
+    lib = _lstm_fwd_library()
+    Hk = -(-H // _K_ALIGN) * _K_ALIGN
+    with torch.cuda.device(dev):
+        h_all = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
+        c_all = torch.empty_like(h_all)
+        if T == 0:
+            return h_all, c_all, h0.to(xw.dtype), c0.to(xw.dtype)
+        tiles = _tile_weights(w_hh, H, Hk, _LSTM_TILE_WIDTH)
+        h_a = torch.zeros((B, Hk), dtype=torch.float32, device=dev)
+        h_a[:, :H] = h0.float()
+        h_b = torch.zeros_like(h_a)
+        c = _fp32_copy(c0)                   # j-local carry, updated in place
+        lens = lengths.to(torch.int32).contiguous()
+        h_fin = torch.empty((B, H), dtype=xw.dtype, device=dev)
+        c_fin = torch.empty_like(h_fin)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lstm_scan_fwd(
+            xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), h_a.data_ptr(),
+            h_b.data_ptr(), c.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
+            h_fin.data_ptr(), c_fin.data_ptr(), lens.data_ptr(), T, B, H, Hk,
+            _LSTM_TILE_WIDTH, int(reverse), _DTYPE_CODES[xw.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_scan kernel failed with CUDA error {err}")
+    lstm_scan.launches += T
+    return h_all, c_all, h_fin, c_fin
+
+
+def lstm_scan(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
+              with_carry: bool = False):
+    """Masked LSTM scan.
+
+    Args:
+      xw: (T, B, 4H) hoisted input pre-activations (x @ W_ih + b_ih).
+      w_hh: (H, 4H); b_hh: (4H,); h0, c0: (B, H); lengths: (B,) int or float.
+      reverse: process t = T-1..0 (the backward direction of a bi-RNN).
+    Returns:
+      (h_all (T, B, H), h_final (B, H), c_final (B, H)) in xw's dtype; with
+      ``with_carry``, (h_all, c_all, h_final, c_final) as
+      :func:`lstm_scan_reference`.
+    """
+    if xw.device.type == "cpu":
+        return lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse,
+                                   with_carry)
+    if xw.device.type != "cuda":
+        raise ValueError(f"lstm_scan runs on cpu or cuda, not {xw.device}")
+    h_all, c_all, h_fin, c_fin = _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths,
+                                                 reverse)
+    return (h_all, c_all, h_fin, c_fin) if with_carry else (h_all, h_fin, c_fin)
+
+
+lstm_scan.launches = 0
+
+
+def lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
+                                 g_hfin, g_cfin, reverse: bool = False):
+    """Plain PyTorch version of the LSTM backward kernel, under its numeric
+    contract: fp32 dh and dc carries; gates rebuilt in fp32 from xw, h_prev
+    (rounded to W's dtype for the product, b_hh added in fp32) and c_prev;
+    the gate grads rounded to W's dtype for the dh-chain product with fp32
+    accumulation; dxw in xw's dtype.
+
+    xw (T, B, 4H); h_prev, c_prev (T, B, H) from :func:`prev_all`; g_hall
+    (T, B, H), g_hfin and g_cfin (B, H) are the cotangents of h_all,
+    h_final and c_final.  Returns (dxw (T, B, 4H), dh0, dc0): dxw = [di, df,
+    dg, do] of the pre-activations, which is also d(hw)."""
+    T, B, G = xw.shape
+    w = w_hh.float()
+    b = b_hh.float()
+    lengths = lengths.to(xw.device)
+    dh = g_hfin.float()
+    dc = g_cfin.float()
+    dxw = torch.empty((T, B, G), dtype=xw.dtype, device=xw.device)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        hw = torch.matmul(h_prev[t].to(w_hh.dtype).float(), w) + b
+        i, f, g, o = _lstm_gates(xw[t].float() + hw)
+        cp = c_prev[t].float()
+        tc = torch.tanh(f * cp + i * g)
+        m = (lengths > t)[:, None]
+        g_h = torch.where(m, dh + g_hall[t].float(), 0.0)
+        g_c = torch.where(m, dc, 0.0)
+        d_o = g_h * tc * o * (1.0 - o)
+        dc_new = g_c + g_h * o * (1.0 - tc * tc)
+        d_i = dc_new * g * i * (1.0 - i)
+        d_f = dc_new * cp * f * (1.0 - f)
+        d_g = dc_new * i * (1.0 - g * g)
+        dgates = torch.cat([d_i, d_f, d_g, d_o], dim=1)
+        dxw[t] = dgates.to(xw.dtype)
+        dh = (torch.matmul(dgates.to(w_hh.dtype).float(), w.t())
+              + torch.where(m, 0.0, dh))
+        dc = dc_new * f + torch.where(m, 0.0, dc)
+    return dxw, dh.to(xw.dtype), dc.to(xw.dtype)
+
+
+def lstm_weight_grads(h_prev, dxw, w_dtype):
+    """dW_hh (H, 4H) and db_hh (4H,) from the backward scan's dxw (== d(hw),
+    every LSTM gate being additive in xw + hw): the GEMMs the JAX package
+    runs outside the loop (``rnn_pallas.py:692-698``); fp32 accumulation,
+    results in ``w_dtype`` and dxw's dtype."""
+    T, B, G = dxw.shape
+    hp = h_prev.reshape(T * B, G // 4).to(dxw.dtype)
+    with full_precision_matmul():
+        dw = torch.matmul(hp.t(), dxw.reshape(T * B, G)).to(w_dtype)
+    db = dxw.float().sum((0, 1)).to(dxw.dtype)
+    return dw, db
+
+
+def _lstm_bwd_library():
+    lib = build.load("lstm_bwd")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_scan_bwd.argtypes = [p] * 16 + [i] * 8 + [p]
+        lib.lstm_scan_bwd.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
+                             g_hfin, g_cfin, reverse):
+    T, B, G = xw.shape
+    H = G // 4
+    _check_lstm_args("lstm_scan_backward", xw, (
+        ("h_prev", h_prev, (T, B, H), True), ("c_prev", c_prev, (T, B, H), True),
+        ("w_hh", w_hh, (H, G), True), ("b_hh", b_hh, (G,), True),
+        ("lengths", lengths, (B,), False), ("g_hall", g_hall, (T, B, H), True),
+        ("g_hfin", g_hfin, (B, H), True), ("g_cfin", g_cfin, (B, H), True)),
+        (c_prev, w_hh, b_hh, g_hall))
+    dev = xw.device
+    lib = _lstm_bwd_library()
+    Hk = -(-H // _K_ALIGN) * _K_ALIGN
+    Kc = -(-G // _K_ALIGN) * _K_ALIGN
+    with torch.cuda.device(dev):
+        dxw = torch.empty((T, B, G), dtype=xw.dtype, device=dev)
+        if T == 0:
+            return dxw, g_hfin.clone(), g_cfin.clone()
+        rec = _tile_weights(w_hh, H, Hk, _LSTM_TILE_WIDTH)
+        chain = _chain_tiles(w_hh, H, Kc, _LSTM_TILE_WIDTH)
+        hprev = F.pad(h_prev, (0, Hk - H)).contiguous()
+        dgates = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
+        rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+        rest[0] = g_hfin.float()
+        dc = _fp32_copy(g_cfin)              # j-local carry, updated in place
+        lens = lengths.to(torch.int32).contiguous()
+        dh0 = torch.empty((B, H), dtype=xw.dtype, device=dev)
+        dc0 = torch.empty_like(dh0)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lstm_scan_bwd(
+            xw.data_ptr(), hprev.data_ptr(), c_prev.data_ptr(), g_hall.data_ptr(),
+            rec.data_ptr(), chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+            dgates[0].data_ptr(), dgates[1].data_ptr(), rest[0].data_ptr(),
+            rest[1].data_ptr(), dc.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
+            dc0.data_ptr(), T, B, H, Hk, Kc, _LSTM_TILE_WIDTH, int(reverse),
+            _DTYPE_CODES[xw.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_scan_backward kernel failed with CUDA error {err}")
+    lstm_scan_backward.launches += T + 1
+    return dxw, dh0, dc0
+
+
+def lstm_scan_backward(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
+                       g_cfin, reverse: bool = False):
+    """Backward through a masked LSTM scan; see
+    :func:`lstm_scan_backward_reference` for the arguments and results."""
+    if xw.device.type == "cpu":
+        return lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths,
+                                            g_hall, g_hfin, g_cfin, reverse)
+    if xw.device.type != "cuda":
+        raise ValueError(f"lstm_scan_backward runs on cpu or cuda, not {xw.device}")
+    return _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths,
+                                    g_hall, g_hfin, g_cfin, reverse)
+
+
+lstm_scan_backward.launches = 0
+
+
+class LSTMScanFunction(torch.autograd.Function):
+    """``lstm_scan`` with the JAX package's custom VJP: the forward keeps the
+    cell-state carry c_all, the backward builds both predecessor streams
+    with :func:`prev_all` and runs the backward scan plus the off-loop
+    weight GEMMs.  Returns (h_all, h_final, c_final); grads for xw, w_hh,
+    b_hh, h0 and c0 (in their dtypes), none for lengths and reverse; a
+    missing cotangent counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, xw, w_hh, b_hh, h0, c0, lengths, reverse):
+        h_all, c_all, h_fin, c_fin = lstm_scan(xw, w_hh, b_hh, h0, c0, lengths,
+                                               reverse, with_carry=True)
+        ctx.save_for_backward(xw, h_all, c_all, w_hh, b_hh, h0, c0, lengths)
+        ctx.reverse = reverse
+        return h_all, h_fin, c_fin
+
+    @staticmethod
+    def backward(ctx, g_hall, g_hfin, g_cfin):
+        xw, h_all, c_all, w_hh, b_hh, h0, c0, lengths = ctx.saved_tensors
+        dt = h_all.dtype
+        g_hall = (torch.zeros_like(h_all) if g_hall is None
+                  else g_hall.to(dt).contiguous())
+        g_hfin = (torch.zeros_like(h0, dtype=dt) if g_hfin is None
+                  else g_hfin.to(dt).contiguous())
+        g_cfin = (torch.zeros_like(c0, dtype=dt) if g_cfin is None
+                  else g_cfin.to(dt).contiguous())
+        h_prev = prev_all(h_all, h0, lengths, ctx.reverse)
+        c_prev = prev_all(c_all, c0, lengths, ctx.reverse)
+        dxw, dh0, dc0 = lstm_scan_backward(xw, h_prev, c_prev, w_hh, b_hh, lengths,
+                                           g_hall, g_hfin, g_cfin, ctx.reverse)
+        dw, db = lstm_weight_grads(h_prev, dxw, w_hh.dtype)
+        return (dxw, dw, db.to(b_hh.dtype), dh0.to(h0.dtype), dc0.to(c0.dtype),
+                None, None)

@@ -7,8 +7,10 @@
   functional_call``, so gradients flow back to the float32 masters, as the
   JAX package's ``_cast`` does.  The RNN-T loss upcasts to float32.
 * Gradient accumulation over contiguous microbatches, float32 grads.
-* The batch holds precomputed features; SpecAugment, weight noise and
-  dropout draw from the state's ``torch.Generator``.
+* The batch holds precomputed features, or raw PCM (float32, or int16 plus
+  a per-utterance scale) that :func:`device_frontend` turns into log-mel
+  features on the device; SpecAugment, weight noise and dropout draw from
+  the state's ``torch.Generator``.
 * The default (factored) joint+loss path never builds the (B, T, U+1, V)
   lattice; ``combine="add"`` takes the fused per-chunk path and
   ``joint_chunk_frames=0`` the full lattice, as in the JAX package.
@@ -21,7 +23,8 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from rnntransducer_tpu_torch.config import Config
+from rnntransducer_tpu_torch.config import AudioConfig, Config
+from rnntransducer_tpu_torch.frontend.fused_frontend import logmel_fused
 from rnntransducer_tpu_torch.frontend.specaugment import spec_augment
 from rnntransducer_tpu_torch.models.transducer import RNNTransducer, build_model
 from rnntransducer_tpu_torch.ops.rnnt_loss import (rnnt_loss, rnnt_loss_factored,
@@ -93,20 +96,40 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
+def dequantize_wav(batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Raw PCM of a batch as float32: peak-scaled int16 'wav' times its
+    per-utterance 'wav_scale' (the half-size transfer form), or a float
+    'wav' as it is."""
+    wav = batch["wav"]
+    if wav.dtype == torch.int16:
+        wav = wav.to(torch.float32) * batch["wav_scale"][:, None]
+    return wav
+
+
+def device_frontend(audio_cfg: AudioConfig, wav: torch.Tensor,
+                    wav_lengths: Optional[torch.Tensor]):
+    """Log-mel features of raw PCM on its own device: the fused kernel on the
+    card, its plain version on the CPU.  Every raw-PCM consumer (the train
+    loss, eval) goes through here, so they featurise alike."""
+    return logmel_fused(wav, audio_cfg, wav_lengths)
+
+
 def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor],
             batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
             deterministic: bool, reduction: str = "mean") -> torch.Tensor:
-    """RNN-T loss of ``batch`` ('feats' (B, T, M), 'feat_lengths',
+    """RNN-T loss of ``batch`` ('feats' (B, T, M) and 'feat_lengths', or raw
+    PCM 'wav' (B, S) with 'wav_lengths' and, for int16, 'wav_scale'; plus
     'text_in' (B, U+1), 'text_lengths', 'targets' (B, U), 'target_lengths')
     under ``params`` (name -> float32 master).  ``deterministic=False``
     applies SpecAugment, weight noise and dropout, drawing from
     ``generator``."""
-    if "feats" not in batch:
-        raise NotImplementedError("raw-PCM batches need the on-device log-mel "
-                                  "frontend, which is not ported yet")
     dtype = train_compute_dtype(cfg.train.precision)
-    feats, feat_lengths = batch["feats"], batch["feat_lengths"]
     audio = cfg.data.audio
+    if "feats" in batch:
+        feats, feat_lengths = batch["feats"], batch["feat_lengths"]
+    else:
+        feats, feat_lengths = device_frontend(audio, dequantize_wav(batch),
+                                              batch["wav_lengths"])
     if not deterministic and audio.spec_augment:
         feats = spec_augment(feats, generator, feat_lengths,
                              freq_para=audio.freq_mask_para,

@@ -131,3 +131,55 @@ def test_gru_kernel_matches_plain_version_on_the_card():
             want = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths, reverse)
             for g, r in zip(got, want):
                 assert (g.float() - r.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("library", ["lstm_fwd", "lstm_bwd", "logmel"])
+def test_new_kernel_libraries_raise_without_nvcc(monkeypatch, tmp_path, library):
+    """Each kernel of the LSTM and raw-PCM paths is built at first use; on a
+    machine without nvcc that raises, so a wrapper never falls back."""
+    from rnntransducer_tpu_torch.frontend import fused_frontend
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_LOADED", {})
+    load = {"lstm_fwd": rnn_kernels._lstm_fwd_library,
+            "lstm_bwd": rnn_kernels._lstm_bwd_library,
+            "logmel": fused_frontend._library}[library]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        load()
+    if library == "lstm_fwd":
+        xw, w, b, h0, c0, lengths = _lstm_args()
+        before = rnn_kernels.lstm_scan.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            rnn_kernels._lstm_scan_cuda(xw, w, b, h0, c0, lengths, False)
+        assert rnn_kernels.lstm_scan.launches == before
+
+
+def _lstm_args():
+    rng = np.random.RandomState(0)
+    T, B, H = 3, 2, 8
+    xw = torch.from_numpy(rng.randn(T, B, 4 * H).astype(np.float32))
+    w = torch.from_numpy(rng.randn(H, 4 * H).astype(np.float32))
+    return xw, w, torch.zeros(4 * H), torch.zeros(B, H), torch.zeros(B, H), \
+        torch.tensor([3, 1])
+
+
+def test_lstm_wrappers_check_their_inputs():
+    xw, w, b, h0, c0, lengths = _lstm_args()
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        rnn_kernels.lstm_scan(xw.to("meta"), w, b, h0, c0, lengths)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        rnn_kernels.lstm_scan_backward(xw.to("meta"), h0, c0, w, b, lengths,
+                                       h0, h0, h0)
+    with pytest.raises(ValueError, match="must be \\(T, B, 4H\\)"):
+        rnn_kernels._lstm_scan_cuda(xw[..., :-1], w, b, h0, c0, lengths, False)
+    with pytest.raises(ValueError, match="w_hh has shape"):
+        rnn_kernels._lstm_scan_cuda(xw, w[:, :-4], b, h0, c0, lengths, False)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rnn_kernels._lstm_scan_cuda(xw.half(), w, b, h0, c0, lengths, False)
+    with pytest.raises(TypeError, match="in xw's dtype"):
+        rnn_kernels._lstm_scan_cuda(xw, w.to(torch.bfloat16), b, h0, c0, lengths,
+                                    False)
+    with pytest.raises(ValueError, match="contiguous"):
+        rnn_kernels._lstm_scan_cuda(xw, w.t().contiguous().t(), b, h0, c0,
+                                    lengths, False)

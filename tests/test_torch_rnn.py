@@ -87,6 +87,7 @@ def _port_stack(params, num_layers, bidirectional, scan, rnn_type):
 @pytest.mark.parametrize("rnn_type,use_pallas,scan_layers", [
     ("gru", "interpret", True), ("gru", "interpret", False),
     ("gru", "off", True), ("gru", "off", False),
+    ("lstm", "interpret", True), ("lstm", "interpret", False),
     ("lstm", "off", True), ("lstm", "off", False),
 ])
 def test_stacked_rnn_matches_jax(rnn_type, use_pallas, scan_layers):
