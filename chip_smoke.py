@@ -10,8 +10,11 @@ Phases (each raises, and the script exits non-zero, on failure):
    rnnt_sweep (K5), logmel (K6).
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the training and serving paths give it, and time both: K1 and K2
-   at H=1024, T=512, B in {1, 8, 64, 100}, both directions, fp32 and bf16
-   (K2 also against autograd through the plain forward loop); K3 and K4 at
+   (persistent: one launch per forward scan, the gates GEMM and the chain
+   per backward scan) at H=1024, T=512, B in {1, 8, 64, 100}, both
+   directions, fp32 and bf16 (K2 also against autograd through the plain
+   forward loop, its gates GEMM alone against the plain product), and
+   their co-residency limit (the largest H runs, the next raises); K3 and K4 at
    the flagship prediction network (B=64, T=49, H=1024) and tiny_config's
    encoder (B in {8, 64}, T=512, H=320), both directions, fp32 and bf16,
    ragged lengths including 1 and T (K4 also against autograd); K5 at the
@@ -24,7 +27,8 @@ Phases (each raises, and the script exits non-zero, on failure):
    bidirectional GRU encoder, H=1024), random weights from a seeded
    ``torch.Generator`` passed through the flax-layout weight bridge, in bf16
    and fp32.  The GRU kernel's launch count is set to 0 before and read
-   after; every GRU scan must have gone through the kernel.  Then the
+   after; every GRU scan must have gone through the kernel (one launch per
+   layer and direction).  Then the
    encoder is run again with the plain GRU on the card, and outputs and
    greedy tokens are compared.
 4. The main paths, each with every launch count set to 0 before each timed
@@ -116,6 +120,11 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 4 * 2.0 ** -8}
 # bf16 outputs are rounded (ulp 2^-8 of the value) and a one-ulp flip of a
 # rounded h or dgates feeds the carries, so allow 4 ulps.
 LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 4 * 2.0 ** -8}
+# K2's gates GEMM (hw = h_prev @ W_hh + b_hh in fp32), kernel vs plain, same
+# inputs, relative to the largest |hw|: both sum exact products (bf16 x
+# bf16 is exact in fp32) in fp32, in two orders; over K=1024 terms the
+# difference stays near sqrt(K) fp32 ulps, ~1e-6.
+GATES_TOL = 1e-5
 # (B, T, H) of the LSTM checks: the flagship prediction network (U+1 = 49)
 # and tiny_config's encoder at two batches
 LSTM_SHAPES = ((64, 49, 1024), (8, 512, 320), (64, 512, 320))
@@ -264,11 +273,78 @@ def _rel_err(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+def phase_gru_limits(gen):
+    """The persistent GRU kernels' co-residency limit: the wrappers'
+    shared-memory formula equals the kernels' own, H=1024 fits in both
+    dtypes, the largest H that fits runs and agrees with the plain version,
+    and the next H raises ValueError before any launch."""
+    fwd_lib, bwd_lib = rnn_kernels._library(), rnn_kernels._bwd_library()
+    for dtype in (torch.float32, torch.bfloat16):
+        code = rnn_kernels._DTYPE_CODES[dtype]
+        top = rnn_kernels.gru_max_hidden(TRAIN_B, dtype)
+        if not rnn_kernels.gru_fits(1024, TRAIN_B, dtype):
+            raise AssertionError(f"H=1024 does not fit in {dtype}")
+        for H in (320, 1024, top):
+            Hk, Kc = rnn_kernels._padded(H), rnn_kernels._padded(3 * H)
+            got = (fwd_lib.gru_scan_fwd_smem(Hk, code), bwd_lib.gru_scan_bwd_smem(Kc, code))
+            want = (rnn_kernels.gru_smem_bytes(H, dtype),
+                    rnn_kernels.gru_smem_bytes(H, dtype, backward=True))
+            if got != want:
+                raise AssertionError(f"shared memory at H={H} {dtype}: kernels {got}, "
+                                     f"wrapper {want}")
+            fit = (fwd_lib.gru_scan_fwd_max_blocks(Hk, code),
+                   bwd_lib.gru_scan_bwd_max_blocks(Kc, code))
+            if min(fit) < rnn_kernels._GRU_MAX_BLOCKS:
+                raise AssertionError(f"H={H} {dtype}: the card holds {fit} blocks, the "
+                                     f"wrapper's limit assumes {rnn_kernels._GRU_MAX_BLOCKS}")
+        print(f"gru limit {str(dtype)[6:]}: co-resident blocks on this card at H={top}: "
+              f"fwd/bwd {fit}, wrapper limit {rnn_kernels._GRU_MAX_BLOCKS}", flush=True)
+        xw, w, b, h0, lengths = _gru_inputs(6, 4, top, dtype, gen)
+        got = rnn_kernels.gru_scan(xw, w, b, h0, lengths)
+        want = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths)
+        torch.cuda.synchronize()
+        err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, want))
+        if not err <= KERNEL_TOL[dtype]:
+            raise AssertionError(f"gru_fwd at the largest H={top}: {err}")
+        xw, w, b, h0, lengths = _gru_inputs(2, 4, top + 1, dtype, gen)
+        seq = torch.zeros(2, 4, top + 1, device=DEVICE, dtype=dtype)
+        launches = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
+        for name, call in (
+                ("gru_scan", lambda: rnn_kernels.gru_scan(xw, w, b, h0, lengths)),
+                ("gru_scan_backward", lambda: rnn_kernels.gru_scan_backward(
+                    xw, seq, w, b, lengths, seq, h0))):
+            try:
+                call()
+            except ValueError as e:
+                if "largest hidden size" not in str(e):
+                    raise
+                print(f"gru limit {str(dtype)[6:]}: H={top} runs (max_abs_err "
+                      f"{err:.3e}), H={top + 1} raises: {e}", flush=True)
+            else:
+                raise AssertionError(f"{name} took H={top + 1} above the limit")
+        if launches != (rnn_kernels.gru_scan.launches,
+                        rnn_kernels.gru_scan_backward.launches):
+            raise AssertionError("a refused GRU call counted a launch")
+
+
 def phase_gru_bwd(gen):
     """GRU backward kernel vs its plain version at H=1024, T=512, and vs
-    autograd through the plain forward loop."""
+    autograd through the plain forward loop; its gates GEMM alone vs the
+    plain product."""
     H, T = 1024, T_FRAMES
     worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        xw, w, b, h0, lengths = _gru_inputs(T, TRAIN_B, H, dtype, gen)
+        h_prev = torch.randn(T, TRAIN_B, H, device=DEVICE, generator=gen).to(dtype)
+        got = rnn_kernels.gru_bwd_gates(h_prev, w, b)
+        want = rnn_kernels.gru_bwd_gates_reference(h_prev, w, b)
+        torch.cuda.synchronize()
+        err = _rel_err(got, want)
+        print(f"gru_bwd gates GEMM check dtype={str(dtype)[6:]} (T*B, H) x (H, 3H) = "
+              f"({T * TRAIN_B}, {H}) x ({H}, {3 * H}): rel_err {err:.2e} "
+              f"tol {GATES_TOL:.0e}", flush=True)
+        if not err <= GATES_TOL:
+            raise AssertionError(f"gru_bwd's gates GEMM disagrees: {err}")
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1, 8, 64, 100):
             for reverse in (False, True):
@@ -321,12 +397,14 @@ def phase_gru_bwd(gen):
             gfin = torch.zeros(B, H, device=DEVICE, dtype=dtype)
             args = (xw, h_prev, w, b, lengths, gout, gfin)
             ms = _sync_time(lambda: rnn_kernels.gru_scan_backward(*args), 3)
+            gates_ms = _sync_time(lambda: rnn_kernels.gru_bwd_gates(h_prev, w, b), 3)
             plain = _sync_time(lambda: rnn_kernels.gru_scan_backward_reference(*args), 1)
             bound, bound_by = gru_bwd_bound_ms(T, B, H, dtype, lengths)
             times[(dtype, B)] = (ms, plain, bound, bound_by)
             print(f"gru_bwd time dtype={str(dtype)[6:]} B={B} T={T} H={H}: kernel "
-                  f"{ms:.3f} ms ({ms / (T + 1) * 1e3:.2f} us/launch), plain "
-                  f"{plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
+                  f"{ms:.3f} ms ({ms / T * 1e3:.2f} us/step, gates GEMM "
+                  f"{gates_ms:.3f} ms), plain {plain:.3f} ms ({plain / T * 1e3:.2f} "
+                  f"us/step), bound {bound:.4f} ms by {bound_by}", flush=True)
     return worst, times
 
 
@@ -691,19 +769,29 @@ def _zero_counts():
         fn.launches = 0
 
 
+def scan_launches(rnn_type: str, steps: int) -> tuple:
+    """Launches of one directional scan of ``steps`` steps, forward and
+    backward: the persistent GRU kernels take 1 forward and 2 backward (the
+    gates GEMM, then the chain) whatever the length; the LSTM kernels launch
+    per step, T forward and T + 1 backward."""
+    if rnn_type.lower() == "gru":
+        return 1, 2
+    return steps, steps + 1
+
+
 def step_launches(cfg, T: int, U: int, raw_pcm: bool = False) -> dict:
     """Kernel launches of one train_step: every directional scan of the
-    encoder (T steps) and of the prediction network (U+1 steps) takes T
-    launches forward and T + 1 backward in its cell type's kernels (neither
-    config here reduces time); the loss one sweep; a raw-PCM batch one
-    log-mel."""
+    encoder (T steps) and of the prediction network (U+1 steps) takes
+    ``scan_launches`` in its cell type's kernels (neither config here
+    reduces time); the loss one sweep; a raw-PCM batch one log-mel."""
     tn, pn = cfg.model.transnet, cfg.model.prednet
     want = dict.fromkeys(KERNELS, 0)
     for rnn_type, scans, steps in (
             (tn.rnn_type, tn.num_layers * (2 if tn.bidirectional else 1), T),
             (pn.rnn_type, pn.num_layers, U + 1)):
-        want[f"{rnn_type.lower()}_fwd"] += scans * steps
-        want[f"{rnn_type.lower()}_bwd"] += scans * (steps + 1)
+        fwd, bwd = scan_launches(rnn_type, steps)
+        want[f"{rnn_type.lower()}_fwd"] += scans * fwd
+        want[f"{rnn_type.lower()}_bwd"] += scans * bwd
     want["rnnt_sweep"] = 1
     want["logmel"] = int(raw_pcm)
     return want
@@ -895,7 +983,7 @@ def phase_tiny(tokenizer, waves):
     got = _counts()
     scans = cfg.model.transnet.num_layers * 2
     want_serve = dict.fromkeys(KERNELS, 0)
-    want_serve["lstm_fwd"] = scans * T_FRAMES
+    want_serve["lstm_fwd"] = scans * scan_launches("lstm", T_FRAMES)[0]
     print(f"tiny bf16 transcribe_batch of {len(waves)}: {req_ms:.1f} ms, launches "
           f"{json.dumps(got)} (expected {json.dumps(want_serve)}); {texts}", flush=True)
     if got != want_serve or not all(isinstance(x, str) for x in texts):
@@ -967,10 +1055,8 @@ def phase_serving(flax_params, tokenizer, waves):
         one, ms1, n1 = _request(rec.transcribe_batch, waves[:1])
         eight, ms8, n8 = _request(rec.transcribe_batch, waves)
         single, ms_s, n_s = _request(rec.transcribe, waves[3])
-        t3 = len(waves[3]) // 160 + 1
-        for n, want, what in ((n1, layers * T_FRAMES, "batch of 1"),
-                              (n8, layers * T_FRAMES, "batch of 8"),
-                              (n_s, layers * t3, "transcribe")):
+        for n, want, what in ((n1, layers, "batch of 1"), (n8, layers, "batch of 8"),
+                              (n_s, layers, "transcribe")):
             print(f"{precision} {what}: gru_fwd launches {n} (expected {want})",
                   flush=True)
             if n != want:
@@ -1060,6 +1146,7 @@ def main() -> int:
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     fwd_err, fwd_times = phase_kernels(gen)
+    phase_gru_limits(gen)
     bwd_err, bwd_times = phase_gru_bwd(gen)
     lstm_fwd_err, lstm_bwd_err, lstm_times = phase_lstm(gen)
     sweep_err, sweep_times = phase_sweep(gen)

@@ -1,5 +1,5 @@
 // Masked GRU recurrence, backward through time, written by hand for Hopper
-// (sm_90a).
+// (sm_90a): one GEMM launch and one persistent launch per scan.
 //
 // Replaces the TPU kernel rnntransducer_tpu/ops/rnn_pallas.py::_gru_bwd_kernel
 // (called through _gru_bwd_call, the custom VJP of gru_scan).  Semantics kept
@@ -19,315 +19,447 @@
 //     a masked step has g = 0 and carries dh through; h_prev there is never
 //     trusted (it only meets g = 0);
 //   * the dh carry is fp32; dh0 is written in xw's type after the last step.
-// dW_hh and db_hh are reduced outside the loop by the caller, from h_prev,
-// dxw and dnr, as the TPU version does.
+// dW_hh and db_hh are reduced outside by the caller, from h_prev, dxw and
+// dnr, as the TPU version does.
 //
-// What bounds it on this card: every step does two skinny products,
-// (B, H) x (H, 3H) to rebuild the gates and (B, 3H) x (3H, H) for the dh
-// chain, 4 B H 3H FLOPs in all, and the chain of step t needs the whole dhw
-// row of step t+1.  Both weight layouts (12.6 MB in bf16 at H = 1024) stay
-// resident in the 50 MB L2 across launches, so a step is bound by fp32 FMA
-// throughput on the CUDA cores at B = 64 and by the launch gap and the L2
-// reads of W_hh at small B.
+// Design:
+//   * the gate recompute is off the chain, as in the TPU kernel
+//     (rnn_pallas.py:177-185): h_prev is known for every step before the
+//     scan starts, so gates_gemm computes hw = h_prev @ W_hh + b_hh for all
+//     steps in one launch, (T B, Hk) x (Hk, 3H) into fp32: bf16 on the
+//     tensor cores (mma.sync m16n8k16, 128 x 128 block tiles fed by a
+//     3-stage cp.async ring), fp32 on the CUDA cores (a register-blocked
+//     SIMT tile);
+//   * the chain is one cooperative launch of ceil(H / 8) blocks, one per SM.
+//     Each block owns 8 hidden units j and keeps its chain slice (the 8 rows
+//     j of W_hh, 8 x 3H: 48 KB in bf16 at H = 1024, 96 KB in fp32) in shared
+//     memory for the whole scan; it does one product per step,
+//     (B, 3H) x (3H, 8), on the tensor cores in bf16 (CUDA-core FMAs in
+//     fp32);
+//   * a grid-wide barrier per step (rnn_persistent.cuh::grid_sync).  The
+//     broadcast row is dhw = [dr, dz, dnr] rounded to W's type (384 KB at
+//     B = 64 in bf16), written once by its owner block and read by every
+//     block from L2 with 16-byte ld.global.cg straight into the MMA
+//     fragments, 8 slabs of K in flight per warp, ping-ponging between two
+//     buffers.  The rest of the carry, g z + (m ? 0 : dh), is local to the
+//     block's units and is updated in place in a buffer only that block
+//     touches.  Step s closes the chain of step s-1 (dh for its units from
+//     the dhw row of step s-1), then does step s; after the last barrier the
+//     block closes the chain into dh0;
+//   * the gates' inputs of the next step (hw, xw, h_prev, g_out, lengths,
+//     the rest) are loaded into registers before the grid barrier;
+//   * batches over 64 rows are walked in 64-row chunks inside a step.
 //
-// Design (simple first, as the forward kernel csrc/gru_fwd.cu):
-//   * one launch per step, back to back on the caller's stream: the launch
-//     boundary is the grid-wide barrier the dh chain needs.  Launch s
-//     finishes the chain of the step before it (dh for its hidden units j
-//     from the dhw row that launch s-1 wrote) and then does step s.  One
-//     closing launch finishes the chain of the last step into dh0, so a
-//     scan of T steps takes T + 1 launches;
-//   * each block owns kJT hidden units j.  Its chain slice is the kJT
-//     contiguous rows j of W_hh (H, 3H); its gate slice is the 3 kJT columns
-//     r_j, z_j, n_j, pre-arranged by the wrapper into one tile as for the
-//     forward kernel.  Both are copied into shared memory once per launch;
-//   * products are register blocked over kRows rows of the activation with
-//     a shuffle reduction over K, as in the forward kernel;
-//   * dhw and the j-local rest of the carry (g z + (m ? 0 : dh)) ping-pong
-//     between two fp32 buffers in global memory.
-// A persistent kernel with a grid barrier per step and wgmma for the
-// products is later work.
+// Co-residency limit: one block per SM, so H <= 8 * 132 = 1056 on an H100
+// SXM (ops/rnn_kernels.py::gru_max_hidden says so before any launch).
+//
+// What bounds it on this card: the step chain, not the operations.  At
+// B = 1 a chain step takes ~5 us (L2 round trips, the gates, the grid
+// barrier); at B = 64 ~16 us, most of it every SM taking in the whole
+// 384 KB dhw row from L2 (~48 MB per step over 128 SMs).  The chain product
+// is ~0.4 us of tensor-core time per step.  The gates GEMM (~1 ms at
+// T = 512, B = 64, H = 1024) writes 403 MB of fp32 hw, ~0.12 ms of HBM time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "rnn_persistent.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;       // rows of the activation each lane carries
-constexpr int kRowChunk = 64;  // rows per pass through the dot buffers
-// Hidden units per block.  The block's two weight slices (3 kJT rows of Hk
-// and kJT rows of Kc) plus the dot buffers fit the 227 KB of shared memory
-// up to H ~ 2300 in bf16 and ~ 1150 in fp32; a larger H fails
-// cudaFuncSetAttribute and the call returns that error.
-constexpr int kJT = 8;
+using namespace rnnp;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int CC = kJT;      // chain rows of the block
+constexpr int kUnroll = 8;   // K slabs of A in flight per warp (12 and 16 were no faster)
+// Inputs of the first 64-row chunk a thread prefetches: its items
+// p = threadIdx.x + i kThreads all have the unit j0 + threadIdx.x % kJT.
+constexpr int kPre = kRowChunk * kJT / kThreads;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// ---------------------------------------------------------------------------
+// hw = A @ Bt^T + bias: A (M, K) and Bt (N, K) of T, K % 64 == 0; hw (M, N)
+// fp32; bias (N) of T.
+// ---------------------------------------------------------------------------
+
+constexpr int kGemmTile = 64;   // the fp32 tile
+
+// bf16: 256 threads, 128 x 128 tile, 32-wide K slabs in a 3-stage cp.async
+// ring; each warp a 64 x 32 piece (4 x 4 mma tiles).  Slab rows sit 64
+// bytes apart, so the 16-byte fragment loads of a quarter warp (two rows)
+// are conflict-free; k is permuted inside the slab as in rnnp::mma_dots.
+constexpr int kGemmM = 128, kGemmN = 128, kGemmStages = 3;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-// x rounded to W's type (the TPU kernel's .astype(w.dtype)), back in fp32.
-template <typename T> __device__ __forceinline__ float quant(float x);
-template <> __device__ __forceinline__ float quant<float>(float x) { return x; }
-template <> __device__ __forceinline__ float quant<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+__global__ void __launch_bounds__(256)
+gates_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Bt,
+                const __nv_bfloat16* __restrict__ bias, float* __restrict__ hw, int M,
+                int N, int K) {
+  __shared__ __align__(128) __nv_bfloat16 As[kGemmStages][kGemmM * 32];
+  __shared__ __align__(128) __nv_bfloat16 Bs[kGemmStages][kGemmN * 32];
+  const int m0 = blockIdx.x * kGemmM, n0 = blockIdx.y * kGemmN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 64 x 32
 
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// How the block's warps split a chunk of nrows rows: rg row groups of kRows
-// rows, and K split ksplit ways when there are fewer groups than warps.
-struct Split {
-  int ngroups, rg, ksplit, npad;
-};
-
-__device__ __forceinline__ Split split_rows(int nrows) {
-  Split s;
-  s.ngroups = (nrows + kRows - 1) / kRows;
-  s.rg = 1;
-  while (s.rg < s.ngroups && s.rg < kWarps) s.rg <<= 1;
-  s.ksplit = kWarps / s.rg;
-  s.npad = s.ngroups * kRows;
-  return s;
-}
-
-// dots[(ks * npad + row) * C + c] = partial sum over this warp's share of K
-// of quant<T>(act[r0 + row, k]) * w_s[c, k], for rows of the chunk
-// [r0, r0 + nrows).  act is (rows, lda) of type TA, zero for k >= its width;
-// w_s is (C, K) in shared memory; K % 64 == 0.
-template <typename T, typename TA, int C>
-__device__ __forceinline__ void chunk_dots(const T* w_s, const TA* act, int lda,
-                                           int K, int r0, int nrows,
-                                           const Split& s, float* dots) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int my_rg = warp / s.ksplit;
-  const int my_ks = warp % s.ksplit;
-  for (int g = my_rg; g < s.ngroups; g += s.rg) {
-    float acc[kRows][C];
+  float acc[4][4][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0f;
 
-    const TA* arow[kRows];
-    bool valid[kRows];
+  // slab kb into stage st: 128 rows x 4 chunks of 16 bytes of A and of B
+  auto fetch = [&](int kb, int st) {
+    const int k0 = kb * 32;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int rl = g * kRows + i;
-      valid[i] = rl < nrows;
-      arow[i] = act + (size_t)(r0 + (valid[i] ? rl : 0)) * lda;
+    for (int i = 0; i < 2; ++i) {
+      const int idx = threadIdx.x + i * 256, row = idx / 4, q = idx % 4;
+      const bool va = m0 + row < M, vb = n0 + row < N;
+      cp_async16(&As[st][idx * 8], A + (size_t)(va ? m0 + row : 0) * K + k0 + q * 8, va);
+      cp_async16(&Bs[st][idx * 8], Bt + (size_t)(vb ? n0 + row : 0) * K + k0 + q * 8, vb);
     }
-
-    for (int k = 2 * (my_ks * 32 + lane); k < K; k += 64 * s.ksplit) {
-      float2 av[kRows];
+  };
+  const int nk = K / 32;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float2 v = load_pair(arow[i] + k);
-        av[i].x = valid[i] ? quant<T>(v.x) : 0.0f;
-        av[i].y = valid[i] ? quant<T>(v.y) : 0.0f;
+  for (int st = 0; st < kGemmStages - 1; ++st) {
+    if (st < nk) fetch(st, st);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  for (int kb = 0; kb < nk; ++kb) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kGemmStages - 2) : "memory");
+    __syncthreads();
+    if (kb + kGemmStages - 1 < nk) fetch(kb + kGemmStages - 1, (kb + kGemmStages - 1) % kGemmStages);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    const __nv_bfloat16* as = As[kb % kGemmStages];
+    const __nv_bfloat16* bs = Bs[kb % kGemmStages];
+    int4 b[4];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      b[ni] = *reinterpret_cast<const int4*>(bs + (wn * 32 + ni * 8 + g) * 32 + 8 * t);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const int4 lo = *reinterpret_cast<const int4*>(as + (wm * 64 + mi * 16 + g) * 32 + 8 * t);
+      const int4 hi =
+          *reinterpret_cast<const int4*>(as + (wm * 64 + mi * 16 + 8 + g) * 32 + 8 * t);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        mma_bf16(acc[mi][ni], lo.x, hi.x, lo.y, hi.y, b[ni].x, b[ni].y);
+        mma_bf16(acc[mi][ni], lo.z, hi.z, lo.w, hi.w, b[ni].z, b[ni].w);
       }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float2 w = load_pair(w_s + (size_t)c * K + k);
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          acc[i][c] = fmaf(av[i].x, w.x, acc[i][c]);
-          acc[i][c] = fmaf(av[i].y, w.y, acc[i][c]);
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * 64 + mi * 16 + h * 8 + g;
+        const int col = n0 + wn * 32 + ni * 8 + 2 * t;
+        if (row >= M) continue;
+        float* out = hw + (size_t)row * N + col;
+        if (col + 1 < N && (N & 1) == 0) {
+          *reinterpret_cast<float2*>(out) =
+              make_float2(acc[mi][ni][2 * h] + to_f(bias[col]),
+                          acc[mi][ni][2 * h + 1] + to_f(bias[col + 1]));
+        } else {
+          if (col < N) out[0] = acc[mi][ni][2 * h] + to_f(bias[col]);
+          if (col + 1 < N) out[1] = acc[mi][ni][2 * h + 1] + to_f(bias[col + 1]);
         }
       }
+}
+
+// fp32: 256 threads, 64 x 64 tile, 16-wide K slabs held k-major in shared
+// memory; each thread a 4 x 4 block of outputs.
+__global__ void __launch_bounds__(256)
+gates_gemm_f32(const float* __restrict__ A, const float* __restrict__ Bt,
+               const float* __restrict__ bias, float* __restrict__ hw, int M, int N,
+               int K) {
+  constexpr int BK = 16, LD = kGemmTile + 4;
+  __shared__ __align__(16) float As[BK * LD];
+  __shared__ __align__(16) float Bs[BK * LD];
+  const int m0 = blockIdx.x * kGemmTile, n0 = blockIdx.y * kGemmTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int lrow = threadIdx.x / 4, lk = (threadIdx.x % 4) * 4;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    const float4 av = m0 + lrow < M
+        ? __ldg(reinterpret_cast<const float4*>(A + (size_t)(m0 + lrow) * K + k0 + lk))
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 bv = n0 + lrow < N
+        ? __ldg(reinterpret_cast<const float4*>(Bt + (size_t)(n0 + lrow) * K + k0 + lk))
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+    As[(lk + 0) * LD + lrow] = av.x;
+    As[(lk + 1) * LD + lrow] = av.y;
+    As[(lk + 2) * LD + lrow] = av.z;
+    As[(lk + 3) * LD + lrow] = av.w;
+    Bs[(lk + 0) * LD + lrow] = bv.x;
+    Bs[(lk + 1) * LD + lrow] = bv.y;
+    Bs[(lk + 2) * LD + lrow] = bv.z;
+    Bs[(lk + 3) * LD + lrow] = bv.w;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(As + k * LD + ty * 4);
+      const float4 b = *reinterpret_cast<const float4*>(Bs + k * LD + tx * 4);
+      const float ar[4] = {a.x, a.y, a.z, a.w}, br[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(ar[i], br[jj], acc[i][jj]);
     }
-
+  }
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= M) continue;
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float v = acc[i][c];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        acc[i][c] = v;
-      }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if ((i * C + c) % 32 == lane && valid[i])
-          dots[(my_ks * s.npad + g * kRows + i) * C + c] = acc[i][c];
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = n0 + tx * 4 + jj;
+      if (col < N) hw[(size_t)row * N + col] = acc[i][jj] + bias[col];
+    }
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t elems) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-  int4* d = reinterpret_cast<int4*>(dst);
-  const int n16 = (int)(sizeof(T) * elems / 16);
-  for (int i = threadIdx.x; i < n16; i += kThreads) d[i] = __ldg(s + i);
-}
+// ---------------------------------------------------------------------------
+// the persistent chain
+// ---------------------------------------------------------------------------
 
-// One launch.  Shapes: xw_t (B, 3H); hprev_t (B, Hk) zero padded for
-// k >= H; gout_t (B, H); rec_tiles (ceil(H/kJT), 3 kJT, Hk) and chain_tiles
-// (ceil(H/kJT), kJT, Kc), both zero padded; b_hh (3H); dhw_in / dhw_out
-// (B, Kc) fp32, zero for k >= 3H; rest_in / rest_out (B, H) fp32; dxw_t
-// (B, 3H); dnr_t (B, H).  final != 0: only close the chain into dh0 (B, H).
+// Shapes: xw (T, B, 3H); hw (T, B, 3H) fp32; hprev (T, B, Hk); gout
+// (T, B, H); chain_tiles (ceil(H/kJT), CC, Kc) zero padded; dhw (2, B, Kc)
+// of T, zero; rest (B, H) fp32 = g_hfin; dxw (T, B, 3H); dnr (T, B, H);
+// dh0 (B, H); count a zeroed barrier counter.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gru_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
-             const T* __restrict__ gout_t, const T* __restrict__ rec_tiles,
-             const T* __restrict__ chain_tiles, const T* __restrict__ b_hh,
-             const int* __restrict__ lengths, const float* __restrict__ dhw_in,
-             float* __restrict__ dhw_out, const float* __restrict__ rest_in,
-             float* __restrict__ rest_out, T* __restrict__ dxw_t,
-             T* __restrict__ dnr_t, T* __restrict__ dh0, int t, int B, int H,
-             int Hk, int Kc, int final) {
-  constexpr int CR = 3 * kJT;  // gate columns of the block
-  constexpr int CC = kJT;      // chain rows of the block
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
+                   const T* __restrict__ hprev, const T* __restrict__ gout,
+                   const T* __restrict__ chain_tiles, const int* __restrict__ lengths,
+                   T* dhw, float* rest, T* __restrict__ dxw, T* __restrict__ dnr,
+                   T* __restrict__ dh0, unsigned int* count, int T_len, int B, int H,
+                   int Hk, int Kc, int reverse) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* wc_s = reinterpret_cast<T*>(smem_raw);          // (CC, Kc)
-  T* wr_s = wc_s + (size_t)CC * Kc;                  // (CR, Hk)
-  float* dots_c = reinterpret_cast<float*>(wr_s + (size_t)CR * Hk);
-  float* dots_r = dots_c + kRowChunk * CC;
-
+  T* wc_s = reinterpret_cast<T*>(smem_raw);
+  const int ldw = slice_ld<T>(Kc);
+  float* dots = reinterpret_cast<float*>(wc_s + (size_t)CC * ldw);
   const int j0 = blockIdx.x * kJT;
-  copy_tile(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, (size_t)CC * Kc);
-  if (!final)
-    copy_tile(wr_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, (size_t)CR * Hk);
+  load_slice(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, CC, Kc);
   __syncthreads();
 
-  for (int r0 = 0; r0 < B; r0 += kRowChunk) {
-    const int nrows = min(kRowChunk, B - r0);
-    const Split s = split_rows(nrows);
-    chunk_dots<T, float, CC>(wc_s, dhw_in, Kc, Kc, r0, nrows, s, dots_c);
-    if (!final)
-      chunk_dots<T, T, CR>(wr_s, hprev_t, Hk, Hk, r0, nrows, s, dots_r);
-    __syncthreads();
+  // Step s < T_len closes the chain of step s-1 (dh for the block's units
+  // from the dhw row of step s-1; zero at s = 0), then does step s; s ==
+  // T_len closes the chain of the last step into dh0.  The inputs of the
+  // first chunk are loaded for the next step before the grid barrier, so
+  // their latency hides behind it.
+  const int jj = threadIdx.x % kJT, j = j0 + jj;
+  const bool j_ok = j < H;
+  struct In {
+    float hr, hz, hn, xr, xz, xn, hp, go, rest;
+    int len;
+  };
+  auto load_in = [&](int s, int b) {
+    In v{};
+    v.rest = rest[(size_t)b * H + j];
+    if (s == T_len) return v;
+    const int t = reverse ? s : T_len - 1 - s;
+    const size_t row = (size_t)t * B + b;
+    const float* hwr = hw + row * 3 * H;
+    const T* x = xw + row * 3 * H;
+    v.hr = hwr[j];
+    v.hz = hwr[H + j];
+    v.hn = hwr[2 * H + j];
+    v.xr = to_f(x[j]);
+    v.xz = to_f(x[H + j]);
+    v.xn = to_f(x[2 * H + j]);
+    v.hp = to_f(hprev[row * Hk + j]);
+    v.go = to_f(gout[row * H + j]);
+    v.len = lengths[b];
+    return v;
+  };
+  In pre[kPre];
+  auto prefetch = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+      const int b = (threadIdx.x + i * kThreads) / kJT;
+      if (j_ok && b < min(B, kRowChunk)) pre[i] = load_in(s, b);
+    }
+  };
+  prefetch(0);
 
-    for (int p = threadIdx.x; p < nrows * kJT; p += kThreads) {
-      const int rl = p / kJT;
-      const int jj = p % kJT;
-      const int j = j0 + jj;
-      if (j >= H) continue;
-      const int b = r0 + rl;
+  for (int s = 0; s <= T_len; ++s) {
+    const bool last = s == T_len;
+    const int t = reverse ? s : T_len - 1 - s;
+    const T* dhw_in = dhw + (size_t)((s + 1) % 2) * B * Kc;
+    T* dhw_out = dhw + (size_t)(s % 2) * B * Kc;
+    // one unit of one row: its chain dots (chunk row rl) and its inputs
+    auto item = [&](const Split& sp, int b, int rl, const In& v) {
       float chain = 0.0f;
-      for (int ks = 0; ks < s.ksplit; ++ks) chain += dots_c[(ks * s.npad + rl) * CC + jj];
-      const float dh = chain + rest_in[(size_t)b * H + j];
-      if (final) {
+      for (int ks = 0; ks < sp.ksplit; ++ks) chain += dots[(ks * sp.npad + rl) * CC + jj];
+      const float dh = chain + v.rest;
+      if (last) {
         dh0[(size_t)b * H + j] = from_f<T>(dh);
-        continue;
+        return;
       }
-      float hr = 0.0f, hz = 0.0f, hn = 0.0f;
-      for (int ks = 0; ks < s.ksplit; ++ks) {
-        const float* d = dots_r + (ks * s.npad + rl) * CR;
-        hr += d[jj];
-        hz += d[kJT + jj];
-        hn += d[2 * kJT + jj];
-      }
-      hr += to_f(b_hh[j]);
-      hz += to_f(b_hh[H + j]);
-      hn += to_f(b_hh[2 * H + j]);
-      const T* x = xw_t + (size_t)b * 3 * H;
-      const float r = sigmoidf_(to_f(x[j]) + hr);
-      const float z = sigmoidf_(to_f(x[H + j]) + hz);
-      const float n = tanhf(to_f(x[2 * H + j]) + r * hn);
-      const float hp = to_f(hprev_t[(size_t)b * Hk + j]);
-      const bool m = t < lengths[b];
-      const float g = m ? dh + to_f(gout_t[(size_t)b * H + j]) : 0.0f;
-      const float dz = g * (hp - n) * z * (1.0f - z);
+      const size_t row = (size_t)t * B + b;
+      const float r = sigmoidf_(v.xr + v.hr);
+      const float z = sigmoidf_(v.xz + v.hz);
+      const float n = tanhf(v.xn + r * v.hn);
+      const bool m = t < v.len;
+      const float g = m ? dh + v.go : 0.0f;
+      const float dz = g * (v.hp - n) * z * (1.0f - z);
       const float dn = g * (1.0f - z) * (1.0f - n * n);
-      const float dr = dn * hn * r * (1.0f - r);
-      const float dnr = dn * r;
-      T* dx = dxw_t + (size_t)b * 3 * H;
+      const float dr = dn * v.hn * r * (1.0f - r);
+      const float dnr_v = dn * r;
+      T* dx = dxw + row * 3 * H;
       dx[j] = from_f<T>(dr);
       dx[H + j] = from_f<T>(dz);
       dx[2 * H + j] = from_f<T>(dn);
-      dnr_t[(size_t)b * H + j] = from_f<T>(dnr);
-      float* dw = dhw_out + (size_t)b * Kc;
-      dw[j] = dr;
-      dw[H + j] = dz;
-      dw[2 * H + j] = dnr;
-      rest_out[(size_t)b * H + j] = g * z + (m ? 0.0f : dh);
+      dnr[row * H + j] = from_f<T>(dnr_v);
+      T* dw = dhw_out + (size_t)b * Kc;
+      dw[j] = from_f<T>(dr);
+      dw[H + j] = from_f<T>(dz);
+      dw[2 * H + j] = from_f<T>(dnr_v);
+      rest[(size_t)b * H + j] = g * z + (m ? 0.0f : dh);
+    };
+    for (int r0 = 0; r0 < B; r0 += kRowChunk) {
+      const int nrows = min(kRowChunk, B - r0);
+      Split sp = {0, 0, 0, 0};
+      if (s > 0) sp = dots_of<CC, kUnroll>(wc_s, ldw, dhw_in, Kc, Kc, r0, nrows, dots);
+      __syncthreads();
+      if (j_ok && r0 == 0) {
+#pragma unroll
+        for (int i = 0; i < kPre; ++i) {
+          const int p = threadIdx.x + i * kThreads;
+          if (p < nrows * kJT) item(sp, p / kJT, p / kJT, pre[i]);
+        }
+      } else if (j_ok) {
+        for (int p = threadIdx.x; p < nrows * kJT; p += kThreads)
+          item(sp, r0 + p / kJT, p / kJT, load_in(s, r0 + p / kJT));
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    if (!last) {
+      prefetch(s + 1);
+      grid_sync(count, (unsigned int)(s + 1) * gridDim.x);
+    }
   }
 }
 
 template <typename T>
-int launch_bwd(const void* xw, const void* hprev, const void* gout,
-               const void* rec_tiles, const void* chain_tiles, const void* b_hh,
-               const void* lengths, void* dhw_a, void* dhw_b, void* rest_a,
-               void* rest_b, void* dxw, void* dnr, void* dh0, int T_len, int B,
-               int H, int Hk, int Kc, int reverse, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * ((size_t)kJT * Kc + (size_t)3 * kJT * Hk)
-                      + sizeof(float) * kRowChunk * 4 * kJT;
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_gemm(const T* A, const T* Bt, const T* bias, float* hw, int M, int N,
+                        int K, cudaStream_t stream);
+
+template <>
+cudaError_t launch_gemm<__nv_bfloat16>(const __nv_bfloat16* A, const __nv_bfloat16* Bt,
+                                       const __nv_bfloat16* bias, float* hw, int M,
+                                       int N, int K, cudaStream_t stream) {
+  const dim3 grid((M + kGemmM - 1) / kGemmM, (N + kGemmN - 1) / kGemmN);
+  gates_gemm_bf16<<<grid, 256, 0, stream>>>(A, Bt, bias, hw, M, N, K);
+  return cudaGetLastError();
+}
+
+template <>
+cudaError_t launch_gemm<float>(const float* A, const float* Bt, const float* bias,
+                               float* hw, int M, int N, int K, cudaStream_t stream) {
+  const dim3 grid((M + kGemmTile - 1) / kGemmTile, (N + kGemmTile - 1) / kGemmTile);
+  gates_gemm_f32<<<grid, 256, 0, stream>>>(A, Bt, bias, hw, M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* xw, const void* hprev, const void* gout, const void* w_t,
+               const void* chain_tiles, const void* b_hh, const void* lengths,
+               void* hw, void* dhw, void* rest, void* dxw, void* dnr, void* dh0,
+               void* count, int T_len, int B, int H, int Hk, int Kc, int reverse,
+               cudaStream_t stream) {
+  const int blocks = (H + kJT - 1) / kJT;
+  const size_t smem = slice_smem<T>(CC, Kc);
+  cudaError_t err = check_coresident(gru_bwd_persistent<T>, blocks, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + kJT - 1) / kJT);
-  const T* xw_p = static_cast<const T*>(xw);
-  const T* hp_p = static_cast<const T*>(hprev);
-  const T* go_p = static_cast<const T*>(gout);
-  T* dxw_p = static_cast<T*>(dxw);
-  T* dnr_p = static_cast<T*>(dnr);
-  float* dhw[2] = {static_cast<float*>(dhw_a), static_cast<float*>(dhw_b)};
-  float* rest[2] = {static_cast<float*>(rest_a), static_cast<float*>(rest_b)};
-  for (int s = 0; s <= T_len; ++s) {
-    const int final = s == T_len;
-    const int t = final ? 0 : (reverse ? s : T_len - 1 - s);
-    gru_bwd_step<T><<<grid, kThreads, smem, stream>>>(
-        xw_p + (size_t)t * B * 3 * H, hp_p + (size_t)t * B * Hk,
-        go_p + (size_t)t * B * H, static_cast<const T*>(rec_tiles),
-        static_cast<const T*>(chain_tiles), static_cast<const T*>(b_hh),
-        static_cast<const int*>(lengths), dhw[s % 2], dhw[(s + 1) % 2],
-        rest[s % 2], rest[(s + 1) % 2], dxw_p + (size_t)t * B * 3 * H,
-        dnr_p + (size_t)t * B * H, static_cast<T*>(dh0), t, B, H, Hk, Kc,
-        final);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  err = launch_gemm<T>(static_cast<const T*>(hprev), static_cast<const T*>(w_t),
+                       static_cast<const T*>(b_hh), static_cast<float*>(hw),
+                       T_len * B, 3 * H, Hk, stream);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&xw, &hw, &hprev, &gout, &chain_tiles, &lengths, &dhw, &rest,
+                  &dxw, &dnr, &dh0, &count, &T_len, &B, &H, &Hk, &Kc, &reverse};
+  err = cudaLaunchCooperativeKernel((const void*)gru_bwd_persistent<T>, dim3(blocks),
+                                    dim3(kThreads), args, smem, stream);
+  return (int)err;
 }
 
 }  // namespace
 
-// Runs the whole backward scan: T + 1 launches of gru_bwd_step on `stream`,
-// no sync.  dtype: 0 = float32, 1 = bfloat16 (xw, hprev, gout, both tile
-// sets, b_hh, dxw, dnr and dh0 share it).  dhw_a must be zero (B, Kc) fp32
-// and rest_a must hold g_hfin as (B, H) fp32; dhw_b (zero) and rest_b are
-// scratch of the same shapes.  jt must be kJT.  Returns 0 or the first
-// cudaError_t met.
+// Runs the whole backward scan on `stream`, no sync: the gates GEMM into hw
+// (T, B, 3H) fp32 scratch, then one cooperative launch of the chain.
+// dtype: 0 = float32, 1 = bfloat16 (xw, hprev, gout, w_t, chain_tiles,
+// b_hh, dhw, dxw, dnr and dh0 share it).  hprev is (T, B, Hk) zero padded
+// for k >= H; w_t is W_hh^T, (3H, Hk) zero padded; dhw is (2, B, Kc) zero;
+// rest is (B, H) fp32 holding g_hfin and is updated in place; count is one
+// zeroed uint32.  jt must be kJT.  Returns 0 or the first cudaError_t met
+// (cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident).
 extern "C" int gru_scan_bwd(const void* xw, const void* hprev, const void* gout,
-                            const void* rec_tiles, const void* chain_tiles,
-                            const void* b_hh, const void* lengths, void* dhw_a,
-                            void* dhw_b, void* rest_a, void* rest_b, void* dxw,
-                            void* dnr, void* dh0, int T_len, int B, int H,
-                            int Hk, int Kc, int jt, int reverse, int dtype,
-                            void* stream) {
+                            const void* w_t, const void* chain_tiles, const void* b_hh,
+                            const void* lengths, void* hw, void* dhw, void* rest,
+                            void* dxw, void* dnr, void* dh0, void* count, int T_len,
+                            int B, int H, int Hk, int Kc, int jt, int reverse,
+                            int dtype, void* stream) {
   if (T_len <= 0 || B <= 0) return 0;
   if (jt != kJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 3 * H)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh,
-                             lengths, dhw_a, dhw_b, rest_a, rest_b, dxw, dnr,
-                             dh0, T_len, B, H, Hk, Kc, reverse, s);
+    return launch_bwd<float>(xw, hprev, gout, w_t, chain_tiles, b_hh, lengths, hw, dhw,
+                             rest, dxw, dnr, dh0, count, T_len, B, H, Hk, Kc, reverse, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(xw, hprev, gout, rec_tiles, chain_tiles,
-                                     b_hh, lengths, dhw_a, dhw_b, rest_a,
-                                     rest_b, dxw, dnr, dh0, T_len, B, H, Hk,
-                                     Kc, reverse, s);
+    return launch_bwd<__nv_bfloat16>(xw, hprev, gout, w_t, chain_tiles, b_hh, lengths,
+                                     hw, dhw, rest, dxw, dnr, dh0, count, T_len, B, H,
+                                     Hk, Kc, reverse, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The gates GEMM alone, hw = hprev @ w_t^T + b_hh over M rows: for checking
+// it against its plain version.
+extern "C" int gru_bwd_gates(const void* hprev, const void* w_t, const void* b_hh,
+                             void* hw, int M, int H, int Hk, int dtype, void* stream) {
+  if (M <= 0) return 0;
+  if (Hk % 64 != 0 || Hk < H) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = launch_gemm<float>(static_cast<const float*>(hprev),
+                             static_cast<const float*>(w_t),
+                             static_cast<const float*>(b_hh), static_cast<float*>(hw),
+                             M, 3 * H, Hk, s);
+  else if (dtype == 1)
+    err = launch_gemm<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(hprev),
+                                     static_cast<const __nv_bfloat16*>(w_t),
+                                     static_cast<const __nv_bfloat16*>(b_hh),
+                                     static_cast<float*>(hw), M, 3 * H, Hk, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// Dynamic shared memory of one chain block, for the wrapper's limit.
+extern "C" int gru_scan_bwd_smem(int Kc, int dtype) {
+  return (int)(dtype == 0 ? slice_smem<float>(CC, Kc)
+                          : slice_smem<__nv_bfloat16>(CC, Kc));
+}
+
+// The most blocks that can be co-resident on this card at width Kc, or -1.
+extern "C" int gru_scan_bwd_max_blocks(int Kc, int dtype) {
+  int blocks = -1;
+  const cudaError_t err =
+      dtype == 0 ? max_coresident(gru_bwd_persistent<float>, slice_smem<float>(CC, Kc), &blocks)
+                 : max_coresident(gru_bwd_persistent<__nv_bfloat16>,
+                                  slice_smem<__nv_bfloat16>(CC, Kc), &blocks);
+  return err == cudaSuccess ? blocks : -1;
 }

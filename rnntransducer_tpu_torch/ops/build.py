@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
 root of the checkout, at first use, then loaded with ``ctypes``.  The hash
-of the source is part of the file name, so an edited source is rebuilt and
-a stale library is never loaded.  Nothing is built when a module is
+of the source and of the shared headers ``csrc/*.cuh`` is part of the file
+name, so an edited source is rebuilt and a stale library is never loaded.  Nothing is built when a module is
 imported: the CPU tests import every module and have no ``nvcc``.
 """
 
@@ -43,6 +43,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

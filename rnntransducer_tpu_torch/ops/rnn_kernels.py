@@ -19,9 +19,13 @@ off-loop dW_hh / db_hh GEMMs (:func:`gru_weight_grads`,
 module when they run, so a caller may swap any of them for its plain
 version.
 
-Each wrapper's ``.launches`` counts the kernel launches it made (T per
-forward scan, T + 1 per backward scan), so a run can show that its
-recurrent layers went through the kernels.
+Each wrapper's ``.launches`` counts the kernel launches it made, so a run
+can show that its recurrent layers went through the kernels: the GRU
+kernels are persistent (1 launch per forward scan; 2 per backward scan, the
+gates GEMM and the chain), the LSTM kernels launch per step (T per forward
+scan, T + 1 per backward scan).  The persistent GRU grid must be
+co-resident: :func:`gru_max_hidden` gives the largest H it takes, and a
+larger H raises ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_WIDTH = 8                    # GRU hidden units per block (kJT in the kernels)
 _LSTM_TILE_WIDTH = 4               # LSTM hidden units per block (kJT in the kernels)
 _K_ALIGN = 64                      # the kernel's K loop walks 64 at a time
+_GRU_MAX_BLOCKS = 132              # persistent GRU blocks, one per SM of an H100 SXM
+_SMEM_PER_BLOCK = 232448           # 227 KB of shared memory a block may use
+_COOPERATIVE_TOO_LARGE = 720       # cudaErrorCooperativeLaunchTooLarge
 
 
 def gru_scan_reference(xw, w_hh, b_hh, h0, lengths, reverse: bool = False):
@@ -72,9 +79,11 @@ def _library():
     lib = build.load("gru_fwd")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gru_scan_fwd.argtypes = [p, p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, p]
+        lib.gru_scan_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.gru_scan_fwd.restype = i
+        for fn in (lib.gru_scan_fwd_smem, lib.gru_scan_fwd_max_blocks):
+            fn.argtypes = [i, i]
+            fn.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -88,6 +97,61 @@ def _tile_weights(w_hh: torch.Tensor, H: int, Hk: int, jt: int) -> torch.Tensor:
     wg = F.pad(w_hh.view(H, G, H), (0, Hp - H, 0, 0, 0, Hk - H))
     return (wg.view(Hk, G, Hp // jt, jt).permute(2, 1, 3, 0)
             .reshape(Hp // jt, G * jt, Hk).contiguous())
+
+
+def _padded(n: int) -> int:
+    return -(-n // _K_ALIGN) * _K_ALIGN
+
+
+def _fp32_copy(x):
+    """A dense fp32 copy of x, which a kernel may update in place."""
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device).copy_(x)
+
+
+def gru_smem_bytes(H: int, dtype: torch.dtype, backward: bool = False) -> int:
+    """Dynamic shared memory of one block of the persistent GRU kernels
+    (``csrc/rnn_persistent.cuh::slice_smem``): the block's W_hh slice, 24
+    rows of Hk forward or 8 rows of Kc backward, bf16 rows padded by 32
+    values, plus a 128-row fp32 dot buffer."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    C = _TILE_WIDTH if backward else 3 * _TILE_WIDTH
+    K = _padded(3 * H) if backward else _padded(H)
+    return e * C * (K + 32 if e == 2 else K) + 4 * 128 * C
+
+
+def gru_fits(H: int, B: int, dtype: torch.dtype) -> bool:
+    """Whether both persistent GRU kernels take hidden size H: ceil(H / 8)
+    blocks, one per SM, must be co-resident on the card's 132 SMs, each
+    within the 227 KB of shared memory a block may use.  B does not move
+    the limit: rows are walked in 64-row chunks inside a step."""
+    del B
+    return (-(-H // _TILE_WIDTH) <= _GRU_MAX_BLOCKS
+            and max(gru_smem_bytes(H, dtype), gru_smem_bytes(H, dtype, True))
+            <= _SMEM_PER_BLOCK)
+
+
+def gru_max_hidden(B: int, dtype: torch.dtype) -> int:
+    """The largest hidden size the persistent GRU kernels take."""
+    H = _GRU_MAX_BLOCKS * _TILE_WIDTH
+    while not gru_fits(H, B, dtype):
+        H -= 1
+    return H
+
+
+def _check_gru_fits(op: str, H: int, B: int, dtype: torch.dtype) -> None:
+    if not gru_fits(H, B, dtype):
+        raise ValueError(
+            f"{op}: H={H} is above {gru_max_hidden(B, dtype)}, the largest hidden "
+            f"size whose grid of {_TILE_WIDTH}-unit blocks, one per SM with its "
+            f"W_hh slice in shared memory, can be co-resident on {_GRU_MAX_BLOCKS} "
+            f"SMs ({dtype})")
+
+
+def _cuda_error(op: str, err: int) -> RuntimeError:
+    if err == _COOPERATIVE_TOO_LARGE:
+        return RuntimeError(f"{op}: the persistent grid cannot be co-resident on "
+                            f"this card (CUDA error {err})")
+    return RuntimeError(f"{op} kernel failed with CUDA error {err}")
 
 
 def _gru_scan_cuda(xw, w_hh, b_hh, h0, lengths, reverse):
@@ -113,28 +177,30 @@ def _gru_scan_cuda(xw, w_hh, b_hh, h0, lengths, reverse):
                         f"got {xw.dtype}, {w_hh.dtype}, {b_hh.dtype}")
     if not (xw.is_contiguous() and w_hh.is_contiguous() and b_hh.is_contiguous()):
         raise ValueError("gru_scan kernel needs contiguous xw, w_hh and b_hh")
+    _check_gru_fits("gru_scan", H, B, xw.dtype)
 
     lib = _library()
-    Hk = -(-H // _K_ALIGN) * _K_ALIGN
+    Hk = _padded(H)
     with torch.cuda.device(dev):
-        tiles = _tile_weights(w_hh, H, Hk, _TILE_WIDTH)
-        h_a = torch.zeros((B, Hk), dtype=torch.float32, device=dev)
-        h_a[:, :H] = h0.float()
-        h_b = torch.zeros_like(h_a)
-        lens = lengths.to(torch.int32).contiguous()
         h_all = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
         if T == 0:
             return h_all, h0.to(xw.dtype)
+        tiles = _tile_weights(w_hh, H, Hk, _TILE_WIDTH)
+        hb = torch.zeros((2, B, Hk), dtype=xw.dtype, device=dev)
+        hb[0, :, :H] = h0
+        carry = _fp32_copy(h0)               # j-local carry, updated in place
+        lens = lengths.to(torch.int32).contiguous()
+        count = torch.zeros((1,), dtype=torch.int32, device=dev)
         h_fin = torch.empty((B, H), dtype=xw.dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gru_scan_fwd(
-            xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), h_a.data_ptr(),
-            h_b.data_ptr(), h_all.data_ptr(), h_fin.data_ptr(),
-            lens.data_ptr(), T, B, H, Hk, _TILE_WIDTH, int(reverse),
+            xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), hb.data_ptr(),
+            carry.data_ptr(), h_all.data_ptr(), h_fin.data_ptr(), lens.data_ptr(),
+            count.data_ptr(), T, B, H, Hk, _TILE_WIDTH, int(reverse),
             _DTYPE_CODES[xw.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"gru_scan kernel failed with CUDA error {err}")
-    gru_scan.launches += T
+        raise _cuda_error("gru_scan", err)
+    gru_scan.launches += 1
     return h_all, h_fin
 
 
@@ -236,12 +302,60 @@ def gru_weight_grads(h_prev, dxw, dnr, w_dtype):
     return dw, db
 
 
+def gru_bwd_gates_reference(h_prev, w_hh, b_hh):
+    """Plain version of the backward kernel's off-chain GEMM: the gate
+    pre-activations of every step, hw = h_prev @ W_hh + b_hh, (T, B, 3H) in
+    fp32 (h_prev rounded to W's dtype, fp32 accumulation, b_hh added in
+    fp32), as the TPU kernel rebuilds them off the chain
+    (``rnn_pallas.py:177-185``)."""
+    hp = h_prev.to(w_hh.dtype).float()
+    with full_precision_matmul():
+        return torch.matmul(hp, w_hh.float()) + b_hh.float()
+
+
+def gru_bwd_chain_reference(xw, hw, h_prev, w_hh, lengths, g_hall, g_hfin,
+                            reverse: bool = False):
+    """Plain version of the backward kernel's chain, given the gates' hw
+    from :func:`gru_bwd_gates_reference`: the steps of
+    :func:`gru_scan_backward_reference` with the recompute taken off the
+    chain.  Same arguments and results otherwise."""
+    T, B, G = xw.shape
+    H = G // 3
+    w = w_hh.float()
+    lengths = lengths.to(xw.device)
+    dh = g_hfin.float()
+    dxw = torch.empty((T, B, G), dtype=xw.dtype, device=xw.device)
+    dnr = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        x = xw[t].float()
+        hn = hw[t, :, 2 * H:]
+        r = torch.sigmoid(x[:, :H] + hw[t, :, :H])
+        z = torch.sigmoid(x[:, H:2 * H] + hw[t, :, H:2 * H])
+        n = torch.tanh(x[:, 2 * H:] + r * hn)
+        m = (lengths > t)[:, None]
+        g = torch.where(m, dh + g_hall[t].float(), 0.0)
+        dz = g * (h_prev[t].float() - n) * z * (1.0 - z)
+        dn = g * (1.0 - z) * (1.0 - n * n)
+        dr = dn * hn * r * (1.0 - r)
+        dnr_t = dn * r
+        dxw[t] = torch.cat([dr, dz, dn], dim=1).to(xw.dtype)
+        dnr[t] = dnr_t.to(xw.dtype)
+        dhw = torch.cat([dr, dz, dnr_t], dim=1).to(w_hh.dtype).float()
+        dh = torch.matmul(dhw, w.t()) + g * z + torch.where(m, 0.0, dh)
+    return dxw, dnr, dh.to(xw.dtype)
+
+
 def _bwd_library():
     lib = build.load("gru_bwd")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_scan_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
         lib.gru_scan_bwd.restype = i
+        lib.gru_bwd_gates.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.gru_bwd_gates.restype = i
+        for fn in (lib.gru_scan_bwd_smem, lib.gru_scan_bwd_max_blocks):
+            fn.argtypes = [i, i]
+            fn.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -253,6 +367,45 @@ def _chain_tiles(w_hh: torch.Tensor, H: int, Kc: int, jt: int) -> torch.Tensor:
     Hp = -(-H // jt) * jt
     return (F.pad(w_hh, (0, Kc - w_hh.shape[1], 0, Hp - H))
             .view(Hp // jt, jt, Kc).contiguous())
+
+
+def _gemm_operands(h_prev, w_hh, Hk):
+    """The gates GEMM's operands: h_prev as (T*B, Hk) and W_hh^T as (3H, Hk),
+    both zero padded in K, dense."""
+    H = w_hh.shape[0]
+    hp = h_prev if Hk == H else F.pad(h_prev, (0, Hk - H))
+    return hp.contiguous(), F.pad(w_hh.t(), (0, Hk - H)).contiguous()
+
+
+def gru_bwd_gates(h_prev, w_hh, b_hh):
+    """The backward kernel's gates GEMM on its own, for a CUDA h_prev
+    (T, B, H) and W_hh, b_hh of its dtype: hw (T, B, 3H) fp32.  The scan
+    launches it itself; this entry point is for checking it against
+    :func:`gru_bwd_gates_reference`.  ``.launches`` counts its launches."""
+    if h_prev.device.type != "cuda":
+        raise ValueError(f"gru_bwd_gates runs on cuda, not {h_prev.device}")
+    T, B, H = h_prev.shape
+    if h_prev.dtype not in _DTYPE_CODES or w_hh.dtype != h_prev.dtype \
+            or b_hh.dtype != h_prev.dtype or not b_hh.is_contiguous():
+        raise TypeError("gru_bwd_gates needs contiguous float32 or bfloat16 "
+                        "operands of one dtype")
+    lib = _bwd_library()
+    Hk = _padded(H)
+    dev = h_prev.device
+    with torch.cuda.device(dev):
+        hp, w_t = _gemm_operands(h_prev, w_hh, Hk)
+        hw = torch.empty((T, B, 3 * H), dtype=torch.float32, device=dev)
+        err = lib.gru_bwd_gates(hp.data_ptr(), w_t.data_ptr(), b_hh.data_ptr(),
+                                hw.data_ptr(), T * B, H, Hk,
+                                _DTYPE_CODES[h_prev.dtype],
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise _cuda_error("gru_bwd_gates", err)
+    gru_bwd_gates.launches += 1
+    return hw
+
+
+gru_bwd_gates.launches = 0
 
 
 def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
@@ -283,33 +436,33 @@ def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
     if not all(x.is_contiguous() for x in (xw, w_hh, b_hh, g_hall)):
         raise ValueError("gru_scan_backward kernel needs contiguous xw, w_hh, "
                          "b_hh and g_hall")
+    _check_gru_fits("gru_scan_backward", H, B, xw.dtype)
 
     lib = _bwd_library()
-    Hk = -(-H // _K_ALIGN) * _K_ALIGN
-    Kc = -(-G // _K_ALIGN) * _K_ALIGN
+    Hk, Kc = _padded(H), _padded(G)
     with torch.cuda.device(dev):
         dxw = torch.empty((T, B, G), dtype=xw.dtype, device=dev)
         dnr = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
         if T == 0:
             return dxw, dnr, g_hfin.clone()
-        rec = _tile_weights(w_hh, H, Hk, _TILE_WIDTH)
+        hprev, w_t = _gemm_operands(h_prev, w_hh, Hk)
         chain = _chain_tiles(w_hh, H, Kc, _TILE_WIDTH)
-        hprev = F.pad(h_prev, (0, Hk - H)).contiguous()
-        dhw = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
-        rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-        rest[0] = g_hfin.float()
+        hw = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+        dhw = torch.zeros((2, B, Kc), dtype=xw.dtype, device=dev)
+        rest = _fp32_copy(g_hfin)            # j-local carry, updated in place
         lens = lengths.to(torch.int32).contiguous()
+        count = torch.zeros((1,), dtype=torch.int32, device=dev)
         dh0 = torch.empty((B, H), dtype=xw.dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gru_scan_bwd(
-            xw.data_ptr(), hprev.data_ptr(), g_hall.data_ptr(), rec.data_ptr(),
-            chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(), dhw[0].data_ptr(),
-            dhw[1].data_ptr(), rest[0].data_ptr(), rest[1].data_ptr(),
-            dxw.data_ptr(), dnr.data_ptr(), dh0.data_ptr(), T, B, H, Hk, Kc,
-            _TILE_WIDTH, int(reverse), _DTYPE_CODES[xw.dtype], stream)
+            xw.data_ptr(), hprev.data_ptr(), g_hall.data_ptr(), w_t.data_ptr(),
+            chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(), hw.data_ptr(),
+            dhw.data_ptr(), rest.data_ptr(), dxw.data_ptr(), dnr.data_ptr(),
+            dh0.data_ptr(), count.data_ptr(), T, B, H, Hk, Kc, _TILE_WIDTH,
+            int(reverse), _DTYPE_CODES[xw.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"gru_scan_backward kernel failed with CUDA error {err}")
-    gru_scan_backward.launches += T + 1
+        raise _cuda_error("gru_scan_backward", err)
+    gru_scan_backward.launches += 2
     return dxw, dnr, dh0
 
 
@@ -420,11 +573,6 @@ def _check_lstm_args(op, xw, named, contiguous):
                             f"got {x.dtype}")
     if not all(x.is_contiguous() for x in (xw,) + contiguous):
         raise ValueError(f"{op} kernel needs contiguous xw, weights and streams")
-
-
-def _fp32_copy(x):
-    """A dense fp32 copy of x, which a kernel may update in place."""
-    return torch.empty(x.shape, dtype=torch.float32, device=x.device).copy_(x)
 
 
 def _lstm_fwd_library():

@@ -1,0 +1,265 @@
+"""The persistent GRU kernels' pieces that run without a card.
+
+The kernels themselves (``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu``) run only
+on the card (the ``cuda`` test below and ``chip_smoke.py``).  Here: the
+layouts the wrappers hand them, the co-residency limit, the plain mirrors
+of the backward's two pieces (the off-chain gates GEMM and the chain)
+against numpy and against ``jax.grad`` through ``rnn_pallas.gru_scan`` in
+interpret mode, and the launch counts ``chip_smoke.py`` expects.
+
+Tolerances: the gates GEMM at 1e-6 against numpy in float64 (fp32 sums of
+H=16 terms); the decomposed backward at 1e-6 in fp32 against the Pallas
+kernel, as ``test_torch_rnn_backward.py`` holds the undecomposed one.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from rnntransducer_tpu.ops import rnn_pallas as rp
+
+from rnntransducer_tpu_torch.config import base_config, tiny_config
+from rnntransducer_tpu_torch.ops import rnn_kernels
+
+from _torch_parity import close, t
+
+H = 16
+
+
+def _inputs(T, B, seed):
+    rng = np.random.RandomState(seed)
+    xw = rng.randn(T, B, 3 * H).astype(np.float32)
+    w = (rng.randn(H, 3 * H) * 0.4).astype(np.float32)
+    b = (rng.randn(3 * H) * 0.1).astype(np.float32)
+    h0 = (rng.randn(B, H) * 0.4).astype(np.float32)
+    lengths = np.maximum(T - 3 * np.arange(B), 1).astype(np.float32)
+    lengths[-1] = 1
+    g_all = rng.randn(T, B, H).astype(np.float32)
+    g_fin = rng.randn(B, H).astype(np.float32)
+    return (xw, w, b, h0, lengths), (g_all, g_fin)
+
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+
+
+def test_gemm_operands_pad_h_prev_and_transpose_w():
+    """The gates GEMM takes h_prev as (T, B, Hk) and W_hh^T as (3H, Hk),
+    both zero in the K padding."""
+    Hs, Hk = 12, 64
+    h_prev = torch.randn(3, 2, Hs)
+    w = torch.arange(Hs * 3 * Hs, dtype=torch.float32).view(Hs, 3 * Hs)
+    hp, w_t = rnn_kernels._gemm_operands(h_prev, w, Hk)
+    assert hp.shape == (3, 2, Hk) and w_t.shape == (3 * Hs, Hk)
+    assert hp.is_contiguous() and w_t.is_contiguous()
+    assert torch.equal(hp[..., :Hs], h_prev) and not hp[..., Hs:].any()
+    assert torch.equal(w_t[:, :Hs], w.t()) and not w_t[:, Hs:].any()
+    # an unpadded H keeps h_prev as it is
+    hp, _ = rnn_kernels._gemm_operands(torch.randn(2, 2, 64), torch.zeros(64, 192), 64)
+    assert hp.shape == (2, 2, 64)
+
+
+def test_gru_chain_tiles_hold_each_blocks_rows():
+    """Block i of the chain holds the 8 rows j = 8 i + jj of W_hh, each
+    padded to Kc with zeros; rows j >= H are zero."""
+    Hs, jt = 12, rnn_kernels._TILE_WIDTH
+    Kc = rnn_kernels._padded(3 * Hs)
+    w = torch.arange(Hs * 3 * Hs, dtype=torch.float32).view(Hs, 3 * Hs) + 1
+    tiles = rnn_kernels._chain_tiles(w, Hs, Kc, jt)
+    assert tiles.shape == (2, jt, Kc)
+    for i in range(2):
+        for jj in range(jt):
+            j = i * jt + jj
+            row = tiles[i, jj]
+            if j < Hs:
+                assert torch.equal(row[:3 * Hs], w[j])
+            else:
+                assert not row.any()
+            assert not row[3 * Hs:].any()
+
+
+# ---------------------------------------------------------------------------
+# the co-residency limit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_memory_per_block(dtype):
+    """The wrappers' mirror of rnn_persistent.cuh::slice_smem at H=1024:
+    24 rows of 1024 (forward) and 8 rows of 3072 (backward), bf16 rows
+    padded by 32 values, plus the 128-row fp32 dot buffer."""
+    e, pad = (2, 32) if dtype == torch.bfloat16 else (4, 0)
+    assert rnn_kernels.gru_smem_bytes(1024, dtype) == e * 24 * (1024 + pad) + 4 * 128 * 24
+    assert (rnn_kernels.gru_smem_bytes(1024, dtype, backward=True)
+            == e * 8 * (3072 + pad) + 4 * 128 * 8)
+    # H = 1000 pads K to 1024 and 3008
+    assert rnn_kernels.gru_smem_bytes(1000, dtype) == rnn_kernels.gru_smem_bytes(1024, dtype)
+    assert (rnn_kernels.gru_smem_bytes(1000, dtype, True)
+            == e * 8 * (3008 + pad) + 4 * 128 * 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8, 64, 100])
+def test_coresidency_limit(B, dtype):
+    """One 8-unit block per SM on 132 SMs: H=1024 (the flagship) and
+    H=1056 fit in both dtypes at every B, H=1057 does not."""
+    assert rnn_kernels.gru_max_hidden(B, dtype) == 1056
+    for H_ in (1, 8, 320, 1000, 1024, 1056):
+        assert rnn_kernels.gru_fits(H_, B, dtype)
+    for H_ in (1057, 1064, 2048, 4096):
+        assert not rnn_kernels.gru_fits(H_, B, dtype)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_wrappers_raise_above_the_limit(backward):
+    """An H above the limit raises ValueError naming the limit, before the
+    library is built or any launch is counted."""
+    Hs, T, B = 1064, 2, 3
+    xw = torch.zeros(T, B, 3 * Hs)
+    w = torch.zeros(Hs, 3 * Hs)
+    b = torch.zeros(3 * Hs)
+    h0 = torch.zeros(B, Hs)
+    lengths = torch.tensor([2, 1, 2])
+    before = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
+    with pytest.raises(ValueError, match="above 1056, the largest hidden size"):
+        if backward:
+            seq = torch.zeros(T, B, Hs)
+            rnn_kernels._gru_scan_backward_cuda(xw, seq, w, b, lengths, seq, h0, False)
+        else:
+            rnn_kernels._gru_scan_cuda(xw, w, b, h0, lengths, False)
+    assert before == (rnn_kernels.gru_scan.launches,
+                      rnn_kernels.gru_scan_backward.launches)
+
+
+def test_gates_gemm_wrapper_runs_only_on_the_card():
+    with pytest.raises(ValueError, match="runs on cuda"):
+        rnn_kernels.gru_bwd_gates(torch.zeros(2, 2, 8), torch.zeros(8, 24),
+                                  torch.zeros(24))
+
+
+# ---------------------------------------------------------------------------
+# the plain mirrors of the backward's two pieces
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gates_reference_matches_numpy(dtype):
+    """hw = h_prev @ W_hh + b_hh in fp32, from operands rounded to W's
+    dtype, against numpy in float64 on the same rounded operands."""
+    rng = np.random.RandomState(4)
+    h_prev = torch.from_numpy(rng.randn(5, 3, H).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.randn(H, 3 * H).astype(np.float32) * 0.4).to(dtype)
+    b = torch.from_numpy(rng.randn(3 * H).astype(np.float32) * 0.1).to(dtype)
+    got = rnn_kernels.gru_bwd_gates_reference(h_prev, w, b)
+    assert got.dtype == torch.float32 and got.shape == (5, 3, 3 * H)
+    want = (h_prev.double().numpy() @ w.double().numpy()) + b.double().numpy()
+    close(got, want, atol=1e-6)
+
+
+def _jax_grads(args, cot, reverse):
+    xw, w, b, h0, lengths = [jnp.asarray(a) for a in args]
+    g_all, g_fin = (jnp.asarray(c) for c in cot)
+
+    def f(xw, w, b, h0):
+        h_all, h_fin = rp.gru_scan(xw, w, b, h0, lengths, reverse, True)
+        return jnp.sum(h_all * g_all) + jnp.sum(h_fin * g_fin)
+
+    return jax.grad(f, argnums=(0, 1, 2, 3))(xw, w, b, h0)
+
+
+def _decomposed(args, cot, reverse):
+    """The kernel's decomposition with plain pieces: the hoisted gates,
+    then the chain, then the off-loop weight GEMMs."""
+    xw, w, b, h0, lengths = [t(a) for a in args]
+    h_all, _ = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths, reverse)
+    h_prev = rnn_kernels.prev_all(h_all, h0, lengths, reverse)
+    hw = rnn_kernels.gru_bwd_gates_reference(h_prev, w, b)
+    dxw, dnr, dh0 = rnn_kernels.gru_bwd_chain_reference(
+        xw, hw, h_prev, w, lengths, t(cot[0]), t(cot[1]), reverse)
+    dw, db = rnn_kernels.gru_weight_grads(h_prev, dxw, dnr, w.dtype)
+    return (dxw, dw, db, dh0), (xw, h_prev, w, b, lengths) + tuple(t(c) for c in cot)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B", [4, 10])
+def test_decomposed_backward_matches_pallas_fp32(B, reverse):
+    """Hoisted gates plus chain give dxw, dW_hh (so dnr), db_hh and dh0 of
+    jax.grad through the Pallas kernel in interpret mode."""
+    args, cot = _inputs(9, B, seed=20 + B + reverse)
+    want = _jax_grads(args, cot, reverse)
+    got, _ = _decomposed(args, cot, reverse)
+    for name, g, w in zip(("dxw", "dw_hh", "db_hh", "dh0"), got, want):
+        close(g, w, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_chain_reference_matches_the_plain_backward(reverse):
+    """The chain mirror gives the undecomposed plain backward's dxw, dnr and
+    dh0, ragged lengths (1 and T) included."""
+    args, cot = _inputs(7, 5, seed=31 + reverse)
+    (dxw, _, _, dh0), call = _decomposed(args, cot, reverse)
+    xw, h_prev, w, b, lengths, g_all, g_fin = call
+    want = rnn_kernels.gru_scan_backward_reference(xw, h_prev, w, b, lengths,
+                                                   g_all, g_fin, reverse)
+    hw = rnn_kernels.gru_bwd_gates_reference(h_prev, w, b)
+    got = rnn_kernels.gru_bwd_chain_reference(xw, hw, h_prev, w, lengths, g_all,
+                                              g_fin, reverse)
+    for name, g, r in zip(("dxw", "dnr", "dh0"), got, want):
+        close(g, r, atol=1e-6, err_msg=name)
+    close(dxw, want[0], atol=1e-6)
+    close(dh0, want[2], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# launch counts on the main paths
+# ---------------------------------------------------------------------------
+
+
+def test_step_launches_of_the_main_paths():
+    """Per train_step: 16 GRU scans of base_config at 1 forward and 2
+    backward launches each; the LSTM kernels per step (T and T + 1)."""
+    import chip_smoke
+    assert chip_smoke.scan_launches("gru", 512) == (1, 2)
+    assert chip_smoke.scan_launches("lstm", 49) == (49, 50)
+    base = chip_smoke.step_launches(base_config(), 512, 48)
+    assert base == {"gru_fwd": 16, "gru_bwd": 32, "lstm_fwd": 98, "lstm_bwd": 100,
+                    "rnnt_sweep": 1, "logmel": 0}
+    assert chip_smoke.step_launches(base_config(), 512, 48, raw_pcm=True)["logmel"] == 1
+    tiny = chip_smoke.step_launches(tiny_config(), 512, 48)
+    assert tiny == {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 4 * 512 + 49,
+                    "lstm_bwd": 4 * 513 + 50, "rnnt_sweep": 1, "logmel": 0}
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_persistent_kernels_match_plain_versions_on_the_card():
+    """Both kernels at small sizes, B=100 (two 64-row chunks) included,
+    and the gates GEMM alone, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4 * 2.0 ** -8)):
+        for B, reverse in ((5, False), (100, True)):
+            args, cot = _inputs(12, B, seed=40 + B + reverse)
+            xw, w, b, h0, lengths = [t(a).to("cuda") for a in args]
+            xw, w, b, h0 = (a.to(dtype) for a in (xw, w, b, h0))
+            got = rnn_kernels.gru_scan(xw, w, b, h0, lengths, reverse)
+            want = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths, reverse)
+            for g, r in zip(got, want):
+                assert (g.float() - r.float()).abs().max().item() <= 2e-2
+            h_prev = rnn_kernels.prev_all(want[0], h0, lengths, reverse)
+            hw = rnn_kernels.gru_bwd_gates(h_prev, w, b)
+            hw_ref = rnn_kernels.gru_bwd_gates_reference(h_prev, w, b)
+            assert (hw - hw_ref).abs().max().item() <= 1e-5 * hw_ref.abs().max().item()
+            call = (xw, h_prev, w, b, lengths, t(cot[0]).to("cuda", dtype),
+                    t(cot[1]).to("cuda", dtype), reverse)
+            for g, r in zip(rnn_kernels.gru_scan_backward(*call),
+                            rnn_kernels.gru_scan_backward_reference(*call)):
+                err = (g.float() - r.float()).abs().max().item()
+                assert err <= tol * max(r.float().abs().max().item(), 1.0)
