@@ -14,10 +14,15 @@ Phases (each raises, and the script exits non-zero, on failure):
    per backward scan) at H=1024, T=512, B in {1, 8, 64, 100}, both
    directions, fp32 and bf16 (K2 also against autograd through the plain
    forward loop, its gates GEMM alone against the plain product), and
-   their co-residency limit (the largest H runs, the next raises); K3 and K4 at
-   the flagship prediction network (B=64, T=49, H=1024) and tiny_config's
-   encoder (B in {8, 64}, T=512, H=320), both directions, fp32 and bf16,
-   ragged lengths including 1 and T (K4 also against autograd); K5 at the
+   their co-residency limit (the largest H runs, the next raises); K3 and
+   K4 (persistent in the same way) at the flagship prediction network
+   (T=49, H=1024, B in {1, 64, 100}) and tiny_config's encoder (B in
+   {8, 64}, T=512, H=320), both directions, fp32 and bf16, ragged lengths
+   including 1 and T (K4 also against autograd), their limit (the largest
+   H runs persistent, the next on the per-step kernels, both against the
+   plain versions), their times at B in {1, 8, 64} beside the per-step
+   route's and, at H=320, both block widths; a timing-only yardstick of
+   cuDNN's one-layer LSTM / GRU against the port's layer; K5 at the
    flagship lattice (B=64 and the 2B of one loss, T=512, U+1=49) and a
    ragged T=300; K6 at the flagship raw-PCM shape (32768 frame rows) and a
    ragged batch, in both precision modes, the power spectrum and the mel
@@ -38,7 +43,8 @@ Phases (each raises, and the script exits non-zero, on failure):
       ``base_config()`` at full width from the same seeded weights, B=64,
       T=512, U=48, bf16, precomputed features (the shape of ``bench.py``):
       K1 and K2 for the encoder, K3 and K4 for the 2-layer LSTM prediction
-      network, K5 for the loss.  Step time, utt/s, MFU, a profile;
+      network (1 and 2 launches per scan), K5 for the loss.  Step time,
+      utt/s, MFU, a profile;
    b. the same step on raw PCM: 64 seeded waves of up to 81760 samples as
       int16 plus a per-utterance scale; K6 in every step.  Step time and
       the frontend's share of it;
@@ -128,6 +134,17 @@ GATES_TOL = 1e-5
 # (B, T, H) of the LSTM checks: the flagship prediction network (U+1 = 49)
 # and tiny_config's encoder at two batches
 LSTM_SHAPES = ((64, 49, 1024), (8, 512, 320), (64, 512, 320))
+# checked: those, and the prediction network at B=1 and at B=100 (two
+# 64-row chunks); timed: B in {1, 8, 64} at the prediction network's shape
+# and tiny_config's encoder at B=64
+LSTM_CHECK_SHAPES = LSTM_SHAPES + ((1, 49, 1024), (100, 49, 1024))
+LSTM_TIME_SHAPES = ((1, 49, 1024), (8, 49, 1024), (64, 49, 1024), (64, 512, 320))
+# (cell, B, T, H, input width) of the cuDNN yardstick: a flagship
+# prediction-network layer (layer 2 takes the 1024-wide output of layer
+# 1), a tiny_config encoder layer (layer 2 takes 2 x 320) and a flagship
+# encoder layer (layers 2-8 take 2 x 1024)
+CUDNN_LAYER_SHAPES = (("lstm", 64, 49, 1024, 1024), ("lstm", 64, 512, 320, 640),
+                      ("gru", 64, 512, 1024, 2048))
 # Log-mel, kernel vs plain, checked in two stages on the same frames: the
 # power spectrum relative to its largest value (fp32 sums of exact bf16
 # products in two orders), and the mel stage on the kernel's own power
@@ -445,38 +462,66 @@ def lstm_bound_ms(T, B, H, dtype, lengths, backward: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _lstm_check(xw, w, b, h0, c0, lengths, reverse, gen):
+    """Forward and backward kernels against their plain versions on the same
+    inputs, the backward's dW / db assembled by the off-loop GEMMs.  Returns
+    (forward rel errs, backward rel errs, forward max abs err, backward max
+    abs err)."""
+    dtype, (T, B, H) = xw.dtype, (xw.shape[0], xw.shape[1], xw.shape[2] // 4)
+    args = (xw, w, b, h0, c0, lengths, reverse)
+    got = rnn_kernels.lstm_scan(*args, with_carry=True)
+    want = rnn_kernels.lstm_scan_reference(*args, with_carry=True)
+    h_prev = rnn_kernels.prev_all(want[0], h0, lengths, reverse)
+    c_prev = rnn_kernels.prev_all(want[1], c0, lengths, reverse)
+    cot = [torch.randn(*s, device=DEVICE, generator=gen).to(dtype)
+           for s in ((T, B, H), (B, H), (B, H))]
+    bargs = (xw, h_prev, c_prev, w, b, lengths, *cot, reverse)
+    gotb = rnn_kernels.lstm_scan_backward(*bargs)
+    wantb = rnn_kernels.lstm_scan_backward_reference(*bargs)
+    gotb += rnn_kernels.lstm_weight_grads(h_prev, gotb[0], dtype)
+    wantb += rnn_kernels.lstm_weight_grads(h_prev, wantb[0], dtype)
+    torch.cuda.synchronize()
+    errs = [_rel_err(g, r) for g, r in zip(got, want)]
+    berrs = [_rel_err(g, r) for g, r in zip(gotb, wantb)]
+    fwd_abs = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, want))
+    bwd_abs = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(gotb[:3], wantb[:3]))
+    return errs, berrs, fwd_abs, bwd_abs
+
+
+@contextlib.contextmanager
+def _lstm_forced(route=None, tile_width=None):
+    """The LSTM wrappers forced onto one route or block width (timing the
+    alternatives only)."""
+    saved = rnn_kernels.lstm_route, rnn_kernels.lstm_tile_width
+    if route is not None:
+        rnn_kernels.lstm_route = lambda H, B, dtype: route
+    if tile_width is not None:
+        rnn_kernels.lstm_tile_width = lambda H: tile_width
+    try:
+        yield
+    finally:
+        rnn_kernels.lstm_route, rnn_kernels.lstm_tile_width = saved
+
+
 def phase_lstm(gen):
     """LSTM forward and backward kernels vs their plain versions at the
-    flagship prediction network's shape and tiny_config's encoder shapes,
-    both directions, fp32 and bf16; the backward also against autograd
-    through the plain forward loop; times of both at the main paths'
-    shapes."""
+    flagship prediction network's shape (B in {1, 64, 100}) and
+    tiny_config's encoder shapes, both directions, fp32 and bf16, ragged
+    lengths including 1 and T; the backward also against autograd through
+    the plain forward loop; times of both at B in {1, 8, 64} beside their
+    bounds and the per-step route's times, and of both block widths at
+    tiny's H=320."""
     fwd_worst = bwd_worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for B, T, H in LSTM_SHAPES:
+        for B, T, H in LSTM_CHECK_SHAPES:
             for reverse in (False, True):
-                xw, w, b, h0, c0, lengths = _lstm_inputs(T, B, H, dtype, gen)
-                args = (xw, w, b, h0, c0, lengths, reverse)
-                got = rnn_kernels.lstm_scan(*args, with_carry=True)
-                want = rnn_kernels.lstm_scan_reference(*args, with_carry=True)
-                h_prev = rnn_kernels.prev_all(want[0], h0, lengths, reverse)
-                c_prev = rnn_kernels.prev_all(want[1], c0, lengths, reverse)
-                cot = [torch.randn(*s, device=DEVICE, generator=gen).to(dtype)
-                       for s in ((T, B, H), (B, H), (B, H))]
-                bargs = (xw, h_prev, c_prev, w, b, lengths, *cot, reverse)
-                gotb = rnn_kernels.lstm_scan_backward(*bargs)
-                wantb = rnn_kernels.lstm_scan_backward_reference(*bargs)
-                gotb += rnn_kernels.lstm_weight_grads(h_prev, gotb[0], dtype)
-                wantb += rnn_kernels.lstm_weight_grads(h_prev, wantb[0], dtype)
-                torch.cuda.synchronize()
-                errs = [_rel_err(g, r) for g, r in zip(got, want)]
-                berrs = [_rel_err(g, r) for g, r in zip(gotb, wantb)]
-                fwd_worst = max(fwd_worst, max((g.float() - r.float()).abs().max().item()
-                                               for g, r in zip(got, want)))
-                bwd_worst = max(bwd_worst, max((g.float() - r.float()).abs().max().item()
-                                               for g, r in zip(gotb[:3], wantb[:3])))
+                inputs = _lstm_inputs(T, B, H, dtype, gen)
+                errs, berrs, fwd_abs, bwd_abs = _lstm_check(*inputs, reverse, gen)
+                fwd_worst, bwd_worst = max(fwd_worst, fwd_abs), max(bwd_worst, bwd_abs)
                 print(f"lstm check dtype={str(dtype)[6:]} B={B} T={T} H={H} "
-                      f"reverse={reverse}: fwd rel_err h_all/c_all/h_fin/c_fin="
+                      f"reverse={reverse} route={rnn_kernels.lstm_route(H, B, dtype)}: "
+                      f"fwd rel_err h_all/c_all/h_fin/c_fin="
                       f"{'/'.join(f'{e:.2e}' for e in errs)}; bwd rel_err dxw/dh0/dc0/"
                       f"dW/db={'/'.join(f'{e:.2e}' for e in berrs)} "
                       f"tol={LSTM_TOL[dtype]:.1e}", flush=True)
@@ -502,7 +547,7 @@ def phase_lstm(gen):
         if not max(errs) <= LSTM_TOL[torch.float32]:
             raise AssertionError(f"LSTMScanFunction disagrees with autograd: {errs}")
     times = {}
-    for B, T, H in (LSTM_SHAPES[0], LSTM_SHAPES[2]):
+    for B, T, H in LSTM_TIME_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             xw, w, b, h0, c0, lengths = _lstm_inputs(T, B, H, dtype, gen)
             lengths[:] = T
@@ -519,14 +564,122 @@ def phase_lstm(gen):
                     ("bwd", rnn_kernels.lstm_scan_backward,
                      rnn_kernels.lstm_scan_backward_reference, bwd)):
                 ms = _sync_time(lambda: fn(*a), 5)
+                with _lstm_forced(route="per_step"):
+                    step_ms = _sync_time(lambda: fn(*a), 3)
                 plain = _sync_time(lambda: ref(*a), 1)
                 bound, bound_by = lstm_bound_ms(T, B, H, dtype, lengths, what == "bwd")
                 row[what] = (ms, plain, bound, bound_by)
+                widths = ""
+                if H == LSTM_SHAPES[2][2] and B == LSTM_SHAPES[2][0]:
+                    by_width = {}
+                    for jt in (4, 8):
+                        with _lstm_forced(tile_width=jt):
+                            by_width[jt] = _sync_time(lambda: fn(*a), 5)
+                    widths = (f", by block width: 4 units {by_width[4]:.3f} ms, "
+                              f"8 units {by_width[8]:.3f} ms (chosen "
+                              f"{rnn_kernels.lstm_tile_width(H)})")
                 print(f"lstm_{what} time dtype={str(dtype)[6:]} B={B} T={T} H={H}: "
-                      f"kernel {ms:.3f} ms ({ms / T * 1e3:.2f} us/step), plain "
-                      f"{plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
+                      f"kernel {ms:.3f} ms ({ms / T * 1e3:.2f} us/step), per-step "
+                      f"route {step_ms:.3f} ms, plain {plain:.3f} ms, bound "
+                      f"{bound:.4f} ms by {bound_by}{widths}", flush=True)
             times[(dtype, B, T, H)] = row
     return fwd_worst, bwd_worst, times
+
+
+def phase_lstm_limits(gen):
+    """The persistent LSTM kernels' co-residency limit: the wrappers'
+    shared-memory formula equals the kernels' own and the card holds the
+    grid at H=320, 1024 and the largest H; the largest H runs on the
+    persistent kernels and the next on the per-step ones (launch counts
+    say which), both holding their plain versions."""
+    fwd_lib, bwd_lib = rnn_kernels._lstm_fwd_library(), rnn_kernels._lstm_bwd_library()
+    for dtype in (torch.float32, torch.bfloat16):
+        code = rnn_kernels._DTYPE_CODES[dtype]
+        top = rnn_kernels.lstm_max_hidden(TRAIN_B, dtype)
+        for H in (320, 1024, top):
+            jt = rnn_kernels.lstm_tile_width(H)
+            Hk, Kc = rnn_kernels._padded(H), rnn_kernels._padded(4 * H)
+            got = (fwd_lib.lstm_scan_fwd_smem(Hk, jt, code),
+                   bwd_lib.lstm_scan_bwd_smem(Kc, code))
+            want = (rnn_kernels.lstm_smem_bytes(H, dtype),
+                    rnn_kernels.lstm_smem_bytes(H, dtype, backward=True))
+            if got != want:
+                raise AssertionError(f"lstm shared memory at H={H} {dtype}: kernels "
+                                     f"{got}, wrapper {want}")
+            fit = (fwd_lib.lstm_scan_fwd_max_blocks(Hk, jt, code),
+                   bwd_lib.lstm_scan_bwd_max_blocks(Kc, jt, code))
+            if min(fit) < rnn_kernels._GRU_MAX_BLOCKS:
+                raise AssertionError(f"lstm H={H} {dtype}: the card holds {fit} blocks, "
+                                     f"the wrapper's limit assumes "
+                                     f"{rnn_kernels._GRU_MAX_BLOCKS}")
+        print(f"lstm limit {str(dtype)[6:]}: co-resident blocks on this card at H={top}: "
+              f"fwd/bwd {fit}, wrapper limit {rnn_kernels._GRU_MAX_BLOCKS}; shared "
+              f"memory per block fwd/bwd {got} bytes", flush=True)
+        T = 6
+        for H, route, want_launches in ((top, "persistent", (1, 2)),
+                                        (top + 1, "per_step", (T, T + 1))):
+            if rnn_kernels.lstm_route(H, 4, dtype) != route:
+                raise AssertionError(f"lstm H={H} {dtype}: route "
+                                     f"{rnn_kernels.lstm_route(H, 4, dtype)}, not {route}")
+            before = (rnn_kernels.lstm_scan.launches,
+                      rnn_kernels.lstm_scan_backward.launches)
+            inputs = _lstm_inputs(T, 4, H, dtype, gen)
+            errs, berrs, _, _ = _lstm_check(*inputs, False, gen)
+            launched = (rnn_kernels.lstm_scan.launches - before[0],
+                        rnn_kernels.lstm_scan_backward.launches - before[1])
+            print(f"lstm limit {str(dtype)[6:]}: H={H} {route}, launches fwd/bwd "
+                  f"{launched}, rel_err fwd {max(errs):.2e} bwd {max(berrs):.2e} "
+                  f"tol {LSTM_TOL[dtype]:.1e}", flush=True)
+            if launched != want_launches:
+                raise AssertionError(f"lstm H={H}: launches {launched}, expected "
+                                     f"{want_launches}")
+            if not max(errs + berrs) <= LSTM_TOL[dtype]:
+                raise AssertionError(f"lstm H={H} {route} disagrees with its plain "
+                                     f"versions: {errs} {berrs}")
+
+
+def phase_cudnn_layers(gen):
+    """Timing only, a yardstick: cuDNN's one-layer ``torch.nn.LSTM`` /
+    ``torch.nn.GRU`` against the port's layer (``cells.RNNLayer``: the input
+    GEMM, then K3/K4 or K1/K2) with the same bf16 weights, one direction,
+    full lengths (where the two compute the same function; torch's GRU also
+    keeps b_hn inside r * (...)), forward alone and forward + backward, at
+    the main paths' shapes.  Both times include the input GEMM; PyTorch
+    keeps bf16 RNN weights unflattened, so cuDNN's time also includes its
+    per-call weight compaction (it warns so).  Nothing on any path calls
+    cuDNN."""
+    results = {}
+    for rnn_type, B, T, H, I in CUDNN_LAYER_SHAPES:
+        dtype = torch.bfloat16
+        ref = {"lstm": torch.nn.LSTM, "gru": torch.nn.GRU}[rnn_type](
+            I, H, batch_first=True).to(DEVICE, dtype)
+        port = cells.RNNLayer(I, H, rnn_type).to(DEVICE, dtype)
+        with torch.no_grad():
+            port.w_ih.copy_(ref.weight_ih_l0.t())
+            port.w_hh.copy_(ref.weight_hh_l0.t())
+            port.b_ih.copy_(ref.bias_ih_l0)
+            port.b_hh.copy_(ref.bias_hh_l0)
+        x = torch.randn(B, T, I, device=DEVICE, generator=gen).to(dtype).requires_grad_()
+        lengths = torch.full((B,), T, device=DEVICE)
+        g_out = torch.randn(B, T, H, device=DEVICE, generator=gen).to(dtype)
+        calls = {"cudnn": lambda: ref(x)[0], "port": lambda: port(x, lengths)[0]}
+        params = {"cudnn": list(ref.parameters()), "port": list(port.parameters())}
+        with torch.no_grad():
+            diff = (calls["cudnn"]().float() - calls["port"]().float()).abs().max().item()
+        row = {}
+        for name, call in calls.items():
+            with torch.no_grad():
+                row[f"{name}_fwd_ms"] = _sync_time(call, 5)
+            row[f"{name}_fwd_bwd_ms"] = _sync_time(lambda: torch.autograd.grad(
+                call(), [x] + params[name], g_out), 5)
+        results[f"{rnn_type} B={B} T={T} H={H} I={I}"] = row
+        print(f"cudnn layer yardstick {rnn_type} bf16 B={B} T={T} H={H} input {I}: "
+              f"forward cuDNN {row['cudnn_fwd_ms']:.3f} ms / port "
+              f"{row['port_fwd_ms']:.3f} ms; forward+backward cuDNN "
+              f"{row['cudnn_fwd_bwd_ms']:.3f} ms / port {row['port_fwd_bwd_ms']:.3f} ms "
+              f"(max |output difference| {diff:.2e}, bf16 inside cuDNN)", flush=True)
+        del ref, port
+    return results
 
 
 def _pcm(n, lengths=None, seed=SEED):
@@ -769,14 +922,17 @@ def _zero_counts():
         fn.launches = 0
 
 
-def scan_launches(rnn_type: str, steps: int) -> tuple:
+def scan_launches(rnn_type: str, steps: int, hidden: int = 1024,
+                  batch: int = TRAIN_B, dtype=torch.bfloat16) -> tuple:
     """Launches of one directional scan of ``steps`` steps, forward and
-    backward: the persistent GRU kernels take 1 forward and 2 backward (the
-    gates GEMM, then the chain) whatever the length; the LSTM kernels launch
-    per step, T forward and T + 1 backward."""
-    if rnn_type.lower() == "gru":
-        return 1, 2
-    return steps, steps + 1
+    backward: the persistent kernels take 1 forward and 2 backward (the
+    gates GEMM, then the chain) whatever the length; an LSTM above the
+    persistent limit takes the per-step kernels, T forward and T + 1
+    backward."""
+    if rnn_type.lower() == "lstm" and \
+            rnn_kernels.lstm_route(hidden, batch, dtype) == "per_step":
+        return steps, steps + 1
+    return 1, 2
 
 
 def step_launches(cfg, T: int, U: int, raw_pcm: bool = False) -> dict:
@@ -786,12 +942,12 @@ def step_launches(cfg, T: int, U: int, raw_pcm: bool = False) -> dict:
     reduces time); the loss one sweep; a raw-PCM batch one log-mel."""
     tn, pn = cfg.model.transnet, cfg.model.prednet
     want = dict.fromkeys(KERNELS, 0)
-    for rnn_type, scans, steps in (
-            (tn.rnn_type, tn.num_layers * (2 if tn.bidirectional else 1), T),
-            (pn.rnn_type, pn.num_layers, U + 1)):
-        fwd, bwd = scan_launches(rnn_type, steps)
-        want[f"{rnn_type.lower()}_fwd"] += scans * fwd
-        want[f"{rnn_type.lower()}_bwd"] += scans * bwd
+    for net, scans, steps in (
+            (tn, tn.num_layers * (2 if tn.bidirectional else 1), T),
+            (pn, pn.num_layers, U + 1)):
+        fwd, bwd = scan_launches(net.rnn_type, steps, net.hidden_size)
+        want[f"{net.rnn_type.lower()}_fwd"] += scans * fwd
+        want[f"{net.rnn_type.lower()}_bwd"] += scans * bwd
     want["rnnt_sweep"] = 1
     want["logmel"] = int(raw_pcm)
     return want
@@ -983,7 +1139,8 @@ def phase_tiny(tokenizer, waves):
     got = _counts()
     scans = cfg.model.transnet.num_layers * 2
     want_serve = dict.fromkeys(KERNELS, 0)
-    want_serve["lstm_fwd"] = scans * scan_launches("lstm", T_FRAMES)[0]
+    want_serve["lstm_fwd"] = scans * scan_launches(
+        "lstm", T_FRAMES, cfg.model.transnet.hidden_size, len(waves))[0]
     print(f"tiny bf16 transcribe_batch of {len(waves)}: {req_ms:.1f} ms, launches "
           f"{json.dumps(got)} (expected {json.dumps(want_serve)}); {texts}", flush=True)
     if got != want_serve or not all(isinstance(x, str) for x in texts):
@@ -1148,7 +1305,9 @@ def main() -> int:
     fwd_err, fwd_times = phase_kernels(gen)
     phase_gru_limits(gen)
     bwd_err, bwd_times = phase_gru_bwd(gen)
+    phase_lstm_limits(gen)
     lstm_fwd_err, lstm_bwd_err, lstm_times = phase_lstm(gen)
+    print("cudnn_layers " + json.dumps(phase_cudnn_layers(gen)), flush=True)
     sweep_err, sweep_times = phase_sweep(gen)
     logmel_err, logmel_times = phase_logmel()
 

@@ -1,5 +1,5 @@
 // Masked LSTM recurrence, backward through time, written by hand for Hopper
-// (sm_90a).
+// (sm_90a): one GEMM launch and one persistent launch per scan.
 //
 // Replaces the TPU kernel rnntransducer_tpu/ops/rnn_pallas.py::_lstm_bwd_kernel
 // (called from _lstm_bwd, the custom VJP of lstm_scan).  Semantics kept
@@ -17,64 +17,256 @@
 //     and dxw = [di, df, dg, do] (== d(hw): every gate is additive in
 //     xw + hw) is written in xw's type;
 //   * the carries: dh' = dxw @ W_hh^T + (m ? 0 : dh), with dxw rounded to
-//     W's type for the product and fp32 accumulation, and
-//     dc' = dc' f + (m ? 0 : dc); both carries are fp32, and dh0 / dc0 are
-//     written in xw's type after the last step.
+//     W's type for the product (the TPU kernel's dgates.astype(w.dtype)) and
+//     fp32 accumulation, and dc' = dc' f + (m ? 0 : dc); both carries are
+//     fp32, and dh0 / dc0 are written in xw's type after the last step.
 // dW_hh and db_hh are reduced outside the loop by the caller, from h_prev and
 // dxw, as the TPU version does.
 //
-// What bounds it on this card: every step does two skinny products,
-// (B, H) x (H, 4H) to rebuild the gates and (B, 4H) x (4H, H) for the dh
-// chain, 4 B H 4H FLOPs in all, and the chain of step t needs the whole dxw
-// row of step t+1.  Both weight layouts (16.8 MB in bf16 at H = 1024) stay
-// resident in the 50 MB L2 across launches, so a step is bound by fp32 FMA
-// throughput on the CUDA cores and by the L2 reads of the chain's input
-// row, which every block reads whole.
+// Design (persistent, as the GRU backward kernel gru_bwd.cu):
+//   * the gate recompute is off the chain, as in the TPU kernel
+//     (rnn_pallas.py:243-245): h_prev is known for every step before the
+//     scan starts, so the gates GEMM (gates_gemm.cuh) computes
+//     hw = h_prev @ W_hh + b_hh for all steps in one launch,
+//     (T B, Hk) x (Hk, 4H) into an fp32 scratch (T, B, 4H);
+//   * the chain is one cooperative launch of ceil(H / JT) blocks, one per
+//     SM.  Each block owns JT hidden units j (8, or 4 for small H) and keeps
+//     its chain slice, the rows j of W_hh (JT x 4H, padded to 8 rows for
+//     the MMA's n-tile: 64 KB in bf16 at H = 1024, 128 KB in fp32), in
+//     shared memory for the whole scan; it does one product per step,
+//     (B, 4H) x (4H, 8), on the tensor cores in bf16 (CUDA-core FMAs in
+//     fp32);
+//   * a grid-wide barrier per step (rnn_persistent.cuh::grid_sync).  The
+//     broadcast row is dgates = [di, df, dg, do] rounded to W's type
+//     (512 KB at B = 64, H = 1024 in bf16), written once by its owner block
+//     and read by every block from L2 with 16-byte ld.global.cg straight
+//     into the MMA fragments, ping-ponging between two buffers.  The dc
+//     carry and the rest of the dh carry, (m ? 0 : dh), are local to the
+//     block's units, each updated in place in a buffer only that block
+//     touches.  Step s closes the chain of step s-1 (dh for its units from
+//     the dgates row of step s-1), then does step s; after the last barrier
+//     the block closes the chain into dh0 and copies dc into dc0;
+//   * the gates' inputs of the next step (hw, xw, c_prev, g_out, lengths,
+//     the carries) are loaded into registers before the grid barrier;
+//   * batches over 64 rows are walked in 64-row chunks inside a step.
 //
-// Design (simple first, as the GRU backward kernel csrc/gru_bwd.cu):
-//   * one launch per step, back to back on the caller's stream: the launch
-//     boundary is the grid-wide barrier the dh chain needs.  Launch s
-//     finishes the chain of the step before it (dh for its hidden units j
-//     from the dgates row that launch s-1 wrote) and then does step s.  One
-//     closing launch finishes the chain of the last step into dh0 and copies
-//     dc into dc0, so a scan of T steps takes T + 1 launches;
-//   * the dc chain, dc' f + (m ? 0 : dc), is local to unit j: it lives in
-//     one fp32 buffer that only the block owning j reads and writes;
-//   * each block owns kJT hidden units j.  Its chain slice is the kJT
-//     contiguous rows j of W_hh (H, 4H); its gate slice is the 4 kJT columns
-//     i_j, f_j, g_j, o_j, pre-arranged by the wrapper into one tile as for
-//     the forward kernel.  Both are copied into shared memory once per
-//     launch (128 KB in fp32 at H = 1024 with kJT = 4);
-//   * products are register blocked over kRows rows of the activation with
-//     a shuffle reduction over K, as in the forward kernel;
-//   * the dgates row and the j-local rest of the dh carry (m ? 0 : dh)
-//     ping-pong between two fp32 buffers in global memory.
-// A persistent kernel with a grid barrier per step and wgmma for the
-// products is later work.
+// Co-residency limit: one block per SM, so H <= 8 * 132 = 1056 on an H100
+// SXM (ops/rnn_kernels.py::lstm_max_hidden says so before any launch).  A
+// larger H takes the per-step route below (the first design: T + 1 launches
+// per scan, both slices copied into shared memory every launch, CUDA-core
+// FMAs), which takes H up to ~3500 in bf16 and ~1750 in fp32.
+//
+// What bounds it on this card: the step chain, not the operations, as for
+// the GRU backward kernel: per step the floor (L2 round trips, the gates,
+// the grid barrier), then every SM taking in the whole dgates row from L2.
+// The gates GEMM writes T B 4H fp32 values once and the chain reads them
+// back once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gates_gemm.cuh"
+#include "rnn_persistent.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;       // rows of the activation each lane carries
-constexpr int kRowChunk = 64;  // rows per pass through the dot buffers
-// Hidden units per block, as in csrc/lstm_fwd.cu.  The block's two weight
-// slices (4 kJT rows of Hk and kJT rows of Kc) plus the dot buffers fit the
-// 227 KB of shared memory up to H ~ 3500 in bf16 and ~ 1750 in fp32; a
-// larger H fails cudaFuncSetAttribute and the call returns that error.
-constexpr int kJT = 4;
+using namespace rnnp;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int CC = 8;        // chain rows of a block: its JT units, padded to an n-tile
+constexpr int kUnroll = 8;   // K slabs of A in flight per warp, as in gru_bwd.cu
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Shapes: xw (T, B, 4H); hw (T, B, 4H) fp32; cprev and gout (T, B, H);
+// chain_tiles (ceil(H/JT), CC, Kc) zero padded; dg (2, B, Kc) of T, zero;
+// rest (B, H) fp32 = g_hfin; dc (B, H) fp32 = g_cfin; dxw (T, B, 4H);
+// dh0 and dc0 (B, H); count a zeroed barrier counter.
+template <typename T, int JT>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
+                    const T* __restrict__ cprev, const T* __restrict__ gout,
+                    const T* __restrict__ chain_tiles, const int* __restrict__ lengths,
+                    T* dg, float* rest, float* dc, T* __restrict__ dxw,
+                    T* __restrict__ dh0, T* __restrict__ dc0, unsigned int* count,
+                    int T_len, int B, int H, int Kc, int reverse) {
+  // Inputs of the first 64-row chunk a thread prefetches: its items
+  // p = threadIdx.x + i kThreads all have the unit j0 + threadIdx.x % JT.
+  constexpr int kPre = kRowChunk * JT / kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* wc_s = reinterpret_cast<T*>(smem_raw);
+  const int ldw = slice_ld<T>(Kc);
+  float* dots = reinterpret_cast<float*>(wc_s + (size_t)CC * ldw);
+  load_slice(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, CC, Kc);
+  __syncthreads();
+
+  // Step s < T_len closes the chain of step s-1 (dh for the block's units
+  // from the dgates row of step s-1; zero at s = 0), then does step s;
+  // s == T_len closes the chain of the last step into dh0.  The inputs of
+  // the first chunk are loaded for the next step before the grid barrier,
+  // so their latency hides behind it.
+  const int jj = threadIdx.x % JT, j = blockIdx.x * JT + jj;
+  const bool j_ok = j < H;
+  struct In {
+    float hw[4], x[4], cp, go, rest, dc;
+    int len;
+  };
+  auto load_in = [&](int s, int b) {
+    In v{};
+    v.rest = rest[(size_t)b * H + j];
+    v.dc = dc[(size_t)b * H + j];
+    if (s == T_len) return v;
+    const int t = reverse ? s : T_len - 1 - s;
+    const size_t row = (size_t)t * B + b;
+    const float* hwr = hw + row * 4 * H;
+    const T* x = xw + row * 4 * H;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v.hw[q] = hwr[q * H + j];
+      v.x[q] = to_f(x[q * H + j]);
+    }
+    v.cp = to_f(cprev[row * H + j]);
+    v.go = to_f(gout[row * H + j]);
+    v.len = lengths[b];
+    return v;
+  };
+  In pre[kPre];
+  auto prefetch = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+      const int b = (threadIdx.x + i * kThreads) / JT;
+      if (j_ok && b < min(B, kRowChunk)) pre[i] = load_in(s, b);
+    }
+  };
+  prefetch(0);
+
+  for (int s = 0; s <= T_len; ++s) {
+    const bool last = s == T_len;
+    const int t = reverse ? s : T_len - 1 - s;
+    const T* dg_in = dg + (size_t)((s + 1) % 2) * B * Kc;
+    T* dg_out = dg + (size_t)(s % 2) * B * Kc;
+    // one unit of one row: its chain dots (chunk row rl) and its inputs
+    auto item = [&](const Split& sp, int b, int rl, const In& v) {
+      float chain = 0.0f;
+      for (int ks = 0; ks < sp.ksplit; ++ks) chain += dots[(ks * sp.npad + rl) * CC + jj];
+      const float dh = chain + v.rest;
+      const size_t bj = (size_t)b * H + j;
+      if (last) {
+        dh0[bj] = from_f<T>(dh);
+        dc0[bj] = from_f<T>(v.dc);
+        return;
+      }
+      const float ig = sigmoidf_(v.x[0] + v.hw[0]);
+      const float fg = sigmoidf_(v.x[1] + v.hw[1]);
+      const float gg = tanhf(v.x[2] + v.hw[2]);
+      const float og = sigmoidf_(v.x[3] + v.hw[3]);
+      const float tc = tanhf(fg * v.cp + ig * gg);
+      const bool m = t < v.len;
+      const float g_h = m ? dh + v.go : 0.0f;
+      const float g_c = m ? v.dc : 0.0f;
+      const float d_o = g_h * tc * og * (1.0f - og);
+      const float dc_new = g_c + g_h * og * (1.0f - tc * tc);
+      const float d[4] = {dc_new * gg * ig * (1.0f - ig), dc_new * v.cp * fg * (1.0f - fg),
+                          dc_new * ig * (1.0f - gg * gg), d_o};
+      T* dx = dxw + ((size_t)t * B + b) * 4 * H;
+      T* dr = dg_out + (size_t)b * Kc;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dx[q * H + j] = from_f<T>(d[q]);
+        dr[q * H + j] = from_f<T>(d[q]);
+      }
+      rest[bj] = m ? 0.0f : dh;
+      dc[bj] = dc_new * fg + (m ? 0.0f : v.dc);
+    };
+    for (int r0 = 0; r0 < B; r0 += kRowChunk) {
+      const int nrows = min(kRowChunk, B - r0);
+      Split sp = {0, 0, 0, 0};
+      if (s > 0) sp = dots_of<CC, kUnroll>(wc_s, ldw, dg_in, Kc, Kc, r0, nrows, dots);
+      __syncthreads();
+      if (j_ok && r0 == 0) {
+#pragma unroll
+        for (int i = 0; i < kPre; ++i) {
+          const int p = threadIdx.x + i * kThreads;
+          if (p < nrows * JT) item(sp, p / JT, p / JT, pre[i]);
+        }
+      } else if (j_ok) {
+        for (int p = threadIdx.x; p < nrows * JT; p += kThreads)
+          item(sp, r0 + p / JT, p / JT, load_in(s, r0 + p / JT));
+      }
+      __syncthreads();
+    }
+    if (!last) {
+      prefetch(s + 1);
+      grid_sync(count, (unsigned int)(s + 1) * gridDim.x);
+    }
+  }
 }
+
+template <typename T, int JT>
+int launch_chain(const void* xw, const void* hw, const void* cprev, const void* gout,
+                 const void* chain_tiles, const void* lengths, void* dg, void* rest,
+                 void* dc, void* dxw, void* dh0, void* dc0, void* count, int T_len,
+                 int B, int H, int Kc, int reverse, cudaStream_t stream) {
+  const int blocks = (H + JT - 1) / JT;
+  const size_t smem = slice_smem<T>(CC, Kc);
+  void* args[] = {&xw, &hw, &cprev, &gout, &chain_tiles, &lengths, &dg, &rest,
+                  &dc, &dxw, &dh0, &dc0, &count, &T_len, &B, &H, &Kc, &reverse};
+  return (int)cudaLaunchCooperativeKernel((const void*)lstm_bwd_persistent<T, JT>,
+                                          dim3(blocks), dim3(kThreads), args, smem,
+                                          stream);
+}
+
+template <typename T>
+int max_blocks(int jt, int Kc) {
+  int blocks = -1;
+  const size_t smem = slice_smem<T>(CC, Kc);
+  const cudaError_t err =
+      jt == 8 ? max_coresident(lstm_bwd_persistent<T, 8>, smem, &blocks)
+              : max_coresident(lstm_bwd_persistent<T, 4>, smem, &blocks);
+  return err == cudaSuccess ? blocks : -1;
+}
+
+template <typename T>
+int launch_bwd(const void* xw, const void* hprev, const void* cprev, const void* gout,
+               const void* w_t, const void* chain_tiles, const void* b_hh,
+               const void* lengths, void* hw, void* dg, void* rest, void* dc,
+               void* dxw, void* dh0, void* dc0, void* count, int T_len, int B, int H,
+               int Hk, int Kc, int jt, int reverse, cudaStream_t stream) {
+  const int fit = max_blocks<T>(jt, Kc);
+  if (fit < 0) return (int)cudaErrorInvalidValue;
+  if ((H + jt - 1) / jt > fit) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaError_t err = launch_gemm<T>(static_cast<const T*>(hprev), static_cast<const T*>(w_t),
+                                   static_cast<const T*>(b_hh), static_cast<float*>(hw),
+                                   T_len * B, 4 * H, Hk, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (jt == 8)
+    return launch_chain<T, 8>(xw, hw, cprev, gout, chain_tiles, lengths, dg, rest, dc,
+                              dxw, dh0, dc0, count, T_len, B, H, Kc, reverse, stream);
+  return launch_chain<T, 4>(xw, hw, cprev, gout, chain_tiles, lengths, dg, rest, dc, dxw,
+                            dh0, dc0, count, T_len, B, H, Kc, reverse, stream);
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The per-step route, for H above the persistent grid's limit: one launch per
+// step, back to back on the caller's stream; the launch boundary is the
+// grid-wide barrier the dh chain needs.  Launch s finishes the chain of the
+// step before it and then does step s, rebuilding the gates from h_prev
+// itself; one closing launch finishes the chain of the last step into dh0
+// and copies dc into dc0, so a scan of T steps takes T + 1 launches.  Each
+// block owns kStepJT units and copies its chain slice (kStepJT rows of W_hh)
+// and its gate slice (4 kStepJT columns) into shared memory every launch;
+// the fp32 dgates row and the rest of the dh carry ping-pong.
+// ---------------------------------------------------------------------------
+
+namespace per_step {
+
+using namespace rnnp;
+
+constexpr int kRows = 4;     // rows of the activation each lane carries
+// Hidden units per block: the block's two weight slices (4 kStepJT rows of
+// Hk and kStepJT rows of Kc) plus the dot buffers fit the 227 KB of shared
+// memory up to H ~ 3500 in bf16 and ~ 1750 in fp32; a larger H fails
+// cudaFuncSetAttribute and the call returns that error.
+constexpr int kStepJT = 4;
 
 // x rounded to W's type (the TPU kernel's .astype(w.dtype)), back in fp32.
 template <typename T> __device__ __forceinline__ float quant(float x);
@@ -88,24 +280,6 @@ __device__ __forceinline__ float2 load_pair(const float* p) {
 }
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// How the block's warps split a chunk of nrows rows: rg row groups of kRows
-// rows, and K split ksplit ways when there are fewer groups than warps.
-struct Split {
-  int ngroups, rg, ksplit, npad;
-};
-
-__device__ __forceinline__ Split split_rows(int nrows) {
-  Split s;
-  s.ngroups = (nrows + kRows - 1) / kRows;
-  s.rg = 1;
-  while (s.rg < s.ngroups && s.rg < kWarps) s.rg <<= 1;
-  s.ksplit = kWarps / s.rg;
-  s.npad = s.ngroups * kRows;
-  return s;
 }
 
 // dots[(ks * npad + row) * C + c] = partial sum over this warp's share of K
@@ -184,8 +358,8 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t elems) {
 }
 
 // One launch.  Shapes: xw_t (B, 4H); hprev_t (B, Hk) zero padded for
-// k >= H; cprev_t and gout_t (B, H); rec_tiles (ceil(H/kJT), 4 kJT, Hk) and
-// chain_tiles (ceil(H/kJT), kJT, Kc), both zero padded; b_hh (4H);
+// k >= H; cprev_t and gout_t (B, H); rec_tiles (ceil(H/kStepJT), 4 kStepJT, Hk) and
+// chain_tiles (ceil(H/kStepJT), kStepJT, Kc), both zero padded; b_hh (4H);
 // dg_in / dg_out (B, Kc) fp32, zero for k >= 4H; rest_in / rest_out and dc
 // (B, H) fp32; dxw_t (B, 4H).  final != 0: only close the chains into dh0
 // and dc0 (B, H).
@@ -200,15 +374,15 @@ lstm_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
               float* __restrict__ dc, T* __restrict__ dxw_t,
               T* __restrict__ dh0, T* __restrict__ dc0, int t, int B, int H,
               int Hk, int Kc, int final) {
-  constexpr int CR = 4 * kJT;  // gate columns of the block
-  constexpr int CC = kJT;      // chain rows of the block
+  constexpr int CR = 4 * kStepJT;  // gate columns of the block
+  constexpr int CC = kStepJT;      // chain rows of the block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* wc_s = reinterpret_cast<T*>(smem_raw);          // (CC, Kc)
   T* wr_s = wc_s + (size_t)CC * Kc;                  // (CR, Hk)
   float* dots_c = reinterpret_cast<float*>(wr_s + (size_t)CR * Hk);
   float* dots_r = dots_c + kRowChunk * CC;
 
-  const int j0 = blockIdx.x * kJT;
+  const int j0 = blockIdx.x * kStepJT;
   copy_tile(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, (size_t)CC * Kc);
   if (!final)
     copy_tile(wr_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, (size_t)CR * Hk);
@@ -216,15 +390,15 @@ lstm_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
 
   for (int r0 = 0; r0 < B; r0 += kRowChunk) {
     const int nrows = min(kRowChunk, B - r0);
-    const Split s = split_rows(nrows);
+    const Split s = split_rows(nrows, kRows);
     chunk_dots<T, float, CC>(wc_s, dg_in, Kc, Kc, r0, nrows, s, dots_c);
     if (!final)
       chunk_dots<T, T, CR>(wr_s, hprev_t, Hk, Hk, r0, nrows, s, dots_r);
     __syncthreads();
 
-    for (int p = threadIdx.x; p < nrows * kJT; p += kThreads) {
-      const int rl = p / kJT;
-      const int jj = p % kJT;
+    for (int p = threadIdx.x; p < nrows * kStepJT; p += kThreads) {
+      const int rl = p / kStepJT;
+      const int jj = p % kStepJT;
       const int j = j0 + jj;
       if (j >= H) continue;
       const int b = r0 + rl;
@@ -241,7 +415,7 @@ lstm_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
       for (int ks = 0; ks < s.ksplit; ++ks) {
         const float* d = dots_r + (ks * s.npad + rl) * CR;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) hw[q] += d[q * kJT + jj];
+        for (int q = 0; q < 4; ++q) hw[q] += d[q * kStepJT + jj];
       }
       const T* x = xw_t + (size_t)b * 4 * H;
       float sg[4];
@@ -281,18 +455,18 @@ lstm_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
 }
 
 template <typename T>
-int launch_bwd(const void* xw, const void* hprev, const void* cprev,
-               const void* gout, const void* rec_tiles, const void* chain_tiles,
-               const void* b_hh, const void* lengths, void* dg_a, void* dg_b,
-               void* rest_a, void* rest_b, void* dc, void* dxw, void* dh0,
-               void* dc0, int T_len, int B, int H, int Hk, int Kc, int reverse,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(T) * ((size_t)kJT * Kc + (size_t)4 * kJT * Hk)
-                      + sizeof(float) * kRowChunk * 5 * kJT;
+int launch_steps(const void* xw, const void* hprev, const void* cprev,
+                 const void* gout, const void* rec_tiles, const void* chain_tiles,
+                 const void* b_hh, const void* lengths, void* dg_a, void* dg_b,
+                 void* rest_a, void* rest_b, void* dc, void* dxw, void* dh0,
+                 void* dc0, int T_len, int B, int H, int Hk, int Kc, int reverse,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(T) * ((size_t)kStepJT * Kc + (size_t)4 * kStepJT * Hk)
+                      + sizeof(float) * kRowChunk * 5 * kStepJT;
   cudaError_t err = cudaFuncSetAttribute(
       lstm_bwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + kJT - 1) / kJT);
+  const dim3 grid((H + kStepJT - 1) / kStepJT);
   const T* xw_p = static_cast<const T*>(xw);
   const T* hp_p = static_cast<const T*>(hprev);
   const T* cp_p = static_cast<const T*>(cprev);
@@ -317,34 +491,77 @@ int launch_bwd(const void* xw, const void* hprev, const void* cprev,
   return 0;
 }
 
-}  // namespace
+}  // namespace per_step
 
-// Runs the whole backward scan: T + 1 launches of lstm_bwd_step on `stream`,
-// no sync.  dtype: 0 = float32, 1 = bfloat16 (xw, hprev, cprev, gout, both
-// tile sets, b_hh, dxw, dh0 and dc0 share it).  dg_a must be zero (B, Kc)
-// fp32 and rest_a must hold g_hfin as (B, H) fp32; dg_b (zero) and rest_b
-// are scratch of the same shapes; dc holds g_cfin as (B, H) fp32 and is
-// updated in place.  jt must be kJT.  Returns 0 or the first cudaError_t met.
+// Runs the whole backward scan on `stream`, no sync: the gates GEMM into hw
+// (T, B, 4H) fp32 scratch, then one cooperative launch of the chain.
+// dtype: 0 = float32, 1 = bfloat16 (xw, hprev, cprev, gout, w_t,
+// chain_tiles, b_hh, dg, dxw, dh0 and dc0 share it).  hprev is (T, B, Hk)
+// zero padded for k >= H; w_t is W_hh^T, (4H, Hk) zero padded; chain_tiles
+// is (ceil(H/jt), 8, Kc), block i's rows j = jt i + jj of W_hh, zero padded;
+// dg is (2, B, Kc) zero; rest and dc are (B, H) fp32 holding g_hfin and
+// g_cfin, updated in place; count is one zeroed uint32.  jt is 8 or 4.
+// Returns 0 or the first cudaError_t met (cudaErrorCooperativeLaunchTooLarge
+// when the grid cannot be co-resident).
 extern "C" int lstm_scan_bwd(const void* xw, const void* hprev, const void* cprev,
-                             const void* gout, const void* rec_tiles,
-                             const void* chain_tiles, const void* b_hh,
-                             const void* lengths, void* dg_a, void* dg_b,
-                             void* rest_a, void* rest_b, void* dc, void* dxw,
-                             void* dh0, void* dc0, int T_len, int B, int H,
-                             int Hk, int Kc, int jt, int reverse, int dtype,
-                             void* stream) {
+                             const void* gout, const void* w_t, const void* chain_tiles,
+                             const void* b_hh, const void* lengths, void* hw, void* dg,
+                             void* rest, void* dc, void* dxw, void* dh0, void* dc0,
+                             void* count, int T_len, int B, int H, int Hk, int Kc,
+                             int jt, int reverse, int dtype, void* stream) {
   if (T_len <= 0 || B <= 0) return 0;
-  if (jt != kJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 4 * H)
+  if ((jt != 4 && jt != 8) || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 4 * H)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(xw, hprev, cprev, gout, rec_tiles, chain_tiles,
-                             b_hh, lengths, dg_a, dg_b, rest_a, rest_b, dc, dxw,
-                             dh0, dc0, T_len, B, H, Hk, Kc, reverse, s);
+    return launch_bwd<float>(xw, hprev, cprev, gout, w_t, chain_tiles, b_hh, lengths,
+                             hw, dg, rest, dc, dxw, dh0, dc0, count, T_len, B, H, Hk,
+                             Kc, jt, reverse, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(xw, hprev, cprev, gout, rec_tiles,
-                                     chain_tiles, b_hh, lengths, dg_a, dg_b,
-                                     rest_a, rest_b, dc, dxw, dh0, dc0, T_len,
-                                     B, H, Hk, Kc, reverse, s);
+    return launch_bwd<__nv_bfloat16>(xw, hprev, cprev, gout, w_t, chain_tiles, b_hh,
+                                     lengths, hw, dg, rest, dc, dxw, dh0, dc0, count,
+                                     T_len, B, H, Hk, Kc, jt, reverse, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one chain block, for the wrapper's limit.
+extern "C" int lstm_scan_bwd_smem(int Kc, int dtype) {
+  return (int)(dtype == 0 ? slice_smem<float>(CC, Kc) : slice_smem<__nv_bfloat16>(CC, Kc));
+}
+
+// The most chain blocks that can be co-resident on this card, or -1.
+extern "C" int lstm_scan_bwd_max_blocks(int Kc, int jt, int dtype) {
+  if (jt != 4 && jt != 8) return -1;
+  return dtype == 0 ? max_blocks<float>(jt, Kc) : max_blocks<__nv_bfloat16>(jt, Kc);
+}
+
+// The per-step route: T + 1 launches of lstm_bwd_step on `stream`, no sync.
+// dtype as above (xw, hprev, cprev, gout, both tile sets, b_hh, dxw, dh0 and
+// dc0 share it).  dg_a must be zero (B, Kc) fp32 and rest_a must hold
+// g_hfin as (B, H) fp32; dg_b (zero) and rest_b are scratch of the same
+// shapes; dc holds g_cfin as (B, H) fp32 and is updated in place.  jt must
+// be kStepJT.  Returns 0 or the first cudaError_t met.
+extern "C" int lstm_scan_bwd_step(const void* xw, const void* hprev, const void* cprev,
+                                  const void* gout, const void* rec_tiles,
+                                  const void* chain_tiles, const void* b_hh,
+                                  const void* lengths, void* dg_a, void* dg_b,
+                                  void* rest_a, void* rest_b, void* dc, void* dxw,
+                                  void* dh0, void* dc0, int T_len, int B, int H,
+                                  int Hk, int Kc, int jt, int reverse, int dtype,
+                                  void* stream) {
+  using namespace per_step;
+  if (T_len <= 0 || B <= 0) return 0;
+  if (jt != kStepJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 4 * H)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_steps<float>(xw, hprev, cprev, gout, rec_tiles, chain_tiles,
+                               b_hh, lengths, dg_a, dg_b, rest_a, rest_b, dc, dxw,
+                               dh0, dc0, T_len, B, H, Hk, Kc, reverse, s);
+  if (dtype == 1)
+    return launch_steps<__nv_bfloat16>(xw, hprev, cprev, gout, rec_tiles,
+                                       chain_tiles, b_hh, lengths, dg_a, dg_b,
+                                       rest_a, rest_b, dc, dxw, dh0, dc0, T_len,
+                                       B, H, Hk, Kc, reverse, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
-// Pieces shared by the persistent GRU kernels (gru_fwd.cu, gru_bwd.cu):
-// the grid-wide barrier, the skinny products of a broadcast row against a
-// weight slice resident in shared memory, and the element helpers.
+// Pieces shared by the persistent GRU and LSTM kernels (gru_fwd.cu,
+// gru_bwd.cu, lstm_fwd.cu, lstm_bwd.cu): the grid-wide barrier, the skinny
+// products of a broadcast row against a weight slice resident in shared
+// memory, and the element helpers.
 //
 // A persistent kernel keeps one block per SM for the whole scan.  Each
-// block owns kJT hidden units j and holds its W_hh slice, C rows of K
+// block owns a few hidden units j and holds its W_hh slice, C rows of K
 // contiguous values, in shared memory.  Every step multiplies the whole
 // broadcast row act (rows of the batch, K wide, written by every block in
 // the step before) by that slice:
@@ -21,7 +22,7 @@ namespace rnnp {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kJT = 8;          // hidden units per block
+constexpr int kJT = 8;          // hidden units per GRU block (the LSTM kernels take 4 or 8)
 constexpr int kRowChunk = 64;   // batch rows per pass through the dot buffer
 constexpr int kDotRows = 128;   // rows of the dot buffer: ksplit * npad <= 128
 
@@ -189,12 +190,12 @@ __device__ __forceinline__ Split mma_dots(const __nv_bfloat16* w_s, int ldw,
 
 // fp32 products on the CUDA cores, register blocked over kRows rows: one
 // shared-memory read of W feeds kRows FMAs; lanes stride over K in pairs
-// and finish with a shuffle reduction.  K % 64 == 0.
-template <int C>
+// and finish with a shuffle reduction.  K % 64 == 0.  kRows x C
+// accumulators per lane: wide slices take 2 rows, so they stay in registers.
+template <int C, int kRows = 4>
 __device__ __forceinline__ Split simt_dots(const float* w_s, int ldw, const float* act,
                                            int lda, int K, int r0, int nrows,
                                            float* dots) {
-  constexpr int kRows = 4;
   const Split s = split_rows(nrows, kRows);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -264,7 +265,7 @@ __device__ __forceinline__ Split dots_of(const __nv_bfloat16* w_s, int ldw,
 template <int C, int U>
 __device__ __forceinline__ Split dots_of(const float* w_s, int ldw, const float* act,
                                          int lda, int K, int r0, int nrows, float* dots) {
-  return simt_dots<C>(w_s, ldw, act, lda, K, r0, nrows, dots);
+  return simt_dots<C, (C > 24 ? 2 : 4)>(w_s, ldw, act, lda, K, r0, nrows, dots);
 }
 
 // The most blocks of `kernel`, with `smem` bytes of dynamic shared memory

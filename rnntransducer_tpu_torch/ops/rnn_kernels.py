@@ -20,12 +20,14 @@ module when they run, so a caller may swap any of them for its plain
 version.
 
 Each wrapper's ``.launches`` counts the kernel launches it made, so a run
-can show that its recurrent layers went through the kernels: the GRU
-kernels are persistent (1 launch per forward scan; 2 per backward scan, the
-gates GEMM and the chain), the LSTM kernels launch per step (T per forward
-scan, T + 1 per backward scan).  The persistent GRU grid must be
-co-resident: :func:`gru_max_hidden` gives the largest H it takes, and a
-larger H raises ``ValueError`` before any launch.
+can show that its recurrent layers went through the kernels.  The kernels
+are persistent: 1 launch per forward scan, 2 per backward scan (the gates
+GEMM and the chain).  A persistent grid must be co-resident:
+:func:`gru_max_hidden` and :func:`lstm_max_hidden` give the largest H it
+takes.  Above it a GRU call raises ``ValueError`` before any launch, and
+an LSTM call takes the per-step kernels (T launches per forward scan,
+T + 1 per backward scan), chosen from (H, B, dtype) before any launch as
+the JAX package's ``rnn_pallas.supported()`` gate chooses.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_WIDTH = 8                    # GRU hidden units per block (kJT in the kernels)
-_LSTM_TILE_WIDTH = 4               # LSTM hidden units per block (kJT in the kernels)
+_LSTM_STEP_TILE_WIDTH = 4          # LSTM units per block, per-step route (kStepJT)
+_LSTM_CHAIN_ROWS = 8               # rows of a persistent LSTM chain slice (CC)
 _K_ALIGN = 64                      # the kernel's K loop walks 64 at a time
 _GRU_MAX_BLOCKS = 132              # persistent GRU blocks, one per SM of an H100 SXM
 _SMEM_PER_BLOCK = 232448           # 227 KB of shared memory a block may use
@@ -302,15 +305,21 @@ def gru_weight_grads(h_prev, dxw, dnr, w_dtype):
     return dw, db
 
 
+def _hoisted_gates(h_prev, w_hh, b_hh):
+    """hw = h_prev @ W_hh + b_hh for every step, (T, B, G*H) in fp32: h_prev
+    rounded to W's dtype, fp32 accumulation, b_hh added in fp32."""
+    hp = h_prev.to(w_hh.dtype).float()
+    with full_precision_matmul():
+        return torch.matmul(hp, w_hh.float()) + b_hh.float()
+
+
 def gru_bwd_gates_reference(h_prev, w_hh, b_hh):
     """Plain version of the backward kernel's off-chain GEMM: the gate
     pre-activations of every step, hw = h_prev @ W_hh + b_hh, (T, B, 3H) in
     fp32 (h_prev rounded to W's dtype, fp32 accumulation, b_hh added in
     fp32), as the TPU kernel rebuilds them off the chain
     (``rnn_pallas.py:177-185``)."""
-    hp = h_prev.to(w_hh.dtype).float()
-    with full_precision_matmul():
-        return torch.matmul(hp, w_hh.float()) + b_hh.float()
+    return _hoisted_gates(h_prev, w_hh, b_hh)
 
 
 def gru_bwd_chain_reference(xw, hw, h_prev, w_hh, lengths, g_hall, g_hfin,
@@ -370,8 +379,8 @@ def _chain_tiles(w_hh: torch.Tensor, H: int, Kc: int, jt: int) -> torch.Tensor:
 
 
 def _gemm_operands(h_prev, w_hh, Hk):
-    """The gates GEMM's operands: h_prev as (T*B, Hk) and W_hh^T as (3H, Hk),
-    both zero padded in K, dense."""
+    """The gates GEMM's operands: h_prev as (T, B, Hk) and W_hh^T as
+    (G*H, Hk), both zero padded in K, dense."""
     H = w_hh.shape[0]
     hp = h_prev if Hk == H else F.pad(h_prev, (0, Hk - H))
     return hp.contiguous(), F.pad(w_hh.t(), (0, Hk - H)).contiguous()
@@ -554,6 +563,57 @@ def lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
     return (h_all, c_all, h_fin, c_fin) if with_carry else (h_all, h_fin, c_fin)
 
 
+
+
+def lstm_tile_width(H: int) -> int:
+    """Hidden units per block of the persistent LSTM kernels (JT in
+    ``csrc/lstm_fwd.cu`` / ``lstm_bwd.cu``): 4 where ceil(H / 4) blocks fit
+    the card's SMs (H <= 528), else 8.  At tiny_config's H=320, 80 blocks of
+    4 units ran both kernels faster than 40 blocks of 8 (PERF.md)."""
+    return 4 if -(-H // 4) <= _GRU_MAX_BLOCKS else 8
+
+
+def lstm_smem_bytes(H: int, dtype: torch.dtype, backward: bool = False) -> int:
+    """Dynamic shared memory of one block of the persistent LSTM kernels
+    (``csrc/rnn_persistent.cuh::slice_smem``): the block's W_hh slice, 4 JT
+    gate rows of Hk forward or 8 chain rows of Kc backward (its JT rows of
+    W_hh padded to an MMA n-tile), bf16 rows padded by 32 values, plus a
+    128-row fp32 dot buffer."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    C = _LSTM_CHAIN_ROWS if backward else 4 * lstm_tile_width(H)
+    K = _padded(4 * H) if backward else _padded(H)
+    return e * C * (K + 32 if e == 2 else K) + 4 * 128 * C
+
+
+def lstm_fits(H: int, B: int, dtype: torch.dtype) -> bool:
+    """Whether both persistent LSTM kernels take hidden size H: ceil(H / JT)
+    blocks, one per SM, must be co-resident on the card's 132 SMs, each
+    within the 227 KB of shared memory a block may use.  B does not move
+    the limit: rows are walked in 64-row chunks inside a step."""
+    del B
+    return (-(-H // lstm_tile_width(H)) <= _GRU_MAX_BLOCKS
+            and max(lstm_smem_bytes(H, dtype), lstm_smem_bytes(H, dtype, True))
+            <= _SMEM_PER_BLOCK)
+
+
+def lstm_max_hidden(B: int, dtype: torch.dtype) -> int:
+    """The largest hidden size the persistent LSTM kernels take; above it
+    the LSTM wrappers take the per-step kernels."""
+    H = _GRU_MAX_BLOCKS * 8
+    while not lstm_fits(H, B, dtype):
+        H -= 1
+    return H
+
+
+def lstm_route(H: int, B: int, dtype: torch.dtype) -> str:
+    """The LSTM kernels a CUDA call of hidden size H takes, from the shape
+    alone and before any launch: ``"persistent"`` (1 forward launch, 2
+    backward) or, above :func:`lstm_max_hidden`, ``"per_step"`` (T forward,
+    T + 1 backward).  The counterpart of the JAX package's shape gate
+    ``rnn_pallas.supported()``; never a reaction to a failed launch."""
+    return "persistent" if lstm_fits(H, B, dtype) else "per_step"
+
+
 def _check_lstm_args(op, xw, named, contiguous):
     """Device, shape and dtype checks of an LSTM kernel call: ``named``
     holds (name, tensor, shape, must share xw's dtype); the kernel reads xw
@@ -579,8 +639,13 @@ def _lstm_fwd_library():
     lib = build.load("lstm_fwd")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_scan_fwd.argtypes = [p] * 11 + [i] * 7 + [p]
+        lib.lstm_scan_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.lstm_scan_fwd.restype = i
+        lib.lstm_scan_fwd_step.argtypes = [p] * 11 + [i] * 7 + [p]
+        lib.lstm_scan_fwd_step.restype = i
+        for fn in (lib.lstm_scan_fwd_smem, lib.lstm_scan_fwd_max_blocks):
+            fn.argtypes = [i, i, i]
+            fn.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -593,30 +658,45 @@ def _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths, reverse):
         ("h0", h0, (B, H), False), ("c0", c0, (B, H), False),
         ("lengths", lengths, (B,), False)), (w_hh, b_hh))
     dev = xw.device
+    persistent = lstm_route(H, B, xw.dtype) == "persistent"
     lib = _lstm_fwd_library()
-    Hk = -(-H // _K_ALIGN) * _K_ALIGN
+    Hk = _padded(H)
+    code = _DTYPE_CODES[xw.dtype]
     with torch.cuda.device(dev):
         h_all = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
         c_all = torch.empty_like(h_all)
         if T == 0:
             return h_all, c_all, h0.to(xw.dtype), c0.to(xw.dtype)
-        tiles = _tile_weights(w_hh, H, Hk, _LSTM_TILE_WIDTH)
-        h_a = torch.zeros((B, Hk), dtype=torch.float32, device=dev)
-        h_a[:, :H] = h0.float()
-        h_b = torch.zeros_like(h_a)
-        c = _fp32_copy(c0)                   # j-local carry, updated in place
         lens = lengths.to(torch.int32).contiguous()
         h_fin = torch.empty((B, H), dtype=xw.dtype, device=dev)
         c_fin = torch.empty_like(h_fin)
+        c = _fp32_copy(c0)                   # j-local carry, updated in place
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_scan_fwd(
-            xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), h_a.data_ptr(),
-            h_b.data_ptr(), c.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
-            h_fin.data_ptr(), c_fin.data_ptr(), lens.data_ptr(), T, B, H, Hk,
-            _LSTM_TILE_WIDTH, int(reverse), _DTYPE_CODES[xw.dtype], stream)
+        if persistent:
+            jt = lstm_tile_width(H)
+            tiles = _tile_weights(w_hh, H, Hk, jt)
+            hb = torch.zeros((2, B, Hk), dtype=xw.dtype, device=dev)
+            hb[0, :, :H] = h0
+            h = _fp32_copy(h0)               # j-local carry, updated in place
+            count = torch.zeros((1,), dtype=torch.int32, device=dev)
+            err = lib.lstm_scan_fwd(
+                xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), hb.data_ptr(),
+                h.data_ptr(), c.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
+                h_fin.data_ptr(), c_fin.data_ptr(), lens.data_ptr(), count.data_ptr(),
+                T, B, H, Hk, jt, int(reverse), code, stream)
+        else:
+            tiles = _tile_weights(w_hh, H, Hk, _LSTM_STEP_TILE_WIDTH)
+            h_a = torch.zeros((B, Hk), dtype=torch.float32, device=dev)
+            h_a[:, :H] = h0.float()
+            h_b = torch.zeros_like(h_a)
+            err = lib.lstm_scan_fwd_step(
+                xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), h_a.data_ptr(),
+                h_b.data_ptr(), c.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
+                h_fin.data_ptr(), c_fin.data_ptr(), lens.data_ptr(), T, B, H, Hk,
+                _LSTM_STEP_TILE_WIDTH, int(reverse), code, stream)
     if err != 0:
-        raise RuntimeError(f"lstm_scan kernel failed with CUDA error {err}")
-    lstm_scan.launches += T
+        raise _cuda_error("lstm_scan", err)
+    lstm_scan.launches += 1 if persistent else T
     return h_all, c_all, h_fin, c_fin
 
 
@@ -646,28 +726,19 @@ def lstm_scan(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
 lstm_scan.launches = 0
 
 
-def lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
-                                 g_hfin, g_cfin, reverse: bool = False):
-    """Plain PyTorch version of the LSTM backward kernel, under its numeric
-    contract: fp32 dh and dc carries; gates rebuilt in fp32 from xw, h_prev
-    (rounded to W's dtype for the product, b_hh added in fp32) and c_prev;
-    the gate grads rounded to W's dtype for the dh-chain product with fp32
-    accumulation; dxw in xw's dtype.
-
-    xw (T, B, 4H); h_prev, c_prev (T, B, H) from :func:`prev_all`; g_hall
-    (T, B, H), g_hfin and g_cfin (B, H) are the cotangents of h_all,
-    h_final and c_final.  Returns (dxw (T, B, 4H), dh0, dc0): dxw = [di, df,
-    dg, do] of the pre-activations, which is also d(hw)."""
+def _lstm_bwd_steps(xw, hw_of, c_prev, w_hh, lengths, g_hall, g_hfin, g_cfin,
+                    reverse):
+    """The steps of the LSTM backward, the gates' hw of step t from
+    ``hw_of(t)``: shared by the undecomposed plain backward and the chain's
+    plain mirror."""
     T, B, G = xw.shape
     w = w_hh.float()
-    b = b_hh.float()
     lengths = lengths.to(xw.device)
     dh = g_hfin.float()
     dc = g_cfin.float()
     dxw = torch.empty((T, B, G), dtype=xw.dtype, device=xw.device)
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
-        hw = torch.matmul(h_prev[t].to(w_hh.dtype).float(), w) + b
-        i, f, g, o = _lstm_gates(xw[t].float() + hw)
+        i, f, g, o = _lstm_gates(xw[t].float() + hw_of(t))
         cp = c_prev[t].float()
         tc = torch.tanh(f * cp + i * g)
         m = (lengths > t)[:, None]
@@ -684,6 +755,44 @@ def lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall
               + torch.where(m, 0.0, dh))
         dc = dc_new * f + torch.where(m, 0.0, dc)
     return dxw, dh.to(xw.dtype), dc.to(xw.dtype)
+
+
+def lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
+                                 g_hfin, g_cfin, reverse: bool = False):
+    """Plain PyTorch version of the LSTM backward kernel, under its numeric
+    contract: fp32 dh and dc carries; gates rebuilt in fp32 from xw, h_prev
+    (rounded to W's dtype for the product, b_hh added in fp32) and c_prev;
+    the gate grads rounded to W's dtype for the dh-chain product with fp32
+    accumulation; dxw in xw's dtype.
+
+    xw (T, B, 4H); h_prev, c_prev (T, B, H) from :func:`prev_all`; g_hall
+    (T, B, H), g_hfin and g_cfin (B, H) are the cotangents of h_all,
+    h_final and c_final.  Returns (dxw (T, B, 4H), dh0, dc0): dxw = [di, df,
+    dg, do] of the pre-activations, which is also d(hw)."""
+    w = w_hh.float()
+    b = b_hh.float()
+    return _lstm_bwd_steps(
+        xw, lambda t: torch.matmul(h_prev[t].to(w_hh.dtype).float(), w) + b,
+        c_prev, w_hh, lengths, g_hall, g_hfin, g_cfin, reverse)
+
+
+def lstm_bwd_gates_reference(h_prev, w_hh, b_hh):
+    """Plain version of the LSTM backward kernel's off-chain GEMM: the gate
+    pre-activations of every step, hw = h_prev @ W_hh + b_hh, (T, B, 4H) in
+    fp32 (h_prev rounded to W's dtype, fp32 accumulation, b_hh added in
+    fp32), as the TPU kernel rebuilds them off the chain
+    (``rnn_pallas.py:243-245``)."""
+    return _hoisted_gates(h_prev, w_hh, b_hh)
+
+
+def lstm_bwd_chain_reference(xw, hw, c_prev, w_hh, lengths, g_hall, g_hfin, g_cfin,
+                             reverse: bool = False):
+    """Plain version of the LSTM backward kernel's chain, given the gates'
+    hw from :func:`lstm_bwd_gates_reference`: the steps of
+    :func:`lstm_scan_backward_reference` with the recompute taken off the
+    chain.  Returns (dxw, dh0, dc0) as that function."""
+    return _lstm_bwd_steps(xw, lambda t: hw[t], c_prev, w_hh, lengths, g_hall,
+                           g_hfin, g_cfin, reverse)
 
 
 def lstm_weight_grads(h_prev, dxw, w_dtype):
@@ -705,8 +814,22 @@ def _lstm_bwd_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lstm_scan_bwd.argtypes = [p] * 16 + [i] * 8 + [p]
         lib.lstm_scan_bwd.restype = i
+        lib.lstm_scan_bwd_step.argtypes = [p] * 16 + [i] * 8 + [p]
+        lib.lstm_scan_bwd_step.restype = i
+        lib.lstm_scan_bwd_smem.argtypes = [i, i]
+        lib.lstm_scan_bwd_smem.restype = i
+        lib.lstm_scan_bwd_max_blocks.argtypes = [i, i, i]
+        lib.lstm_scan_bwd_max_blocks.restype = i
         lib._argtypes_set = True
     return lib
+
+
+def _lstm_chain_tiles(w_hh: torch.Tensor, H: int, Kc: int, jt: int) -> torch.Tensor:
+    """(H, 4H) -> (ceil(H/jt), 8, Kc): block i's jt rows of W_hh
+    (:func:`_chain_tiles`), padded with zero rows to the persistent chain's
+    8-row slice."""
+    tiles = _chain_tiles(w_hh, H, Kc, jt)
+    return F.pad(tiles, (0, 0, 0, _LSTM_CHAIN_ROWS - jt)).contiguous()
 
 
 def _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
@@ -720,34 +843,50 @@ def _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
         ("g_hfin", g_hfin, (B, H), True), ("g_cfin", g_cfin, (B, H), True)),
         (c_prev, w_hh, b_hh, g_hall))
     dev = xw.device
+    persistent = lstm_route(H, B, xw.dtype) == "persistent"
     lib = _lstm_bwd_library()
-    Hk = -(-H // _K_ALIGN) * _K_ALIGN
-    Kc = -(-G // _K_ALIGN) * _K_ALIGN
+    Hk, Kc = _padded(H), _padded(G)
+    code = _DTYPE_CODES[xw.dtype]
     with torch.cuda.device(dev):
         dxw = torch.empty((T, B, G), dtype=xw.dtype, device=dev)
         if T == 0:
             return dxw, g_hfin.clone(), g_cfin.clone()
-        rec = _tile_weights(w_hh, H, Hk, _LSTM_TILE_WIDTH)
-        chain = _chain_tiles(w_hh, H, Kc, _LSTM_TILE_WIDTH)
-        hprev = F.pad(h_prev, (0, Hk - H)).contiguous()
-        dgates = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
-        rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
-        rest[0] = g_hfin.float()
         dc = _fp32_copy(g_cfin)              # j-local carry, updated in place
         lens = lengths.to(torch.int32).contiguous()
         dh0 = torch.empty((B, H), dtype=xw.dtype, device=dev)
         dc0 = torch.empty_like(dh0)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_scan_bwd(
-            xw.data_ptr(), hprev.data_ptr(), c_prev.data_ptr(), g_hall.data_ptr(),
-            rec.data_ptr(), chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
-            dgates[0].data_ptr(), dgates[1].data_ptr(), rest[0].data_ptr(),
-            rest[1].data_ptr(), dc.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
-            dc0.data_ptr(), T, B, H, Hk, Kc, _LSTM_TILE_WIDTH, int(reverse),
-            _DTYPE_CODES[xw.dtype], stream)
+        if persistent:
+            jt = lstm_tile_width(H)
+            hprev, w_t = _gemm_operands(h_prev, w_hh, Hk)
+            chain = _lstm_chain_tiles(w_hh, H, Kc, jt)
+            hw = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+            dgates = torch.zeros((2, B, Kc), dtype=xw.dtype, device=dev)
+            rest = _fp32_copy(g_hfin)        # j-local carry, updated in place
+            count = torch.zeros((1,), dtype=torch.int32, device=dev)
+            err = lib.lstm_scan_bwd(
+                xw.data_ptr(), hprev.data_ptr(), c_prev.data_ptr(), g_hall.data_ptr(),
+                w_t.data_ptr(), chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+                hw.data_ptr(), dgates.data_ptr(), rest.data_ptr(), dc.data_ptr(),
+                dxw.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), count.data_ptr(),
+                T, B, H, Hk, Kc, jt, int(reverse), code, stream)
+        else:
+            jt = _LSTM_STEP_TILE_WIDTH
+            rec = _tile_weights(w_hh, H, Hk, jt)
+            chain = _chain_tiles(w_hh, H, Kc, jt)
+            hprev = F.pad(h_prev, (0, Hk - H)).contiguous()
+            dgates = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
+            rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+            rest[0] = g_hfin.float()
+            err = lib.lstm_scan_bwd_step(
+                xw.data_ptr(), hprev.data_ptr(), c_prev.data_ptr(), g_hall.data_ptr(),
+                rec.data_ptr(), chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+                dgates[0].data_ptr(), dgates[1].data_ptr(), rest[0].data_ptr(),
+                rest[1].data_ptr(), dc.data_ptr(), dxw.data_ptr(), dh0.data_ptr(),
+                dc0.data_ptr(), T, B, H, Hk, Kc, jt, int(reverse), code, stream)
     if err != 0:
-        raise RuntimeError(f"lstm_scan_backward kernel failed with CUDA error {err}")
-    lstm_scan_backward.launches += T + 1
+        raise _cuda_error("lstm_scan_backward", err)
+    lstm_scan_backward.launches += 2 if persistent else T + 1
     return dxw, dh0, dc0
 
 

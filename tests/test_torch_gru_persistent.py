@@ -219,18 +219,23 @@ def test_chain_reference_matches_the_plain_backward(reverse):
 
 
 def test_step_launches_of_the_main_paths():
-    """Per train_step: 16 GRU scans of base_config at 1 forward and 2
-    backward launches each; the LSTM kernels per step (T and T + 1)."""
+    """Per train_step: 16 GRU scans of base_config and its 2 LSTM prednet
+    scans, and tiny_config's 4 encoder scans plus 1 prednet scan, at 1
+    forward and 2 backward launches each (all persistent); an LSTM above
+    the persistent limit launches per step (T and T + 1)."""
     import chip_smoke
     assert chip_smoke.scan_launches("gru", 512) == (1, 2)
-    assert chip_smoke.scan_launches("lstm", 49) == (49, 50)
+    assert chip_smoke.scan_launches("lstm", 49) == (1, 2)
+    assert chip_smoke.scan_launches("lstm", 49, hidden=1057) == (49, 50)
+    assert chip_smoke.scan_launches("lstm", 512, hidden=2048,
+                                    dtype=torch.float32) == (512, 513)
     base = chip_smoke.step_launches(base_config(), 512, 48)
-    assert base == {"gru_fwd": 16, "gru_bwd": 32, "lstm_fwd": 98, "lstm_bwd": 100,
+    assert base == {"gru_fwd": 16, "gru_bwd": 32, "lstm_fwd": 2, "lstm_bwd": 4,
                     "rnnt_sweep": 1, "logmel": 0}
     assert chip_smoke.step_launches(base_config(), 512, 48, raw_pcm=True)["logmel"] == 1
     tiny = chip_smoke.step_launches(tiny_config(), 512, 48)
-    assert tiny == {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 4 * 512 + 49,
-                    "lstm_bwd": 4 * 513 + 50, "rnnt_sweep": 1, "logmel": 0}
+    assert tiny == {"gru_fwd": 0, "gru_bwd": 0, "lstm_fwd": 5, "lstm_bwd": 10,
+                    "rnnt_sweep": 1, "logmel": 0}
 
 
 # ---------------------------------------------------------------------------
