@@ -7,26 +7,33 @@ Phases (each raises, and the script exits non-zero, on failure):
 1. Print the card's name and power limit, require CUDA, build every kernel
    from ``rnntransducer_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together): gru_fwd (K1), gru_bwd (K2), lstm_fwd (K3), lstm_bwd (K4),
-   rnnt_sweep (K5), logmel (K6).
+   rnnt_sweep (K5), logmel (K6); and the earlier K5 / K6 designs where
+   their sources sit under ``build/baseline/`` (``build_baselines``).
+   Print the SM count and the shared memory a block may opt in to, read
+   from the card: every co-residency limit and route comes from them.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the training and serving paths give it, and time both: K1 and K2
    (persistent: one launch per forward scan, the gates GEMM and the chain
    per backward scan) at H=1024, T=512, B in {1, 8, 64, 100}, both
    directions, fp32 and bf16 (K2 also against autograd through the plain
-   forward loop, its gates GEMM alone against the plain product), and
-   their co-residency limit (the largest H runs, the next raises); K3 and
+   forward loop, its gates GEMM alone against the plain product and, for
+   timing only, beside cuBLAS's GEMM of the same shape), and their limit
+   on this card (the largest H runs persistent, 1 + 2 launches, the next on
+   the per-step kernels, T + T+1, both against the plain versions, and
+   ``GRUScanFunction`` there against autograd of the plain loop); K3 and
    K4 (persistent in the same way) at the flagship prediction network
    (T=49, H=1024, B in {1, 64, 100}) and tiny_config's encoder (B in
    {8, 64}, T=512, H=320), both directions, fp32 and bf16, ragged lengths
-   including 1 and T (K4 also against autograd), their limit (the largest
-   H runs persistent, the next on the per-step kernels, both against the
-   plain versions), their times at B in {1, 8, 64} beside the per-step
-   route's and, at H=320, both block widths; a timing-only yardstick of
-   cuDNN's one-layer LSTM / GRU against the port's layer; K5 at the
-   flagship lattice (B=64 and the 2B of one loss, T=512, U+1=49) and a
-   ragged T=300; K6 at the flagship raw-PCM shape (32768 frame rows) and a
-   ragged batch, in both precision modes, the power spectrum and the mel
-   stage apart and end to end.
+   including 1 and T (K4 also against autograd), their limit (as the
+   GRU's), their times at B in {1, 8, 64} beside the per-step route's and,
+   at H=320, both block widths; a timing-only yardstick of cuDNN's
+   one-layer LSTM / GRU against the port's layer; K5 at the flagship
+   lattice (B=64 and the 2B of one loss, T=512, U+1=49), a ragged T=300
+   and T=9000, every block shape, and the earlier design in the same call;
+   K6 at the flagship raw-PCM shape (32768 frame rows), a ragged batch and
+   n_fft=512 with 160 filters, in both precision modes, the power spectrum
+   and the mel stage apart and end to end, and the earlier design in the
+   same call.
 3. Drive the serving path: ``Recognizer.transcribe_batch`` / ``transcribe``
    with greedy decoding on ``base_config()`` at full width (8-layer
    bidirectional GRU encoder, H=1024), random weights from a seeded
@@ -63,9 +70,11 @@ Imports nothing from JAX or from the JAX package.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -160,6 +169,10 @@ LOGMEL_END_TOL = 2.0 ** -7 + 1e-4
 # the thousands at T=512, where one fp32 ulp is ~1e-4; the two scans add in
 # another order.  Relative to max(|alpha|, 1).
 SWEEP_TOL = 1e-5
+# sources of the earlier K5 / K6 designs for same-call timings
+# (build_baselines): build/baseline/<name>.cu, or this git revision's
+BASELINE_DIR = os.path.join(REPO, "build", "baseline")
+BASELINE_REV = "11bc201"
 # Full-width fp32 training step, kernels vs plain versions: the same
 # function in another summation order through 16 GRU scans and their
 # backward; loss relative, grads relative to the param grad's largest entry.
@@ -290,16 +303,40 @@ def _rel_err(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+def _gru_check(xw, w, b, h0, lengths, reverse, gen):
+    """GRU forward and backward kernels against their plain versions on the
+    same inputs, the backward's dW / db assembled by the off-loop GEMMs.
+    Returns (forward max abs err, backward rel errs dxw/dnr/dh0/dW/db)."""
+    dtype, (T, B, H) = xw.dtype, (xw.shape[0], xw.shape[1], xw.shape[2] // 3)
+    got = rnn_kernels.gru_scan(xw, w, b, h0, lengths, reverse)
+    want = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths, reverse)
+    h_prev = rnn_kernels.prev_all(want[0], h0, lengths, reverse)
+    gout = torch.randn(T, B, H, device=DEVICE, generator=gen).to(dtype)
+    gfin = torch.randn(B, H, device=DEVICE, generator=gen).to(dtype)
+    args = (xw, h_prev, w, b, lengths, gout, gfin, reverse)
+    gotb = rnn_kernels.gru_scan_backward(*args)
+    wantb = rnn_kernels.gru_scan_backward_reference(*args)
+    gotb += rnn_kernels.gru_weight_grads(h_prev, gotb[0], gotb[1], dtype)
+    wantb += rnn_kernels.gru_weight_grads(h_prev, wantb[0], wantb[1], dtype)
+    torch.cuda.synchronize()
+    fwd = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, want))
+    return fwd, [_rel_err(g, r) for g, r in zip(gotb, wantb)]
+
+
 def phase_gru_limits(gen):
-    """The persistent GRU kernels' co-residency limit: the wrappers'
-    shared-memory formula equals the kernels' own, H=1024 fits in both
-    dtypes, the largest H that fits runs and agrees with the plain version,
-    and the next H raises ValueError before any launch."""
+    """The GRU kernels' limits on this card: the wrappers' shared-memory
+    formulas equal the kernels' own (persistent and per-step), the card
+    holds the persistent grid at H=320, 1024 and the largest H its SMs
+    take; that H runs persistent (1 + 2 launches) and the next on the
+    per-step kernels (T + T+1), both holding their plain versions, and
+    GRUScanFunction there holds autograd of the plain loop."""
     fwd_lib, bwd_lib = rnn_kernels._library(), rnn_kernels._bwd_library()
+    sms, smem = rnn_kernels.device_limits(DEVICE)
+    T = 6
     for dtype in (torch.float32, torch.bfloat16):
         code = rnn_kernels._DTYPE_CODES[dtype]
-        top = rnn_kernels.gru_max_hidden(TRAIN_B, dtype)
-        if not rnn_kernels.gru_fits(1024, TRAIN_B, dtype):
+        top = rnn_kernels.gru_max_hidden(TRAIN_B, dtype, DEVICE)
+        if not rnn_kernels.gru_fits(1024, TRAIN_B, dtype, DEVICE):
             raise AssertionError(f"H=1024 does not fit in {dtype}")
         for H in (320, 1024, top):
             Hk, Kc = rnn_kernels._padded(H), rnn_kernels._padded(3 * H)
@@ -311,37 +348,61 @@ def phase_gru_limits(gen):
                                      f"wrapper {want}")
             fit = (fwd_lib.gru_scan_fwd_max_blocks(Hk, code),
                    bwd_lib.gru_scan_bwd_max_blocks(Kc, code))
-            if min(fit) < rnn_kernels._GRU_MAX_BLOCKS:
-                raise AssertionError(f"H={H} {dtype}: the card holds {fit} blocks, the "
-                                     f"wrapper's limit assumes {rnn_kernels._GRU_MAX_BLOCKS}")
-        print(f"gru limit {str(dtype)[6:]}: co-resident blocks on this card at H={top}: "
-              f"fwd/bwd {fit}, wrapper limit {rnn_kernels._GRU_MAX_BLOCKS}", flush=True)
-        xw, w, b, h0, lengths = _gru_inputs(6, 4, top, dtype, gen)
-        got = rnn_kernels.gru_scan(xw, w, b, h0, lengths)
-        want = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths)
-        torch.cuda.synchronize()
-        err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, want))
-        if not err <= KERNEL_TOL[dtype]:
-            raise AssertionError(f"gru_fwd at the largest H={top}: {err}")
-        xw, w, b, h0, lengths = _gru_inputs(2, 4, top + 1, dtype, gen)
-        seq = torch.zeros(2, 4, top + 1, device=DEVICE, dtype=dtype)
-        launches = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
-        for name, call in (
-                ("gru_scan", lambda: rnn_kernels.gru_scan(xw, w, b, h0, lengths)),
-                ("gru_scan_backward", lambda: rnn_kernels.gru_scan_backward(
-                    xw, seq, w, b, lengths, seq, h0))):
-            try:
-                call()
-            except ValueError as e:
-                if "largest hidden size" not in str(e):
-                    raise
-                print(f"gru limit {str(dtype)[6:]}: H={top} runs (max_abs_err "
-                      f"{err:.3e}), H={top + 1} raises: {e}", flush=True)
-            else:
-                raise AssertionError(f"{name} took H={top + 1} above the limit")
-        if launches != (rnn_kernels.gru_scan.launches,
-                        rnn_kernels.gru_scan_backward.launches):
-            raise AssertionError("a refused GRU call counted a launch")
+            if min(fit) < -(-H // 8):
+                raise AssertionError(f"H={H} {dtype}: the card holds {fit} blocks, "
+                                     f"the grid needs {-(-H // 8)}")
+        Hk, Kc = rnn_kernels._padded(top + 1), rnn_kernels._padded(3 * (top + 1))
+        step = (fwd_lib.gru_scan_fwd_step_smem(Hk, code),
+                bwd_lib.gru_scan_bwd_step_smem(Hk, Kc, code))
+        want = (rnn_kernels.step_smem_bytes("gru", top + 1, dtype),
+                rnn_kernels.step_smem_bytes("gru", top + 1, dtype, backward=True))
+        if step != want:
+            raise AssertionError(f"per-step shared memory at H={top + 1} {dtype}: "
+                                 f"kernels {step}, wrapper {want}")
+        print(f"gru limit {str(dtype)[6:]}: {sms} SMs, {smem} bytes of shared memory "
+              f"per block; persistent up to H={top} (co-resident blocks fwd/bwd {fit}), "
+              f"per-step up to H={rnn_kernels.step_max_hidden('gru', dtype, False, DEVICE)}"
+              f" forward, {rnn_kernels.step_max_hidden('gru', dtype, True, DEVICE)} "
+              f"backward", flush=True)
+        for H, route, want_launches in ((top, "persistent", (1, 2)),
+                                        (top + 1, "per_step", (T, T + 1))):
+            if rnn_kernels.gru_route(H, 4, dtype, DEVICE) != route:
+                raise AssertionError(f"gru H={H} {dtype}: route "
+                                     f"{rnn_kernels.gru_route(H, 4, dtype, DEVICE)}")
+            before = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
+            fwd_err, berrs = _gru_check(*_gru_inputs(T, 4, H, dtype, gen), False, gen)
+            launched = (rnn_kernels.gru_scan.launches - before[0],
+                        rnn_kernels.gru_scan_backward.launches - before[1])
+            print(f"gru limit {str(dtype)[6:]}: H={H} {route}, launches fwd/bwd "
+                  f"{launched}, fwd max_abs_err {fwd_err:.2e} (tol "
+                  f"{KERNEL_TOL[dtype]:.0e}), bwd rel_err dxw/dnr/dh0/dW/db "
+                  f"{'/'.join(f'{e:.2e}' for e in berrs)} (tol {BWD_TOL[dtype]:.1e})",
+                  flush=True)
+            if launched != want_launches:
+                raise AssertionError(f"gru H={H}: launches {launched}, expected "
+                                     f"{want_launches}")
+            if not (fwd_err <= KERNEL_TOL[dtype] and max(berrs) <= BWD_TOL[dtype]):
+                raise AssertionError(f"gru H={H} {route} disagrees with its plain "
+                                     f"versions: {fwd_err} {berrs}")
+    # the autograd form on the per-step route, fp32
+    H = rnn_kernels.gru_max_hidden(4, torch.float32, DEVICE) + 1
+    xw, w, b, h0, lengths = _gru_inputs(T, 4, H, torch.float32, gen)
+    leaves = [a.clone().requires_grad_() for a in (xw, w, b, h0)]
+    cot = (torch.randn(T, 4, H, device=DEVICE, generator=gen),
+           torch.randn(4, H, device=DEVICE, generator=gen))
+    want = torch.autograd.grad(rnn_kernels.gru_scan_reference(*leaves, lengths), leaves, cot)
+    before = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
+    got = torch.autograd.grad(rnn_kernels.GRUScanFunction.apply(*leaves, lengths, False),
+                              leaves, cot)
+    launched = (rnn_kernels.gru_scan.launches - before[0],
+                rnn_kernels.gru_scan_backward.launches - before[1])
+    errs = [_rel_err(g, r) for g, r in zip(got, want)]
+    print(f"gru limit: GRUScanFunction at H={H} fp32 vs autograd of the plain loop: "
+          f"launches {launched}, rel_err dxw/dW/db/dh0 "
+          f"{'/'.join(f'{e:.2e}' for e in errs)} (tol {BWD_TOL[torch.float32]:.0e})",
+          flush=True)
+    if launched != (T, T + 1) or not max(errs) <= BWD_TOL[torch.float32]:
+        raise AssertionError(f"GRUScanFunction on the per-step route: {launched} {errs}")
 
 
 def phase_gru_bwd(gen):
@@ -422,7 +483,41 @@ def phase_gru_bwd(gen):
                   f"{ms:.3f} ms ({ms / T * 1e3:.2f} us/step, gates GEMM "
                   f"{gates_ms:.3f} ms), plain {plain:.3f} ms ({plain / T * 1e3:.2f} "
                   f"us/step), bound {bound:.4f} ms by {bound_by}", flush=True)
+    times["gates_yardstick"] = gates_yardstick(T * TRAIN_B, H, gen)
     return worst, times
+
+
+def gates_yardstick(M, H, gen) -> dict:
+    """Timing only: cuBLAS (``torch.mm``) on the product of K2's gates GEMM,
+    (M x H) . (H x 3H) in bf16 with fp32 accumulation, beside the port's
+    ``gates_gemm_bf16`` (``gru_bwd_gates``, which also adds b_hh) on the same
+    operands.  cuBLAS writes fp32 where this torch takes ``out_dtype``, else
+    bf16 (half the output bytes).  Nothing on any path calls cuBLAS here."""
+    a = torch.randn(M, H, device=DEVICE, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(H, 3 * H, device=DEVICE, generator=gen) / H ** 0.5).to(torch.bfloat16)
+    b = torch.zeros(3 * H, device=DEVICE, dtype=torch.bfloat16)
+    try:
+        torch.mm(a[:64], w, out_dtype=torch.float32)
+        call, out = (lambda: torch.mm(a, w, out_dtype=torch.float32)), "float32"
+    except (TypeError, RuntimeError):
+        call, out = (lambda: torch.mm(a, w)), "bfloat16"
+    lib_ms = _sync_time(call, 5)
+    own_ms = _sync_time(lambda: rnn_kernels.gru_bwd_gates(a.view(1, M, H), w, b), 5)
+    bound, bound_by = gemm_bound_ms(M, H, 3 * H)
+    print(f"gates GEMM yardstick ({M} x {H}) . ({H} x {3 * H}) bf16, fp32 accumulation: "
+          f"cuBLAS ({out} out) {lib_ms:.3f} ms, gates_gemm_bf16 {own_ms:.3f} ms, bound "
+          f"{bound:.4f} ms by {bound_by}", flush=True)
+    return {"cublas_ms": lib_ms, "cublas_out_dtype": out, "gates_gemm_ms": own_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def gemm_bound_ms(M, K, N) -> tuple:
+    """Least time for a bf16 (M x K) . (K x N) product with an fp32 result:
+    operands read and the result written once over HBM; 2 M K N operations
+    at the bf16 peak."""
+    t_bytes = (2 * (M * K + K * N) + 4 * M * N) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * M * K * N / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _lstm_inputs(T, B, H, dtype, gen):
@@ -495,9 +590,9 @@ def _lstm_forced(route=None, tile_width=None):
     alternatives only)."""
     saved = rnn_kernels.lstm_route, rnn_kernels.lstm_tile_width
     if route is not None:
-        rnn_kernels.lstm_route = lambda H, B, dtype: route
+        rnn_kernels.lstm_route = lambda *args, **kwargs: route
     if tile_width is not None:
-        rnn_kernels.lstm_tile_width = lambda H: tile_width
+        rnn_kernels.lstm_tile_width = lambda *args, **kwargs: tile_width
     try:
         yield
     finally:
@@ -520,7 +615,8 @@ def phase_lstm(gen):
                 errs, berrs, fwd_abs, bwd_abs = _lstm_check(*inputs, reverse, gen)
                 fwd_worst, bwd_worst = max(fwd_worst, fwd_abs), max(bwd_worst, bwd_abs)
                 print(f"lstm check dtype={str(dtype)[6:]} B={B} T={T} H={H} "
-                      f"reverse={reverse} route={rnn_kernels.lstm_route(H, B, dtype)}: "
+                      f"reverse={reverse} "
+                      f"route={rnn_kernels.lstm_route(H, B, dtype, DEVICE)}: "
                       f"fwd rel_err h_all/c_all/h_fin/c_fin="
                       f"{'/'.join(f'{e:.2e}' for e in errs)}; bwd rel_err dxw/dh0/dc0/"
                       f"dW/db={'/'.join(f'{e:.2e}' for e in berrs)} "
@@ -577,7 +673,7 @@ def phase_lstm(gen):
                             by_width[jt] = _sync_time(lambda: fn(*a), 5)
                     widths = (f", by block width: 4 units {by_width[4]:.3f} ms, "
                               f"8 units {by_width[8]:.3f} ms (chosen "
-                              f"{rnn_kernels.lstm_tile_width(H)})")
+                              f"{rnn_kernels.lstm_tile_width(H, DEVICE)})")
                 print(f"lstm_{what} time dtype={str(dtype)[6:]} B={B} T={T} H={H}: "
                       f"kernel {ms:.3f} ms ({ms / T * 1e3:.2f} us/step), per-step "
                       f"route {step_ms:.3f} ms, plain {plain:.3f} ms, bound "
@@ -593,34 +689,38 @@ def phase_lstm_limits(gen):
     persistent kernels and the next on the per-step ones (launch counts
     say which), both holding their plain versions."""
     fwd_lib, bwd_lib = rnn_kernels._lstm_fwd_library(), rnn_kernels._lstm_bwd_library()
+    sms, smem = rnn_kernels.device_limits(DEVICE)
     for dtype in (torch.float32, torch.bfloat16):
         code = rnn_kernels._DTYPE_CODES[dtype]
-        top = rnn_kernels.lstm_max_hidden(TRAIN_B, dtype)
+        top = rnn_kernels.lstm_max_hidden(TRAIN_B, dtype, DEVICE)
         for H in (320, 1024, top):
-            jt = rnn_kernels.lstm_tile_width(H)
+            jt = rnn_kernels.lstm_tile_width(H, DEVICE)
             Hk, Kc = rnn_kernels._padded(H), rnn_kernels._padded(4 * H)
             got = (fwd_lib.lstm_scan_fwd_smem(Hk, jt, code),
                    bwd_lib.lstm_scan_bwd_smem(Kc, code))
-            want = (rnn_kernels.lstm_smem_bytes(H, dtype),
+            want = (rnn_kernels.lstm_smem_bytes(H, dtype, jt=jt),
                     rnn_kernels.lstm_smem_bytes(H, dtype, backward=True))
             if got != want:
                 raise AssertionError(f"lstm shared memory at H={H} {dtype}: kernels "
                                      f"{got}, wrapper {want}")
             fit = (fwd_lib.lstm_scan_fwd_max_blocks(Hk, jt, code),
                    bwd_lib.lstm_scan_bwd_max_blocks(Kc, jt, code))
-            if min(fit) < rnn_kernels._GRU_MAX_BLOCKS:
+            if min(fit) < -(-H // jt):
                 raise AssertionError(f"lstm H={H} {dtype}: the card holds {fit} blocks, "
-                                     f"the wrapper's limit assumes "
-                                     f"{rnn_kernels._GRU_MAX_BLOCKS}")
-        print(f"lstm limit {str(dtype)[6:]}: co-resident blocks on this card at H={top}: "
-              f"fwd/bwd {fit}, wrapper limit {rnn_kernels._GRU_MAX_BLOCKS}; shared "
-              f"memory per block fwd/bwd {got} bytes", flush=True)
+                                     f"the grid needs {-(-H // jt)}")
+        print(f"lstm limit {str(dtype)[6:]}: {sms} SMs, {smem} bytes of shared memory "
+              f"per block; persistent up to H={top} (co-resident blocks fwd/bwd {fit}, "
+              f"shared memory per block fwd/bwd {got} bytes), per-step up to "
+              f"H={rnn_kernels.step_max_hidden('lstm', dtype, False, DEVICE)} forward, "
+              f"{rnn_kernels.step_max_hidden('lstm', dtype, True, DEVICE)} backward",
+              flush=True)
         T = 6
         for H, route, want_launches in ((top, "persistent", (1, 2)),
                                         (top + 1, "per_step", (T, T + 1))):
-            if rnn_kernels.lstm_route(H, 4, dtype) != route:
+            if rnn_kernels.lstm_route(H, 4, dtype, DEVICE) != route:
                 raise AssertionError(f"lstm H={H} {dtype}: route "
-                                     f"{rnn_kernels.lstm_route(H, 4, dtype)}, not {route}")
+                                     f"{rnn_kernels.lstm_route(H, 4, dtype, DEVICE)}, "
+                                     f"not {route}")
             before = (rnn_kernels.lstm_scan.launches,
                       rnn_kernels.lstm_scan_backward.launches)
             inputs = _lstm_inputs(T, 4, H, dtype, gen)
@@ -707,59 +807,182 @@ def logmel_bound_ms(rows, n_fft, n_bins, n_mels, high: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_logmel():
+def _interleaved(old, new, reps: int) -> tuple:
+    """Mean ms of two calls timed in turns, old, new, new, old."""
+    a = _sync_time(old, reps)
+    b = _sync_time(new, reps)
+    b = (b + _sync_time(new, reps)) / 2
+    a = (a + _sync_time(old, reps)) / 2
+    return a, b
+
+
+def build_baselines() -> dict:
+    """The earlier designs of K5 and K6, for same-call timings only: each
+    ``build/baseline/<name>.cu`` (``rnntransducer_tpu_torch/csrc/<name>.cu``
+    of revision ``BASELINE_REV``, taken from git where the checkout has its
+    history) is compiled with the kernels' flags, all together, and loaded.
+    Where neither is there, they are not measured.  Nothing on any path
+    calls them."""
+    jobs = {}
+    for name in ("rnnt_sweep", "logmel"):
+        src = os.path.join(BASELINE_DIR, f"{name}.cu")
+        if not os.path.exists(src) and shutil.which("git"):
+            got = subprocess.run(
+                ["git", "-C", REPO, "show",
+                 f"{BASELINE_REV}:rnntransducer_tpu_torch/csrc/{name}.cu"],
+                capture_output=True)
+            if got.returncode == 0:
+                os.makedirs(BASELINE_DIR, exist_ok=True)
+                with open(src, "wb") as f:
+                    f.write(got.stdout)
+        if os.path.exists(src):
+            out = os.path.join(BASELINE_DIR, f"lib{name}.so")
+            jobs[name] = (out, subprocess.Popen(
+                [build.find_nvcc(), *build.NVCC_FLAGS, "-o", out, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in jobs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the baseline {name}.cu:\n{report}")
+        libs[name] = ctypes.CDLL(out)
+    print(f"baseline kernels: {sorted(libs) or 'none (not measured)'}", flush=True)
+    return libs
+
+
+def _baseline_logmel_mats(cfg):
+    """The earlier K6's operands: cos / sin bf16 high and low parts (n_fft
+    rounded up to 16, 256 bins) and the filterbank (256, 128), on the card."""
+    wc, ws, fb = fused_frontend._dft_mats(cfg.n_fft, cfg.window, cfg.n_mels,
+                                          cfg.sample_rate)
+    Kf = -(-cfg.n_fft // 16) * 16
+    mats = []
+    for w in (wc, ws):
+        full = torch.zeros((Kf, 256))
+        full[:cfg.n_fft, :w.shape[1]] = torch.from_numpy(w)
+        hi = full.to(torch.bfloat16)
+        mats += [hi, (full - hi.float()).to(torch.bfloat16)]
+    fbp = torch.zeros((256, 128))
+    fbp[:fb.shape[0], :fb.shape[1]] = torch.from_numpy(fb)
+    return Kf, [m.to(DEVICE) for m in mats + [fbp.to(torch.bfloat16)]]
+
+
+def _logmel_plans(cfg, high, smem):
+    """The plan the wrapper picks, and where that is the wgmma engine the
+    mma.sync engine at the most tile rows, up to the same, that fit the
+    shared memory (its comparison)."""
+    plan = fused_frontend.kernel_plan(cfg, high, smem)
+    if plan[0] != "wgmma":
+        return [plan]
+    return [plan, next(("mma", r) for r in (128, 64, 32, 16) if r <= plan[1] and
+                       fused_frontend.kernel_smem_bytes(("mma", r), cfg, high) <= smem)]
+
+
+def phase_logmel(baselines):
     """Log-mel kernel vs its plain version at the flagship raw-PCM shape
-    (B=64 waves up to 81760 samples, 32768 frame rows) and a ragged batch
-    with short utterances, in both precision modes; timed at the flagship
-    shape."""
-    cfg = base_config().data.audio
-    n_bins = cfg.n_fft // 2 + 1
+    (B=64 waves up to 81760 samples, 32768 frame rows), a ragged batch with
+    short utterances, and the flagship waves at n_fft=512 with 160 filters,
+    in both precision modes, on the plan the wrapper picks and, where that is
+    the wgmma engine, on the mma.sync engine at the same tile rows; timed at
+    the flagship shape: both engines in turns, beside the earlier design
+    where its source is present."""
+    base = base_config().data.audio
+    wide = dataclasses.replace(base, window_size_sec=0.032, n_mels=160)
+    smem = rnn_kernels.device_limits(DEVICE)[1]
     worst, times = 0.0, {}
-    batches = {"flagship": _pcm(TRAIN_B),
-               "ragged": _pcm(8, [N_SAMPLES, 4800, 3333, 1601, 250, 161, 40000, 1])}
-    for name, (wav, lengths) in batches.items():
+    batches = {"flagship": (base, _pcm(TRAIN_B)),
+               "ragged": (base, _pcm(8, [N_SAMPLES, 4800, 3333, 1601, 250, 161, 40000,
+                                         1])),
+               "wide": (wide, _pcm(TRAIN_B))}
+    for name, (cfg, (wav, lengths)) in batches.items():
         wav = torch.from_numpy(wav).to(DEVICE)
         lengths = torch.from_numpy(lengths).to(DEVICE)
         rows, F = fused_frontend._frames(wav, cfg, lengths)
+        K = cfg.n_fft // 2 + 1
+        Kf, Kbp, _ = fused_frontend.kernel_dims(cfg)
         for high in (False, True):
-            power = torch.empty((rows.shape[0], 256), device=DEVICE)
-            got = fused_frontend.logmel_rows_cuda(rows, cfg, high, power)
-            want_power = fused_frontend.dft_power_reference(rows, cfg, high)
+            plans = _logmel_plans(cfg, high, smem)
+            want_power = fused_frontend.dft_power_reference(rows, cfg, high)[:, :K]
             want = fused_frontend.mel_reference(want_power, cfg)
-            staged = fused_frontend.mel_reference(power, cfg)
+            for plan in plans:
+                kernel_smem = fused_frontend._library().logmel_smem(
+                    plan[1], Kf, Kbp, int(high), fused_frontend._ENGINES[plan[0]])
+                if kernel_smem != fused_frontend.kernel_smem_bytes(plan, cfg, high):
+                    raise AssertionError(
+                        f"logmel shared memory {plan}: kernel {kernel_smem}, wrapper "
+                        f"{fused_frontend.kernel_smem_bytes(plan, cfg, high)}")
+                power = torch.empty((rows.shape[0], Kbp), device=DEVICE)
+                got = fused_frontend.logmel_rows_cuda(rows, cfg, high, power, plan)
+                staged = fused_frontend.mel_reference(power, cfg)
+                torch.cuda.synchronize()
+                p_err = _rel_err(power[:, :K], want_power)
+                m_err = (got - staged).abs().max().item()
+                end = (got - want).abs()
+                e_err = end.max().item()
+                over = (end > LOGMEL_MEL_TOL).float().mean().item()
+                print(f"logmel check {name} n_fft={cfg.n_fft} n_mels={cfg.n_mels} "
+                      f"rows={rows.shape[0]} high={high} {plan[0]} engine, tile rows "
+                      f"{plan[1]} ({kernel_smem} bytes of shared memory): power rel_err "
+                      f"{p_err:.2e} (tol {LOGMEL_POWER_TOL:.0e}); mel stage on the "
+                      f"kernel's power max_abs_err {m_err:.2e} (tol {LOGMEL_MEL_TOL:.0e}); "
+                      f"end to end max_abs_err {e_err:.2e} (tol {LOGMEL_END_TOL:.2e}), "
+                      f"share above {LOGMEL_MEL_TOL:.0e}: {over:.2e}", flush=True)
+                if not (p_err <= LOGMEL_POWER_TOL and m_err <= LOGMEL_MEL_TOL
+                        and e_err <= LOGMEL_END_TOL and not power[:, K:].any()):
+                    raise AssertionError(f"logmel ({plan}) disagrees with its plain version")
+                worst = max(worst, e_err)
+                if plan == plans[0]:
+                    chosen = got
             feats, flen = fused_frontend.logmel_fused(wav, cfg, lengths, high)
             torch.cuda.synchronize()
-            p_err = _rel_err(power, want_power)
-            m_err = (got - staged).abs().max().item()
-            end = (got - want).abs()
-            e_err = end.max().item()
-            over = (end > LOGMEL_MEL_TOL).float().mean().item()
-            print(f"logmel check {name} rows={rows.shape[0]} high={high}: power rel_err "
-                  f"{p_err:.2e} (tol {LOGMEL_POWER_TOL:.0e}); mel stage on the kernel's "
-                  f"power max_abs_err {m_err:.2e} (tol {LOGMEL_MEL_TOL:.0e}); end to end "
-                  f"max_abs_err {e_err:.2e} (tol {LOGMEL_END_TOL:.2e}), share above "
-                  f"{LOGMEL_MEL_TOL:.0e}: {over:.2e}", flush=True)
-            if not (p_err <= LOGMEL_POWER_TOL and m_err <= LOGMEL_MEL_TOL
-                    and e_err <= LOGMEL_END_TOL):
-                raise AssertionError("logmel disagrees with its plain version")
             if not (feats.shape == (wav.shape[0], F, cfg.n_mels)
                     and torch.isfinite(feats).all()
                     and torch.equal(flen.cpu(), (lengths.cpu() // cfg.hop_length + 1)
                                     .to(torch.int32))
-                    and torch.equal(feats.reshape(-1, cfg.n_mels), got)):
+                    and torch.equal(feats.reshape(-1, cfg.n_mels), chosen)):
                 raise AssertionError("logmel_fused: wrong shape, lengths or values")
-            worst = max(worst, e_err)
-            if name == "flagship":
-                ms = _sync_time(
-                    lambda: fused_frontend.logmel_rows_cuda(rows, cfg, high), 20)
-                plain = _sync_time(lambda: fused_frontend.mel_reference(
-                    fused_frontend.dft_power_reference(rows, cfg, high), cfg), 5)
-                bound, bound_by = logmel_bound_ms(rows.shape[0], cfg.n_fft, n_bins,
-                                                  cfg.n_mels, high)
-                times[high] = (ms, plain, bound, bound_by)
-                print(f"logmel time rows={rows.shape[0]} high={high}: kernel {ms:.4f} "
-                      f"ms, plain {plain:.3f} ms, bound {bound:.4f} ms by {bound_by}",
-                      flush=True)
+            if name != "flagship":
+                continue
+            new = lambda: fused_frontend.logmel_rows_cuda(rows, cfg, high)
+            engines = {}
+            if len(plans) > 1:
+                other = lambda: fused_frontend.logmel_rows_cuda(rows, cfg, high, None,
+                                                                plans[1])
+                engines[plans[1]], engines[plans[0]] = _interleaved(other, new, 20)
+            old_ms = None
+            if "logmel" in baselines:
+                lib = baselines["logmel"]
+                old_kf, mats = _baseline_logmel_mats(cfg)
+                out = torch.empty((rows.shape[0], cfg.n_mels), device=DEVICE)
+                stream = torch.cuda.current_stream().cuda_stream
+                p_, i_ = ctypes.c_void_p, ctypes.c_int
+                lib.logmel_rows.argtypes = [p_, i_, i_, i_] + [p_] * 6 + [i_, p_, i_, p_]
+                old = lambda: lib.logmel_rows(
+                    rows.data_ptr(), rows.shape[0], cfg.n_fft, old_kf, mats[0].data_ptr(),
+                    mats[2].data_ptr(), mats[1].data_ptr(), mats[3].data_ptr(),
+                    mats[4].data_ptr(), out.data_ptr(), cfg.n_mels, None, int(high), stream)
+                if old() != 0:
+                    raise RuntimeError("the baseline logmel kernel failed")
+                torch.cuda.synchronize()
+                if not (out - chosen).abs().max().item() <= LOGMEL_END_TOL:
+                    raise AssertionError("the baseline logmel kernel disagrees")
+                old_ms, ms = _interleaved(old, new, 20)
+            else:
+                ms = _sync_time(new, 20)
+            plain = _sync_time(lambda: fused_frontend.mel_reference(
+                fused_frontend.dft_power_reference(rows, cfg, high), cfg), 5)
+            bound, bound_by = logmel_bound_ms(rows.shape[0], cfg.n_fft, K, cfg.n_mels, high)
+            times[high] = (ms, plain, bound, bound_by)
+            times[("earlier", high)] = old_ms
+            times[("engines", high)] = {f"{e} {r}": t for (e, r), t in engines.items()}
+            print(f"logmel time rows={rows.shape[0]} high={high}: kernel ({plans[0][0]} "
+                  f"engine) {ms:.4f} ms; same call in turns: "
+                  + ", ".join(f"{e} engine {r} rows {t:.4f} ms"
+                              for (e, r), t in engines.items())
+                  + f"; earlier design "
+                  f"{'not measured' if old_ms is None else f'{old_ms:.4f} ms'}"
+                  f" (same call), plain {plain:.3f} ms, bound {bound:.4f} ms by {bound_by}",
+                  flush=True)
     return worst, times
 
 
@@ -769,22 +992,28 @@ def _lattice_edges(N, T, U1, gen):
     return lp[..., 0].contiguous(), lp[..., 5].contiguous()
 
 
-def phase_sweep(gen):
+def _sweep_err(got, want) -> float:
+    return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+
+def phase_sweep(gen, baselines):
     """RNN-T sweep kernel vs its plain version: the flagship lattice, the 2B
-    lattices of one loss (alpha and beta in one launch), a ragged T."""
+    lattices of one loss (alpha and beta in one launch), a ragged T and a T
+    above 8192; the earlier design (time-contiguous edges, transposed by its
+    wrapper) timed in the same call where its source is present."""
     U1 = TRAIN_U + 1
     worst = 0.0
-    for N, T in ((TRAIN_B, T_FRAMES), (2 * TRAIN_B, T_FRAMES), (TRAIN_B, 300)):
+    for N, T in ((TRAIN_B, T_FRAMES), (2 * TRAIN_B, T_FRAMES), (TRAIN_B, 300), (2, 9000)):
         be, le = _lattice_edges(N, T, U1, gen)
         got = rnnt_kernels.sweep(be, le)
         want = rnnt_kernels.sweep_reference(be, le)
         torch.cuda.synchronize()
         abs_err = (got - want).abs().max().item()
-        rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        rel = _sweep_err(got, want)
         print(f"rnnt_sweep check N={N} T={T} U+1={U1}: max_abs_err {abs_err:.3e} "
               f"(|alpha| up to {want.abs().max().item():.1f}), rel {rel:.2e} "
               f"tol {SWEEP_TOL:.0e}", flush=True)
-        if not rel <= SWEEP_TOL:
+        if not (rel <= SWEEP_TOL and got.shape == want.shape and got.is_contiguous()):
             raise AssertionError(f"rnnt_sweep disagrees with its plain version: {rel}")
         worst = max(worst, abs_err)
     times = {}
@@ -796,6 +1025,39 @@ def phase_sweep(gen):
         times[N] = (ms, plain, bound, bound_by)
         print(f"rnnt_sweep time N={N} T={T_FRAMES} U+1={U1}: kernel {ms:.4f} ms, "
               f"plain {plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
+    N = 2 * TRAIN_B
+    times["earlier"] = None
+    if "rnnt_sweep" in baselines:
+        lib = baselines["rnnt_sweep"]
+        p_, i_ = ctypes.c_void_p, ctypes.c_int
+        lib.rnnt_sweep.argtypes = [p_, p_, p_, i_, i_, i_, p_]
+        stream = torch.cuda.current_stream().cuda_stream
+        be_t, le_t = be.transpose(1, 2).contiguous(), le.transpose(1, 2).contiguous()
+        alpha_t = torch.empty_like(be_t)
+
+        def old():
+            return lib.rnnt_sweep(be_t.data_ptr(), le_t.data_ptr(), alpha_t.data_ptr(),
+                                  N, T_FRAMES, U1, stream)
+
+        def old_wrapper():
+            bt, lt = be.transpose(1, 2).contiguous(), le.transpose(1, 2).contiguous()
+            lib.rnnt_sweep(bt.data_ptr(), lt.data_ptr(), alpha_t.data_ptr(), N, T_FRAMES,
+                           U1, stream)
+
+        if old() != 0:
+            raise RuntimeError("the baseline rnnt_sweep kernel failed")
+        torch.cuda.synchronize()
+        if not _sweep_err(alpha_t.transpose(1, 2),
+                          rnnt_kernels.sweep_reference(be, le)) <= SWEEP_TOL:
+            raise AssertionError("the baseline rnnt_sweep kernel disagrees")
+        new = lambda: rnnt_kernels.sweep(be, le)
+        old_ms, new_ms = _interleaved(old, new, 20)
+        old_wrapper_ms, _ = _interleaved(old_wrapper, new, 20)
+        times["earlier"] = {"kernel_ms": old_ms, "with_transposes_ms": old_wrapper_ms,
+                            "new_ms": new_ms}
+        print(f"rnnt_sweep same call at N={N}: earlier design kernel {old_ms:.4f} ms, with "
+              f"its wrapper's two transposes {old_wrapper_ms:.4f} ms; this design "
+              f"{new_ms:.4f} ms", flush=True)
     return worst, times
 
 
@@ -923,19 +1185,20 @@ def _zero_counts():
 
 
 def scan_launches(rnn_type: str, steps: int, hidden: int = 1024,
-                  batch: int = TRAIN_B, dtype=torch.bfloat16) -> tuple:
+                  batch: int = TRAIN_B, dtype=torch.bfloat16, device=None) -> tuple:
     """Launches of one directional scan of ``steps`` steps, forward and
-    backward: the persistent kernels take 1 forward and 2 backward (the
-    gates GEMM, then the chain) whatever the length; an LSTM above the
-    persistent limit takes the per-step kernels, T forward and T + 1
-    backward."""
-    if rnn_type.lower() == "lstm" and \
-            rnn_kernels.lstm_route(hidden, batch, dtype) == "per_step":
+    backward, on the card of ``device`` (an H100 SXM where none is named):
+    the persistent kernels take 1 forward and 2 backward (the gates GEMM,
+    then the chain) whatever the length; above the persistent limit a GRU
+    or an LSTM takes the per-step kernels, T forward and T + 1 backward."""
+    route = {"gru": rnn_kernels.gru_route, "lstm": rnn_kernels.lstm_route}[
+        rnn_type.lower()]
+    if route(hidden, batch, dtype, device) == "per_step":
         return steps, steps + 1
     return 1, 2
 
 
-def step_launches(cfg, T: int, U: int, raw_pcm: bool = False) -> dict:
+def step_launches(cfg, T: int, U: int, raw_pcm: bool = False, device=None) -> dict:
     """Kernel launches of one train_step: every directional scan of the
     encoder (T steps) and of the prediction network (U+1 steps) takes
     ``scan_launches`` in its cell type's kernels (neither config here
@@ -945,7 +1208,7 @@ def step_launches(cfg, T: int, U: int, raw_pcm: bool = False) -> dict:
     for net, scans, steps in (
             (tn, tn.num_layers * (2 if tn.bidirectional else 1), T),
             (pn, pn.num_layers, U + 1)):
-        fwd, bwd = scan_launches(net.rnn_type, steps, net.hidden_size)
+        fwd, bwd = scan_launches(net.rnn_type, steps, net.hidden_size, device=device)
         want[f"{net.rnn_type.lower()}_fwd"] += scans * fwd
         want[f"{net.rnn_type.lower()}_bwd"] += scans * bwd
     want["rnnt_sweep"] = 1
@@ -1045,7 +1308,7 @@ def phase_training(flax_params):
     cfg, state = _bf16_train_state(base_config(), flax_params)
     B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
     batch = _train_batch(cfg, B, T, U)
-    want = step_launches(cfg, T, U)
+    want = step_launches(cfg, T, U, device=DEVICE)
     print(f"train expected launches per step {json.dumps(want)}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     step_ms, launches, _ = _run_steps("train", state, batch, want, WARMUP_STEPS,
@@ -1092,7 +1355,7 @@ def phase_raw_pcm(flax_params):
     batch = {"wav": torch.from_numpy(q).to(DEVICE),
              "wav_scale": torch.from_numpy(scale).to(DEVICE),
              "wav_lengths": torch.from_numpy(lengths).to(DEVICE), **text}
-    want = step_launches(cfg, T, U, raw_pcm=True)
+    want = step_launches(cfg, T, U, raw_pcm=True, device=DEVICE)
     print(f"raw-PCM expected launches per step {json.dumps(want)}", flush=True)
     step_ms, launches, metrics = _run_steps("raw-PCM", state, batch, want, 1,
                                             RAW_PCM_STEPS, "encoder.rnn.fwd.0.w_hh")
@@ -1127,7 +1390,7 @@ def phase_tiny(tokenizer, waves):
     cfg, state = _bf16_train_state(cfg, flax_params)
     B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
     batch = _train_batch(cfg, B, T, U)
-    want = step_launches(cfg, T, U)
+    want = step_launches(cfg, T, U, device=DEVICE)
     print(f"tiny expected launches per step {json.dumps(want)}", flush=True)
     step_ms, launches, metrics = _run_steps("tiny", state, batch, want, 1,
                                             TINY_STEPS, "encoder.rnn.bwd.1.w_hh")
@@ -1140,7 +1403,7 @@ def phase_tiny(tokenizer, waves):
     scans = cfg.model.transnet.num_layers * 2
     want_serve = dict.fromkeys(KERNELS, 0)
     want_serve["lstm_fwd"] = scans * scan_launches(
-        "lstm", T_FRAMES, cfg.model.transnet.hidden_size, len(waves))[0]
+        "lstm", T_FRAMES, cfg.model.transnet.hidden_size, len(waves), device=DEVICE)[0]
     print(f"tiny bf16 transcribe_batch of {len(waves)}: {req_ms:.1f} ms, launches "
           f"{json.dumps(got)} (expected {json.dumps(want_serve)}); {texts}", flush=True)
     if got != want_serve or not all(isinstance(x, str) for x in texts):
@@ -1300,6 +1563,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(KERNELS)
     print(f"built {KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
+    baselines = build_baselines()
+    sms, smem = rnn_kernels.device_limits(DEVICE)
+    print(f"card limits read from the device: {sms} SMs, {smem} bytes of shared memory "
+          f"a block may opt in to", flush=True)
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     fwd_err, fwd_times = phase_kernels(gen)
@@ -1308,8 +1575,8 @@ def main() -> int:
     phase_lstm_limits(gen)
     lstm_fwd_err, lstm_bwd_err, lstm_times = phase_lstm(gen)
     print("cudnn_layers " + json.dumps(phase_cudnn_layers(gen)), flush=True)
-    sweep_err, sweep_times = phase_sweep(gen)
-    logmel_err, logmel_times = phase_logmel()
+    sweep_err, sweep_times = phase_sweep(gen, baselines)
+    logmel_err, logmel_times = phase_logmel(baselines)
 
     cfg = base_config()
     flax_params = random_flax_params(cfg.model, torch.Generator().manual_seed(SEED))

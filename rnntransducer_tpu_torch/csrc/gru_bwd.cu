@@ -51,8 +51,11 @@
 //     the rest) are loaded into registers before the grid barrier;
 //   * batches over 64 rows are walked in 64-row chunks inside a step.
 //
-// Co-residency limit: one block per SM, so H <= 8 * 132 = 1056 on an H100
-// SXM (ops/rnn_kernels.py::gru_max_hidden says so before any launch).
+// Co-residency limit: one block per SM, so H <= 8 * (the card's SMs), 1056
+// on an H100 SXM (ops/rnn_kernels.py::gru_route reads the card before any
+// launch).  A larger H takes the per-step route at the end of this file (the
+// first design: T + 1 launches per scan, both slices copied into shared
+// memory every launch, CUDA-core FMAs).
 //
 // What bounds it on this card: the step chain, not the operations.  At
 // B = 1 a chain step takes ~5 us (L2 round trips, the gates, the grid
@@ -224,6 +227,246 @@ int launch_bwd(const void* xw, const void* hprev, const void* gout, const void* 
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The per-step route, for H above the persistent grid's limit: one launch per
+// step, back to back on the caller's stream; the launch boundary is the
+// grid-wide barrier the dh chain needs.  Launch s finishes the chain of the
+// step before it (dh for its hidden units j from the dhw row that launch s-1
+// wrote) and then does step s, rebuilding the gates from h_prev itself; one
+// closing launch finishes the chain of the last step into dh0, so a scan of
+// T steps takes T + 1 launches.  Each block owns kJT units and copies its
+// chain slice (kJT rows of W_hh) and its gate slice (3 kJT columns) into
+// shared memory every launch; the fp32 dhw row and the j-local rest of the
+// carry (g z + (m ? 0 : dh)) ping-pong between two buffers.
+// ---------------------------------------------------------------------------
+
+namespace per_step {
+
+using namespace rnnp;
+
+constexpr int kRows = 4;  // rows of the activation each lane carries
+
+// x rounded to W's type (the TPU kernel's .astype(w.dtype)), back in fp32.
+template <typename T> __device__ __forceinline__ float quant(float x);
+template <> __device__ __forceinline__ float quant<float>(float x) { return x; }
+template <> __device__ __forceinline__ float quant<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Dynamic shared memory of one block: the chain slice (kJT rows of Kc), the
+// gate slice (3 kJT rows of Hk) and the two 64-row dot buffers.  It must fit
+// the card's opt-in limit, which bounds H (ops/rnn_kernels.py::
+// gru_step_max_hidden).
+template <typename T> constexpr size_t step_smem(int Hk, int Kc) {
+  return sizeof(T) * ((size_t)kJT * Kc + (size_t)3 * kJT * Hk)
+         + sizeof(float) * kRowChunk * 4 * kJT;
+}
+
+// dots[(ks * npad + row) * C + c] = partial sum over this warp's share of K
+// of quant<T>(act[r0 + row, k]) * w_s[c, k], for rows of the chunk
+// [r0, r0 + nrows).  act is (rows, lda) of type TA, zero for k >= its width;
+// w_s is (C, K) in shared memory; K % 64 == 0.
+template <typename T, typename TA, int C>
+__device__ __forceinline__ void chunk_dots(const T* w_s, const TA* act, int lda,
+                                           int K, int r0, int nrows,
+                                           const Split& s, float* dots) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int my_rg = warp / s.ksplit;
+  const int my_ks = warp % s.ksplit;
+  for (int g = my_rg; g < s.ngroups; g += s.rg) {
+    float acc[kRows][C];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+
+    const TA* arow[kRows];
+    bool valid[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int rl = g * kRows + i;
+      valid[i] = rl < nrows;
+      arow[i] = act + (size_t)(r0 + (valid[i] ? rl : 0)) * lda;
+    }
+
+    for (int k = 2 * (my_ks * 32 + lane); k < K; k += 64 * s.ksplit) {
+      float2 av[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float2 v = load_pair(arow[i] + k);
+        av[i].x = valid[i] ? quant<T>(v.x) : 0.0f;
+        av[i].y = valid[i] ? quant<T>(v.y) : 0.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float2 w = load_pair(w_s + (size_t)c * K + k);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          acc[i][c] = fmaf(av[i].x, w.x, acc[i][c]);
+          acc[i][c] = fmaf(av[i].y, w.y, acc[i][c]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float v = acc[i][c];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        acc[i][c] = v;
+      }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if ((i * C + c) % 32 == lane && valid[i])
+          dots[(my_ks * s.npad + g * kRows + i) * C + c] = acc[i][c];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t elems) {
+  const int4* s = reinterpret_cast<const int4*>(src);
+  int4* d = reinterpret_cast<int4*>(dst);
+  const int n16 = (int)(sizeof(T) * elems / 16);
+  for (int i = threadIdx.x; i < n16; i += kThreads) d[i] = __ldg(s + i);
+}
+
+// One launch.  Shapes: xw_t (B, 3H); hprev_t (B, Hk) zero padded for
+// k >= H; gout_t (B, H); rec_tiles (ceil(H/kJT), 3 kJT, Hk) and chain_tiles
+// (ceil(H/kJT), kJT, Kc), both zero padded; b_hh (3H); dhw_in / dhw_out
+// (B, Kc) fp32, zero for k >= 3H; rest_in / rest_out (B, H) fp32; dxw_t
+// (B, 3H); dnr_t (B, H).  final != 0: only close the chain into dh0 (B, H).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gru_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
+             const T* __restrict__ gout_t, const T* __restrict__ rec_tiles,
+             const T* __restrict__ chain_tiles, const T* __restrict__ b_hh,
+             const int* __restrict__ lengths, const float* __restrict__ dhw_in,
+             float* __restrict__ dhw_out, const float* __restrict__ rest_in,
+             float* __restrict__ rest_out, T* __restrict__ dxw_t,
+             T* __restrict__ dnr_t, T* __restrict__ dh0, int t, int B, int H,
+             int Hk, int Kc, int final) {
+  constexpr int CR = 3 * kJT;  // gate columns of the block
+  constexpr int CC = kJT;      // chain rows of the block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* wc_s = reinterpret_cast<T*>(smem_raw);          // (CC, Kc)
+  T* wr_s = wc_s + (size_t)CC * Kc;                  // (CR, Hk)
+  float* dots_c = reinterpret_cast<float*>(wr_s + (size_t)CR * Hk);
+  float* dots_r = dots_c + kRowChunk * CC;
+
+  const int j0 = blockIdx.x * kJT;
+  copy_tile(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, (size_t)CC * Kc);
+  if (!final)
+    copy_tile(wr_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, (size_t)CR * Hk);
+  __syncthreads();
+
+  for (int r0 = 0; r0 < B; r0 += kRowChunk) {
+    const int nrows = min(kRowChunk, B - r0);
+    const Split s = split_rows(nrows, kRows);
+    chunk_dots<T, float, CC>(wc_s, dhw_in, Kc, Kc, r0, nrows, s, dots_c);
+    if (!final)
+      chunk_dots<T, T, CR>(wr_s, hprev_t, Hk, Hk, r0, nrows, s, dots_r);
+    __syncthreads();
+
+    for (int p = threadIdx.x; p < nrows * kJT; p += kThreads) {
+      const int rl = p / kJT;
+      const int jj = p % kJT;
+      const int j = j0 + jj;
+      if (j >= H) continue;
+      const int b = r0 + rl;
+      float chain = 0.0f;
+      for (int ks = 0; ks < s.ksplit; ++ks) chain += dots_c[(ks * s.npad + rl) * CC + jj];
+      const float dh = chain + rest_in[(size_t)b * H + j];
+      if (final) {
+        dh0[(size_t)b * H + j] = from_f<T>(dh);
+        continue;
+      }
+      float hr = 0.0f, hz = 0.0f, hn = 0.0f;
+      for (int ks = 0; ks < s.ksplit; ++ks) {
+        const float* d = dots_r + (ks * s.npad + rl) * CR;
+        hr += d[jj];
+        hz += d[kJT + jj];
+        hn += d[2 * kJT + jj];
+      }
+      hr += to_f(b_hh[j]);
+      hz += to_f(b_hh[H + j]);
+      hn += to_f(b_hh[2 * H + j]);
+      const T* x = xw_t + (size_t)b * 3 * H;
+      const float r = sigmoidf_(to_f(x[j]) + hr);
+      const float z = sigmoidf_(to_f(x[H + j]) + hz);
+      const float n = tanhf(to_f(x[2 * H + j]) + r * hn);
+      const float hp = to_f(hprev_t[(size_t)b * Hk + j]);
+      const bool m = t < lengths[b];
+      const float g = m ? dh + to_f(gout_t[(size_t)b * H + j]) : 0.0f;
+      const float dz = g * (hp - n) * z * (1.0f - z);
+      const float dn = g * (1.0f - z) * (1.0f - n * n);
+      const float dr = dn * hn * r * (1.0f - r);
+      const float dnr = dn * r;
+      T* dx = dxw_t + (size_t)b * 3 * H;
+      dx[j] = from_f<T>(dr);
+      dx[H + j] = from_f<T>(dz);
+      dx[2 * H + j] = from_f<T>(dn);
+      dnr_t[(size_t)b * H + j] = from_f<T>(dnr);
+      float* dw = dhw_out + (size_t)b * Kc;
+      dw[j] = dr;
+      dw[H + j] = dz;
+      dw[2 * H + j] = dnr;
+      rest_out[(size_t)b * H + j] = g * z + (m ? 0.0f : dh);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_steps(const void* xw, const void* hprev, const void* gout,
+                 const void* rec_tiles, const void* chain_tiles, const void* b_hh,
+                 const void* lengths, void* dhw_a, void* dhw_b, void* rest_a,
+                 void* rest_b, void* dxw, void* dnr, void* dh0, int T_len, int B,
+                 int H, int Hk, int Kc, int reverse, cudaStream_t stream) {
+  const size_t smem = step_smem<T>(Hk, Kc);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((H + kJT - 1) / kJT);
+  const T* xw_p = static_cast<const T*>(xw);
+  const T* hp_p = static_cast<const T*>(hprev);
+  const T* go_p = static_cast<const T*>(gout);
+  T* dxw_p = static_cast<T*>(dxw);
+  T* dnr_p = static_cast<T*>(dnr);
+  float* dhw[2] = {static_cast<float*>(dhw_a), static_cast<float*>(dhw_b)};
+  float* rest[2] = {static_cast<float*>(rest_a), static_cast<float*>(rest_b)};
+  for (int s = 0; s <= T_len; ++s) {
+    const int final = s == T_len;
+    const int t = final ? 0 : (reverse ? s : T_len - 1 - s);
+    gru_bwd_step<T><<<grid, kThreads, smem, stream>>>(
+        xw_p + (size_t)t * B * 3 * H, hp_p + (size_t)t * B * Hk,
+        go_p + (size_t)t * B * H, static_cast<const T*>(rec_tiles),
+        static_cast<const T*>(chain_tiles), static_cast<const T*>(b_hh),
+        static_cast<const int*>(lengths), dhw[s % 2], dhw[(s + 1) % 2],
+        rest[s % 2], rest[(s + 1) % 2], dxw_p + (size_t)t * B * 3 * H,
+        dnr_p + (size_t)t * B * H, static_cast<T*>(dh0), t, B, H, Hk, Kc,
+        final);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+}  // namespace per_step
+
 // Runs the whole backward scan on `stream`, no sync: the gates GEMM into hw
 // (T, B, 3H) fp32 scratch, then one cooperative launch of the chain.
 // dtype: 0 = float32, 1 = bfloat16 (xw, hprev, gout, w_t, chain_tiles,
@@ -289,4 +532,39 @@ extern "C" int gru_scan_bwd_max_blocks(int Kc, int dtype) {
                  : max_coresident(gru_bwd_persistent<__nv_bfloat16>,
                                   slice_smem<__nv_bfloat16>(CC, Kc), &blocks);
   return err == cudaSuccess ? blocks : -1;
+}
+
+// The per-step route: T + 1 launches of gru_bwd_step on `stream`, no sync.
+// dtype as above (xw, hprev, gout, both tile sets, b_hh, dxw, dnr and dh0
+// share it).  hprev is (T, B, Hk) zero padded for k >= H; rec_tiles is W_hh
+// tiled as for the forward scan, chain_tiles its rows as for the persistent
+// chain (jt = kJT units per block).  dhw_a must be zero (B, Kc) fp32 and
+// rest_a must hold g_hfin as (B, H) fp32; dhw_b (zero) and rest_b are
+// scratch of the same shapes.  Returns 0 or the first cudaError_t met.
+extern "C" int gru_scan_bwd_step(const void* xw, const void* hprev, const void* gout,
+                                 const void* rec_tiles, const void* chain_tiles,
+                                 const void* b_hh, const void* lengths, void* dhw_a,
+                                 void* dhw_b, void* rest_a, void* rest_b, void* dxw,
+                                 void* dnr, void* dh0, int T_len, int B, int H, int Hk,
+                                 int Kc, int jt, int reverse, int dtype, void* stream) {
+  using namespace per_step;
+  if (T_len <= 0 || B <= 0) return 0;
+  if (jt != kJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 3 * H)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_steps<float>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh, lengths,
+                               dhw_a, dhw_b, rest_a, rest_b, dxw, dnr, dh0, T_len, B,
+                               H, Hk, Kc, reverse, s);
+  if (dtype == 1)
+    return launch_steps<__nv_bfloat16>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh,
+                                       lengths, dhw_a, dhw_b, rest_a, rest_b, dxw, dnr,
+                                       dh0, T_len, B, H, Hk, Kc, reverse, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one per-step block, for the wrapper's limit.
+extern "C" int gru_scan_bwd_step_smem(int Hk, int Kc, int dtype) {
+  return (int)(dtype == 0 ? per_step::step_smem<float>(Hk, Kc)
+                          : per_step::step_smem<__nv_bfloat16>(Hk, Kc));
 }

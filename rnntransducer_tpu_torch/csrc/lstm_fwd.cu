@@ -38,8 +38,9 @@
 //     behind it;
 //   * batches over 64 rows are walked in 64-row chunks inside a step.
 //
-// Co-residency limit: one block per SM, so H <= 8 * 132 = 1056 on an H100
-// SXM (ops/rnn_kernels.py::lstm_max_hidden says so before any launch).  A
+// Co-residency limit: one block per SM, so H <= 8 * (the card's SMs), 1056
+// on an H100 SXM (ops/rnn_kernels.py::lstm_route reads the card before any
+// launch).  A
 // larger H takes the per-step route below (the first design: one launch per
 // step, the block's slice copied into shared memory every launch, CUDA-core
 // FMAs), which takes H up to ~3500 in bf16 and ~1750 in fp32.

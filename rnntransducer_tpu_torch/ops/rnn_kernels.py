@@ -22,22 +22,28 @@ version.
 Each wrapper's ``.launches`` counts the kernel launches it made, so a run
 can show that its recurrent layers went through the kernels.  The kernels
 are persistent: 1 launch per forward scan, 2 per backward scan (the gates
-GEMM and the chain).  A persistent grid must be co-resident:
-:func:`gru_max_hidden` and :func:`lstm_max_hidden` give the largest H it
-takes.  Above it a GRU call raises ``ValueError`` before any launch, and
-an LSTM call takes the per-step kernels (T launches per forward scan,
-T + 1 per backward scan), chosen from (H, B, dtype) before any launch as
-the JAX package's ``rnn_pallas.supported()`` gate chooses.
+GEMM and the chain).  A persistent grid must be co-resident, one block per
+SM: :func:`gru_max_hidden` and :func:`lstm_max_hidden` give the largest H
+it takes on a card, from the card's SM count and the shared memory a block
+may opt in to (:func:`device_limits`).  Above it a call takes the per-step
+kernels (T launches per forward scan, T + 1 per backward scan), chosen by
+:func:`gru_route` / :func:`lstm_route` from (H, B, dtype, device) before
+any launch, as the JAX package's ``rnn_pallas.supported()`` gate chooses.
+Where even a per-step block's slice does not fit the card's shared memory
+(:func:`step_max_hidden`), the call raises ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from rnntransducer_tpu_torch.ops import build
+from rnntransducer_tpu_torch.ops.device import device_limits
 from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,9 +51,20 @@ _TILE_WIDTH = 8                    # GRU hidden units per block (kJT in the kern
 _LSTM_STEP_TILE_WIDTH = 4          # LSTM units per block, per-step route (kStepJT)
 _LSTM_CHAIN_ROWS = 8               # rows of a persistent LSTM chain slice (CC)
 _K_ALIGN = 64                      # the kernel's K loop walks 64 at a time
-_GRU_MAX_BLOCKS = 132              # persistent GRU blocks, one per SM of an H100 SXM
-_SMEM_PER_BLOCK = 232448           # 227 KB of shared memory a block may use
+_STEP_ROWS = 64                    # rows of a per-step block's dot buffer (kRowChunk)
 _COOPERATIVE_TOO_LARGE = 720       # cudaErrorCooperativeLaunchTooLarge
+def _is_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def _limits(device, sms: Optional[int], smem: Optional[int]) -> Tuple[int, int]:
+    """The card's SM count and opt-in shared memory (the H100 SXM's where no
+    CUDA device is named), each capped by ``sms`` / ``smem`` where given."""
+    d_sms, d_smem = device_limits(device)
+    if _is_cuda(device):
+        return (d_sms if sms is None else min(sms, d_sms),
+                d_smem if smem is None else min(smem, d_smem))
+    return (d_sms if sms is None else sms), (d_smem if smem is None else smem)
 
 
 def gru_scan_reference(xw, w_hh, b_hh, h0, lengths, reverse: bool = False):
@@ -84,6 +101,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_scan_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.gru_scan_fwd.restype = i
+        lib.gru_scan_fwd_step.argtypes = [p] * 8 + [i] * 7 + [p]
+        lib.gru_scan_fwd_step.restype = i
         for fn in (lib.gru_scan_fwd_smem, lib.gru_scan_fwd_max_blocks):
             fn.argtypes = [i, i]
             fn.restype = i
@@ -122,32 +141,115 @@ def gru_smem_bytes(H: int, dtype: torch.dtype, backward: bool = False) -> int:
     return e * C * (K + 32 if e == 2 else K) + 4 * 128 * C
 
 
-def gru_fits(H: int, B: int, dtype: torch.dtype) -> bool:
-    """Whether both persistent GRU kernels take hidden size H: ceil(H / 8)
-    blocks, one per SM, must be co-resident on the card's 132 SMs, each
-    within the 227 KB of shared memory a block may use.  B does not move
-    the limit: rows are walked in 64-row chunks inside a step."""
+@functools.lru_cache(maxsize=None)
+def _reported_blocks(cell: str, H: int, jt: int, dtype: torch.dtype,
+                     device: torch.device) -> int:
+    """The fewer of the persistent forward and backward kernels' co-resident
+    blocks at hidden size H, as the kernels' own occupancy query on the card
+    reports them (``*_max_blocks``; -1 where a block does not fit)."""
+    code = _DTYPE_CODES[dtype]
+    Hk, Kc = _padded(H), _padded((3 if cell == "gru" else 4) * H)
+    with torch.cuda.device(device):
+        if cell == "gru":
+            return min(_library().gru_scan_fwd_max_blocks(Hk, code),
+                       _bwd_library().gru_scan_bwd_max_blocks(Kc, code))
+        return min(_lstm_fwd_library().lstm_scan_fwd_max_blocks(Hk, jt, code),
+                   _lstm_bwd_library().lstm_scan_bwd_max_blocks(Kc, jt, code))
+
+
+def _persistent_fits(cell, H, jt, smem_bytes, dtype, device, sms, smem) -> bool:
+    """ceil(H / jt) blocks, one per SM, co-resident on the card, each within
+    the shared memory a block may opt in to; on a card also within what the
+    kernels' occupancy query reports."""
+    n_sms, n_smem = _limits(device, sms, smem)
+    blocks = -(-H // jt)
+    if blocks > n_sms or max(smem_bytes) > n_smem:
+        return False
+    if _is_cuda(device):
+        return blocks <= _reported_blocks(cell, H, jt, dtype, torch.device(device))
+    return True
+
+
+def gru_fits(H: int, B: int, dtype: torch.dtype, device=None, *,
+             sms: Optional[int] = None, smem: Optional[int] = None) -> bool:
+    """Whether both persistent GRU kernels take hidden size H on the card of
+    ``device`` (or one with ``sms`` SMs and ``smem`` bytes of opt-in shared
+    memory per block; the H100 SXM where neither is given): ceil(H / 8)
+    blocks, one per SM, must be co-resident, each holding its W_hh slice.
+    B does not move the limit: rows are walked in 64-row chunks inside a
+    step."""
     del B
-    return (-(-H // _TILE_WIDTH) <= _GRU_MAX_BLOCKS
-            and max(gru_smem_bytes(H, dtype), gru_smem_bytes(H, dtype, True))
-            <= _SMEM_PER_BLOCK)
+    return _persistent_fits("gru", H, _TILE_WIDTH,
+                            (gru_smem_bytes(H, dtype), gru_smem_bytes(H, dtype, True)),
+                            dtype, device, sms, smem)
 
 
-def gru_max_hidden(B: int, dtype: torch.dtype) -> int:
-    """The largest hidden size the persistent GRU kernels take."""
-    H = _GRU_MAX_BLOCKS * _TILE_WIDTH
-    while not gru_fits(H, B, dtype):
+def gru_max_hidden(B: int, dtype: torch.dtype, device=None, *,
+                   sms: Optional[int] = None, smem: Optional[int] = None) -> int:
+    """The largest hidden size the persistent GRU kernels take on that card."""
+    H = _limits(device, sms, smem)[0] * _TILE_WIDTH
+    while H > 0 and not gru_fits(H, B, dtype, device, sms=sms, smem=smem):
         H -= 1
     return H
 
 
-def _check_gru_fits(op: str, H: int, B: int, dtype: torch.dtype) -> None:
-    if not gru_fits(H, B, dtype):
+def gru_route(H: int, B: int, dtype: torch.dtype, device=None, *,
+              sms: Optional[int] = None, smem: Optional[int] = None) -> str:
+    """The GRU kernels a CUDA call of hidden size H takes, from the shape and
+    the card alone and before any launch: ``"persistent"`` (1 forward
+    launch, 2 backward) or, above :func:`gru_max_hidden`, ``"per_step"`` (T
+    forward, T + 1 backward).  The counterpart of the JAX package's shape
+    gate ``rnn_pallas.supported()``; never a reaction to a failed launch."""
+    return "persistent" if gru_fits(H, B, dtype, device, sms=sms, smem=smem) \
+        else "per_step"
+
+
+def step_smem_bytes(cell: str, H: int, dtype: torch.dtype,
+                    backward: bool = False) -> int:
+    """Dynamic shared memory of one block of the per-step kernels
+    (``per_step::step_smem`` of ``csrc/gru_*.cu``; ``launch_steps`` of
+    ``csrc/lstm_*.cu``): the block's gate slice (G jt rows of Hk), backward
+    also its chain slice (jt rows of Kc), plus 64-row fp32 dot buffers for
+    every slice row (G jt forward, (G + 1) jt backward)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    G, jt = (3, _TILE_WIDTH) if cell == "gru" else (4, _LSTM_STEP_TILE_WIDTH)
+    Hk, Kc = _padded(H), _padded(G * H)
+    if backward:
+        return e * (jt * Kc + G * jt * Hk) + 4 * _STEP_ROWS * (G + 1) * jt
+    return e * G * jt * Hk + 4 * _STEP_ROWS * G * jt
+
+
+def step_max_hidden(cell: str, dtype: torch.dtype, backward: bool = False,
+                    device=None, *, smem: Optional[int] = None) -> int:
+    """The largest hidden size whose per-step block fits the shared memory
+    a block may opt in to on that card (the H100 SXM's where no device or
+    ``smem`` is given)."""
+    return _step_max_hidden(cell, dtype, backward, _limits(device, None, smem)[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _step_max_hidden(cell: str, dtype: torch.dtype, backward: bool, limit: int) -> int:
+    lo, hi = 0, 1 << 16                  # step_smem_bytes grows with H
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if step_smem_bytes(cell, mid, dtype, backward) <= limit:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _check_step_fits(op: str, cell: str, H: int, dtype: torch.dtype,
+                     backward: bool, device) -> None:
+    """Raise before any launch where a per-step block cannot hold its slice."""
+    top = step_max_hidden(cell, dtype, backward, device)
+    if H > top:
         raise ValueError(
-            f"{op}: H={H} is above {gru_max_hidden(B, dtype)}, the largest hidden "
-            f"size whose grid of {_TILE_WIDTH}-unit blocks, one per SM with its "
-            f"W_hh slice in shared memory, can be co-resident on {_GRU_MAX_BLOCKS} "
-            f"SMs ({dtype})")
+            f"{op}: H={H} is above {top}, the largest hidden size whose per-step "
+            f"block holds its W_hh slice in the {device_limits(device)[1]} bytes of "
+            f"shared memory a block may use on this card ({dtype}); the "
+            f"persistent kernels take H up to "
+            f"{(gru_max_hidden if cell == 'gru' else lstm_max_hidden)(1, dtype, device)}")
 
 
 def _cuda_error(op: str, err: int) -> RuntimeError:
@@ -180,30 +282,41 @@ def _gru_scan_cuda(xw, w_hh, b_hh, h0, lengths, reverse):
                         f"got {xw.dtype}, {w_hh.dtype}, {b_hh.dtype}")
     if not (xw.is_contiguous() and w_hh.is_contiguous() and b_hh.is_contiguous()):
         raise ValueError("gru_scan kernel needs contiguous xw, w_hh and b_hh")
-    _check_gru_fits("gru_scan", H, B, xw.dtype)
+    persistent = gru_route(H, B, xw.dtype, dev) == "persistent"
+    if not persistent:
+        _check_step_fits("gru_scan", "gru", H, xw.dtype, False, dev)
 
     lib = _library()
     Hk = _padded(H)
+    code = _DTYPE_CODES[xw.dtype]
     with torch.cuda.device(dev):
         h_all = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
         if T == 0:
             return h_all, h0.to(xw.dtype)
         tiles = _tile_weights(w_hh, H, Hk, _TILE_WIDTH)
-        hb = torch.zeros((2, B, Hk), dtype=xw.dtype, device=dev)
-        hb[0, :, :H] = h0
-        carry = _fp32_copy(h0)               # j-local carry, updated in place
         lens = lengths.to(torch.int32).contiguous()
-        count = torch.zeros((1,), dtype=torch.int32, device=dev)
         h_fin = torch.empty((B, H), dtype=xw.dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gru_scan_fwd(
-            xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), hb.data_ptr(),
-            carry.data_ptr(), h_all.data_ptr(), h_fin.data_ptr(), lens.data_ptr(),
-            count.data_ptr(), T, B, H, Hk, _TILE_WIDTH, int(reverse),
-            _DTYPE_CODES[xw.dtype], stream)
+        if persistent:
+            hb = torch.zeros((2, B, Hk), dtype=xw.dtype, device=dev)
+            hb[0, :, :H] = h0
+            carry = _fp32_copy(h0)           # j-local carry, updated in place
+            count = torch.zeros((1,), dtype=torch.int32, device=dev)
+            err = lib.gru_scan_fwd(
+                xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), hb.data_ptr(),
+                carry.data_ptr(), h_all.data_ptr(), h_fin.data_ptr(), lens.data_ptr(),
+                count.data_ptr(), T, B, H, Hk, _TILE_WIDTH, int(reverse), code, stream)
+        else:
+            h_a = torch.zeros((B, Hk), dtype=torch.float32, device=dev)
+            h_a[:, :H] = h0.float()
+            h_b = torch.zeros_like(h_a)
+            err = lib.gru_scan_fwd_step(
+                xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), h_a.data_ptr(),
+                h_b.data_ptr(), h_all.data_ptr(), h_fin.data_ptr(), lens.data_ptr(),
+                T, B, H, Hk, _TILE_WIDTH, int(reverse), code, stream)
     if err != 0:
         raise _cuda_error("gru_scan", err)
-    gru_scan.launches += 1
+    gru_scan.launches += 1 if persistent else T
     return h_all, h_fin
 
 
@@ -360,6 +473,8 @@ def _bwd_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_scan_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
         lib.gru_scan_bwd.restype = i
+        lib.gru_scan_bwd_step.argtypes = [p] * 14 + [i] * 8 + [p]
+        lib.gru_scan_bwd_step.restype = i
         lib.gru_bwd_gates.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.gru_bwd_gates.restype = i
         for fn in (lib.gru_scan_bwd_smem, lib.gru_scan_bwd_max_blocks):
@@ -445,33 +560,49 @@ def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
     if not all(x.is_contiguous() for x in (xw, w_hh, b_hh, g_hall)):
         raise ValueError("gru_scan_backward kernel needs contiguous xw, w_hh, "
                          "b_hh and g_hall")
-    _check_gru_fits("gru_scan_backward", H, B, xw.dtype)
+    persistent = gru_route(H, B, xw.dtype, dev) == "persistent"
+    if not persistent:
+        _check_step_fits("gru_scan_backward", "gru", H, xw.dtype, True, dev)
 
     lib = _bwd_library()
     Hk, Kc = _padded(H), _padded(G)
+    code = _DTYPE_CODES[xw.dtype]
     with torch.cuda.device(dev):
         dxw = torch.empty((T, B, G), dtype=xw.dtype, device=dev)
         dnr = torch.empty((T, B, H), dtype=xw.dtype, device=dev)
         if T == 0:
             return dxw, dnr, g_hfin.clone()
-        hprev, w_t = _gemm_operands(h_prev, w_hh, Hk)
         chain = _chain_tiles(w_hh, H, Kc, _TILE_WIDTH)
-        hw = torch.empty((T, B, G), dtype=torch.float32, device=dev)
-        dhw = torch.zeros((2, B, Kc), dtype=xw.dtype, device=dev)
-        rest = _fp32_copy(g_hfin)            # j-local carry, updated in place
         lens = lengths.to(torch.int32).contiguous()
-        count = torch.zeros((1,), dtype=torch.int32, device=dev)
         dh0 = torch.empty((B, H), dtype=xw.dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gru_scan_bwd(
-            xw.data_ptr(), hprev.data_ptr(), g_hall.data_ptr(), w_t.data_ptr(),
-            chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(), hw.data_ptr(),
-            dhw.data_ptr(), rest.data_ptr(), dxw.data_ptr(), dnr.data_ptr(),
-            dh0.data_ptr(), count.data_ptr(), T, B, H, Hk, Kc, _TILE_WIDTH,
-            int(reverse), _DTYPE_CODES[xw.dtype], stream)
+        if persistent:
+            hprev, w_t = _gemm_operands(h_prev, w_hh, Hk)
+            hw = torch.empty((T, B, G), dtype=torch.float32, device=dev)
+            dhw = torch.zeros((2, B, Kc), dtype=xw.dtype, device=dev)
+            rest = _fp32_copy(g_hfin)        # j-local carry, updated in place
+            count = torch.zeros((1,), dtype=torch.int32, device=dev)
+            err = lib.gru_scan_bwd(
+                xw.data_ptr(), hprev.data_ptr(), g_hall.data_ptr(), w_t.data_ptr(),
+                chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(), hw.data_ptr(),
+                dhw.data_ptr(), rest.data_ptr(), dxw.data_ptr(), dnr.data_ptr(),
+                dh0.data_ptr(), count.data_ptr(), T, B, H, Hk, Kc, _TILE_WIDTH,
+                int(reverse), code, stream)
+        else:
+            rec = _tile_weights(w_hh, H, Hk, _TILE_WIDTH)
+            hprev = F.pad(h_prev, (0, Hk - H)).contiguous()
+            dhw = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
+            rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
+            rest[0] = g_hfin.float()
+            err = lib.gru_scan_bwd_step(
+                xw.data_ptr(), hprev.data_ptr(), g_hall.data_ptr(), rec.data_ptr(),
+                chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(), dhw[0].data_ptr(),
+                dhw[1].data_ptr(), rest[0].data_ptr(), rest[1].data_ptr(),
+                dxw.data_ptr(), dnr.data_ptr(), dh0.data_ptr(), T, B, H, Hk, Kc,
+                _TILE_WIDTH, int(reverse), code, stream)
     if err != 0:
         raise _cuda_error("gru_scan_backward", err)
-    gru_scan_backward.launches += 2
+    gru_scan_backward.launches += 2 if persistent else T + 1
     return dxw, dnr, dh0
 
 
@@ -565,53 +696,64 @@ def lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
 
 
 
-def lstm_tile_width(H: int) -> int:
+def lstm_tile_width(H: int, device=None, *, sms: Optional[int] = None) -> int:
     """Hidden units per block of the persistent LSTM kernels (JT in
     ``csrc/lstm_fwd.cu`` / ``lstm_bwd.cu``): 4 where ceil(H / 4) blocks fit
-    the card's SMs (H <= 528), else 8.  At tiny_config's H=320, 80 blocks of
-    4 units ran both kernels faster than 40 blocks of 8 (PERF.md)."""
-    return 4 if -(-H // 4) <= _GRU_MAX_BLOCKS else 8
+    the card's SMs (H <= 528 on an H100 SXM), else 8.  At tiny_config's
+    H=320, 80 blocks of 4 units ran both kernels faster than 40 blocks of 8
+    (PERF.md)."""
+    return 4 if -(-H // 4) <= _limits(device, sms, None)[0] else 8
 
 
-def lstm_smem_bytes(H: int, dtype: torch.dtype, backward: bool = False) -> int:
+def lstm_smem_bytes(H: int, dtype: torch.dtype, backward: bool = False,
+                    jt: Optional[int] = None) -> int:
     """Dynamic shared memory of one block of the persistent LSTM kernels
     (``csrc/rnn_persistent.cuh::slice_smem``): the block's W_hh slice, 4 JT
-    gate rows of Hk forward or 8 chain rows of Kc backward (its JT rows of
-    W_hh padded to an MMA n-tile), bf16 rows padded by 32 values, plus a
-    128-row fp32 dot buffer."""
+    gate rows of Hk forward (JT from :func:`lstm_tile_width` on the H100
+    SXM unless given) or 8 chain rows of Kc backward (its JT rows of W_hh
+    padded to an MMA n-tile), bf16 rows padded by 32 values, plus a 128-row
+    fp32 dot buffer."""
     e = 2 if dtype == torch.bfloat16 else 4
-    C = _LSTM_CHAIN_ROWS if backward else 4 * lstm_tile_width(H)
+    C = _LSTM_CHAIN_ROWS if backward else 4 * (jt or lstm_tile_width(H))
     K = _padded(4 * H) if backward else _padded(H)
     return e * C * (K + 32 if e == 2 else K) + 4 * 128 * C
 
 
-def lstm_fits(H: int, B: int, dtype: torch.dtype) -> bool:
-    """Whether both persistent LSTM kernels take hidden size H: ceil(H / JT)
-    blocks, one per SM, must be co-resident on the card's 132 SMs, each
-    within the 227 KB of shared memory a block may use.  B does not move
-    the limit: rows are walked in 64-row chunks inside a step."""
+def lstm_fits(H: int, B: int, dtype: torch.dtype, device=None, *,
+              sms: Optional[int] = None, smem: Optional[int] = None) -> bool:
+    """Whether both persistent LSTM kernels take hidden size H on the card of
+    ``device`` (or one with ``sms`` SMs and ``smem`` bytes of opt-in shared
+    memory per block; the H100 SXM where neither is given): ceil(H / JT)
+    blocks, one per SM, must be co-resident, each holding its W_hh slice.
+    B does not move the limit: rows are walked in 64-row chunks inside a
+    step."""
     del B
-    return (-(-H // lstm_tile_width(H)) <= _GRU_MAX_BLOCKS
-            and max(lstm_smem_bytes(H, dtype), lstm_smem_bytes(H, dtype, True))
-            <= _SMEM_PER_BLOCK)
+    jt = lstm_tile_width(H, device, sms=sms)
+    return _persistent_fits("lstm", H, jt,
+                            (lstm_smem_bytes(H, dtype, jt=jt),
+                             lstm_smem_bytes(H, dtype, True)),
+                            dtype, device, sms, smem)
 
 
-def lstm_max_hidden(B: int, dtype: torch.dtype) -> int:
-    """The largest hidden size the persistent LSTM kernels take; above it
-    the LSTM wrappers take the per-step kernels."""
-    H = _GRU_MAX_BLOCKS * 8
-    while not lstm_fits(H, B, dtype):
+def lstm_max_hidden(B: int, dtype: torch.dtype, device=None, *,
+                    sms: Optional[int] = None, smem: Optional[int] = None) -> int:
+    """The largest hidden size the persistent LSTM kernels take on that
+    card; above it the LSTM wrappers take the per-step kernels."""
+    H = _limits(device, sms, smem)[0] * 8
+    while H > 0 and not lstm_fits(H, B, dtype, device, sms=sms, smem=smem):
         H -= 1
     return H
 
 
-def lstm_route(H: int, B: int, dtype: torch.dtype) -> str:
+def lstm_route(H: int, B: int, dtype: torch.dtype, device=None, *,
+               sms: Optional[int] = None, smem: Optional[int] = None) -> str:
     """The LSTM kernels a CUDA call of hidden size H takes, from the shape
-    alone and before any launch: ``"persistent"`` (1 forward launch, 2
-    backward) or, above :func:`lstm_max_hidden`, ``"per_step"`` (T forward,
-    T + 1 backward).  The counterpart of the JAX package's shape gate
-    ``rnn_pallas.supported()``; never a reaction to a failed launch."""
-    return "persistent" if lstm_fits(H, B, dtype) else "per_step"
+    and the card alone and before any launch: ``"persistent"`` (1 forward
+    launch, 2 backward) or, above :func:`lstm_max_hidden`, ``"per_step"`` (T
+    forward, T + 1 backward).  The counterpart of the JAX package's shape
+    gate ``rnn_pallas.supported()``; never a reaction to a failed launch."""
+    return "persistent" if lstm_fits(H, B, dtype, device, sms=sms, smem=smem) \
+        else "per_step"
 
 
 def _check_lstm_args(op, xw, named, contiguous):
@@ -658,7 +800,9 @@ def _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths, reverse):
         ("h0", h0, (B, H), False), ("c0", c0, (B, H), False),
         ("lengths", lengths, (B,), False)), (w_hh, b_hh))
     dev = xw.device
-    persistent = lstm_route(H, B, xw.dtype) == "persistent"
+    persistent = lstm_route(H, B, xw.dtype, dev) == "persistent"
+    if not persistent:
+        _check_step_fits("lstm_scan", "lstm", H, xw.dtype, False, dev)
     lib = _lstm_fwd_library()
     Hk = _padded(H)
     code = _DTYPE_CODES[xw.dtype]
@@ -673,7 +817,7 @@ def _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths, reverse):
         c = _fp32_copy(c0)                   # j-local carry, updated in place
         stream = torch.cuda.current_stream(dev).cuda_stream
         if persistent:
-            jt = lstm_tile_width(H)
+            jt = lstm_tile_width(H, dev)
             tiles = _tile_weights(w_hh, H, Hk, jt)
             hb = torch.zeros((2, B, Hk), dtype=xw.dtype, device=dev)
             hb[0, :, :H] = h0
@@ -843,7 +987,9 @@ def _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
         ("g_hfin", g_hfin, (B, H), True), ("g_cfin", g_cfin, (B, H), True)),
         (c_prev, w_hh, b_hh, g_hall))
     dev = xw.device
-    persistent = lstm_route(H, B, xw.dtype) == "persistent"
+    persistent = lstm_route(H, B, xw.dtype, dev) == "persistent"
+    if not persistent:
+        _check_step_fits("lstm_scan_backward", "lstm", H, xw.dtype, True, dev)
     lib = _lstm_bwd_library()
     Hk, Kc = _padded(H), _padded(G)
     code = _DTYPE_CODES[xw.dtype]
@@ -857,7 +1003,7 @@ def _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
         dc0 = torch.empty_like(dh0)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if persistent:
-            jt = lstm_tile_width(H)
+            jt = lstm_tile_width(H, dev)
             hprev, w_t = _gemm_operands(h_prev, w_hh, Hk)
             chain = _lstm_chain_tiles(w_hh, H, Kc, jt)
             hw = torch.empty((T, B, G), dtype=torch.float32, device=dev)

@@ -8,6 +8,9 @@ the hand-written kernel ``csrc/rnnt_sweep.cu`` or the call raises.  There is
 no fallback from the kernel to the plain version.
 
 ``sweep.launches`` counts the kernel launches (one per call).
+:func:`sweep_chunked_reference` is the plain mirror of the kernel's
+decomposition: T in chunks, each column's running sum and running
+logsumexp carried from chunk to chunk.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from rnntransducer_tpu_torch.ops import build
+
+NEG = -1e30  # the loss's fill (rnnt_loss.py)
 
 
 def exclusive_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -46,11 +51,39 @@ def sweep_reference(blank_edge: torch.Tensor, label_edge: torch.Tensor) -> torch
     return torch.stack(cols, dim=2)
 
 
+def sweep_chunked_reference(blank_edge: torch.Tensor, label_edge: torch.Tensor,
+                            chunk: int) -> torch.Tensor:
+    """:func:`sweep_reference` computed as the kernel splits it: T in chunks of
+    ``chunk`` steps, column by column, each column's exclusive cumsum of
+    blank_edge and its running logsumexp carried from one chunk into the
+    next.  Same arguments and result."""
+    N, T, U1 = blank_edge.shape
+    cb_carry = blank_edge.new_zeros((N, U1))
+    l_carry = blank_edge.new_full((N, U1), NEG)
+    out = []
+    for t0 in range(0, T, chunk):
+        be, le = blank_edge[:, t0:t0 + chunk], label_edge[:, t0:t0 + chunk]
+        cols = []
+        for u in range(U1):
+            cb = cb_carry[:, u:u + 1] + exclusive_cumsum(be[:, :, u], 1)
+            cb_carry[:, u] += be[:, :, u].sum(1)
+            if u == 0:
+                col = cb
+            else:
+                d = (col + le[:, :, u - 1]) - cb
+                lse = torch.logaddexp(l_carry[:, u:u + 1], torch.logcumsumexp(d, 1))
+                l_carry[:, u] = lse[:, -1]
+                col = cb + lse
+            cols.append(col)
+        out.append(torch.stack(cols, dim=2))
+    return torch.cat(out, dim=1)
+
+
 def _library():
     lib = build.load("rnnt_sweep")
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rnnt_sweep.argtypes = [p, p, p, i, i, i, p]
+        lib.rnnt_sweep.argtypes = [p, p, p, p, i, i, i, p]
         lib.rnnt_sweep.restype = i
         lib._argtypes_set = True
     return lib
@@ -67,23 +100,21 @@ def _sweep_cuda(blank_edge, label_edge):
         raise TypeError(f"sweep kernel takes float32 edges, got {blank_edge.dtype} "
                         f"and {label_edge.dtype}")
     N, T, U1 = blank_edge.shape
-    if T > 8192:
-        raise ValueError(f"sweep kernel takes T <= 8192, got {T}")
     lib = _library()
     dev = blank_edge.device
     with torch.cuda.device(dev):
-        # time-contiguous (N, U+1, T): a column is one coalesced row
-        be = blank_edge.transpose(1, 2).contiguous()
-        le = label_edge.transpose(1, 2).contiguous()
-        alpha = torch.empty((N, U1, T), dtype=torch.float32, device=dev)
+        be, le = blank_edge.contiguous(), label_edge.contiguous()
+        alpha = torch.empty((N, T, U1), dtype=torch.float32, device=dev)
         if N == 0 or T == 0 or U1 == 0:
-            return alpha.transpose(1, 2)
-        err = lib.rnnt_sweep(be.data_ptr(), le.data_ptr(), alpha.data_ptr(), N, T,
-                             U1, torch.cuda.current_stream(dev).cuda_stream)
+            return alpha
+        carry = torch.empty((N, 2, U1), dtype=torch.float32, device=dev)
+        err = lib.rnnt_sweep(be.data_ptr(), le.data_ptr(), alpha.data_ptr(),
+                             carry.data_ptr(), N, T, U1,
+                             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sweep kernel failed with CUDA error {err}")
     sweep.launches += 1
-    return alpha.transpose(1, 2)
+    return alpha
 
 
 def sweep(blank_edge: torch.Tensor, label_edge: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,8 @@ H=16 terms); the decomposed backward at 1e-6 in fp32 against the Pallas
 kernel, as ``test_torch_rnn_backward.py`` holds the undecomposed one.
 """
 
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -21,11 +23,15 @@ import torch
 from rnntransducer_tpu.ops import rnn_pallas as rp
 
 from rnntransducer_tpu_torch.config import base_config, tiny_config
-from rnntransducer_tpu_torch.ops import rnn_kernels
+from rnntransducer_tpu_torch.ops import device, rnn_kernels
 
 from _torch_parity import close, t
+# the kernel libraries replaced by a recorder, so the CUDA wrappers'
+# routing runs on CPU tensors
+from test_torch_lstm_persistent import stand_in  # noqa: F401
 
 H = 16
+SMEM_LIMIT = 232448    # 227 KB, the shared memory one block may use
 
 
 def _inputs(T, B, seed):
@@ -115,16 +121,26 @@ def test_coresidency_limit(B, dtype):
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_wrappers_raise_above_the_limit(backward):
-    """An H above the limit raises ValueError naming the limit, before the
-    library is built or any launch is counted."""
-    Hs, T, B = 1064, 2, 3
+    """Above the persistent limit the wrappers take the per-step kernels;
+    above the per-step block's own limit (its W_hh slices in 227 KB of
+    shared memory: fp32 H <= 2304 forward, <= 1152 backward) they raise
+    ValueError naming it, before the library is built or any launch is
+    counted."""
+    dtype = torch.float32
+    top = rnn_kernels.step_max_hidden("gru", dtype, backward)
+    assert top == (1152 if backward else 2304)
+    assert rnn_kernels.step_smem_bytes("gru", top, dtype, backward) <= SMEM_LIMIT
+    assert rnn_kernels.step_smem_bytes("gru", top + 1, dtype, backward) > SMEM_LIMIT
+    Hs, T, B = top + 1, 2, 3
     xw = torch.zeros(T, B, 3 * Hs)
     w = torch.zeros(Hs, 3 * Hs)
     b = torch.zeros(3 * Hs)
     h0 = torch.zeros(B, Hs)
     lengths = torch.tensor([2, 1, 2])
+    assert rnn_kernels.gru_route(Hs, B, dtype) == "per_step"
     before = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
-    with pytest.raises(ValueError, match="above 1056, the largest hidden size"):
+    with pytest.raises(ValueError, match=f"above {top}, the largest hidden size whose "
+                                         "per-step block"):
         if backward:
             seq = torch.zeros(T, B, Hs)
             rnn_kernels._gru_scan_backward_cuda(xw, seq, w, b, lengths, seq, h0, False)
@@ -132,6 +148,103 @@ def test_wrappers_raise_above_the_limit(backward):
             rnn_kernels._gru_scan_cuda(xw, w, b, h0, lengths, False)
     assert before == (rnn_kernels.gru_scan.launches,
                       rnn_kernels.gru_scan_backward.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_per_step_limits(dtype):
+    """The per-step blocks' shared memory (csrc/gru_*.cu per_step::step_smem)
+    and the largest H each takes in 227 KB: forward 24 rows of Hk, backward
+    also 8 rows of Kc, plus 64-row fp32 dot buffers."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    assert rnn_kernels.step_smem_bytes("gru", 1057, dtype) == e * 24 * 1088 + 4 * 64 * 24
+    assert (rnn_kernels.step_smem_bytes("gru", 1057, dtype, backward=True)
+            == e * (8 * 3200 + 24 * 1088) + 4 * 64 * 32)
+    want = {torch.float32: (2304, 1152), torch.bfloat16: (4672, 2304)}[dtype]
+    assert (rnn_kernels.step_max_hidden("gru", dtype),
+            rnn_kernels.step_max_hidden("gru", dtype, backward=True)) == want
+    # a card with less shared memory takes less
+    assert rnn_kernels.step_max_hidden("gru", dtype, smem=101376) < want[0]
+
+
+@pytest.mark.parametrize("Hs, route", [(1056, "persistent"), (1057, "per_step")])
+def test_route_is_chosen_from_the_shape(stand_in, Hs, route):
+    """On a card of 132 SMs the wrappers pick the export from (H, B, dtype)
+    alone before any launch: the persistent scans (1 + 2 launches counted)
+    up to H=1056, the per-step kernels (T + T + 1) from H=1057, never
+    both."""
+    T, B = 3, 2
+    xw = torch.zeros(T, B, 3 * Hs)
+    w = torch.zeros(Hs, 3 * Hs)
+    b = torch.zeros(3 * Hs)
+    h0 = torch.zeros(B, Hs)
+    lengths = torch.tensor([3, 1])
+    seq = torch.zeros(T, B, Hs)
+    assert rnn_kernels.gru_route(Hs, B, torch.float32, sms=132) == route
+    before = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
+    rnn_kernels._gru_scan_cuda(xw, w, b, h0, lengths, False)
+    rnn_kernels._gru_scan_backward_cuda(xw, seq, w, b, lengths, seq, h0, True)
+    names = [name for name, _ in stand_in.calls]
+    counted = (rnn_kernels.gru_scan.launches - before[0],
+               rnn_kernels.gru_scan_backward.launches - before[1])
+    Hk = rnn_kernels._padded(Hs)
+    if route == "persistent":
+        assert names == ["gru_scan_fwd", "gru_scan_bwd"]
+        assert counted == (1, 2)
+        assert stand_in.calls[0][1][9:14] == (T, B, Hs, Hk, 8)    # T, B, H, Hk, jt
+    else:
+        assert names == ["gru_scan_fwd_step", "gru_scan_bwd_step"]
+        assert counted == (T, T + 1)
+        fwd, bwd = stand_in.calls[0][1], stand_in.calls[1][1]
+        assert fwd[8:13] == (T, B, Hs, Hk, 8)
+        assert bwd[14:20] == (T, B, Hs, Hk, rnn_kernels._padded(3 * Hs), 8)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_routes_follow_the_cards_sm_count(sms):
+    """The persistent grids hold one block per SM, so the limits move with
+    the card: 8 units per block give H <= 8 * SMs to both GRU and LSTM
+    (1056 on an H100 SXM, 912 on an H100 PCIe's 114 SMs), and the LSTM
+    takes 4-unit blocks up to H = 4 * SMs."""
+    for dtype in (torch.float32, torch.bfloat16):
+        top = 8 * sms
+        assert rnn_kernels.gru_max_hidden(64, dtype, sms=sms) == top
+        assert rnn_kernels.lstm_max_hidden(64, dtype, sms=sms) == top
+        for route in (rnn_kernels.gru_route, rnn_kernels.lstm_route):
+            assert route(top, 64, dtype, sms=sms) == "persistent"
+            assert route(top + 1, 64, dtype, sms=sms) == "per_step"
+    assert rnn_kernels.lstm_tile_width(4 * sms, sms=sms) == 4
+    assert rnn_kernels.lstm_tile_width(4 * sms + 1, sms=sms) == 8
+    # H = 1000 is persistent on the SXM card and per-step on the PCIe one
+    assert (rnn_kernels.gru_route(1000, 64, torch.bfloat16, sms=sms)
+            == ("persistent" if sms == 132 else "per_step"))
+
+
+def test_limits_read_the_named_device(monkeypatch):
+    """A CUDA device's limits come from its properties, read once per
+    device; without a device (or on the CPU) they are the H100 SXM's."""
+    assert rnn_kernels.device_limits() == (132, 232448)
+    assert rnn_kernels.device_limits("cpu") == (132, 232448)
+    reads = []
+
+    def props(index):
+        reads.append(index)
+        return types.SimpleNamespace(multi_processor_count=114,
+                                     shared_memory_per_block_optin=232448)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    monkeypatch.setattr(rnn_kernels, "_reported_blocks", lambda *a: 1 << 20)
+    device._cuda_limits.cache_clear()
+    try:
+        assert rnn_kernels.device_limits("cuda:3") == (114, 232448)
+        assert rnn_kernels.device_limits("cuda:3") == (114, 232448)
+        assert reads == [3]
+        assert rnn_kernels.gru_route(912, 8, torch.bfloat16, "cuda:3") == "persistent"
+        assert rnn_kernels.gru_route(913, 8, torch.bfloat16, "cuda:3") == "per_step"
+        assert rnn_kernels.lstm_tile_width(457, "cuda:3") == 8
+        # on a card, sms= and smem= only lower its own limits
+        assert rnn_kernels.gru_max_hidden(8, torch.bfloat16, "cuda:3", sms=132) == 912
+        assert rnn_kernels.gru_max_hidden(8, torch.bfloat16, "cuda:3", sms=100) == 800
+    finally:
+        device._cuda_limits.cache_clear()
 
 
 def test_gates_gemm_wrapper_runs_only_on_the_card():

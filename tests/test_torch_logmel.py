@@ -140,6 +140,142 @@ def test_logmel_reference_matches_logmel_pallas(high, max_tol, mean_tol):
     assert diff.max() <= max_tol and diff.mean() <= mean_tol, (diff.max(), diff.mean())
 
 
+# a 32 ms window (n_fft = 512, 257 bins) and 160 filters: wider than the
+# 256 bins and 128 filters the port's earlier kernel took
+WIDE = {"window_size_sec": 0.032, "n_mels": 160}
+
+
+@pytest.mark.parametrize("high,max_tol,mean_tol", [(False, 0.1, 1e-2),
+                                                   (True, 2.0 ** -7, 2e-3)])
+def test_logmel_reference_matches_logmel_pallas_at_wider_widths(high, max_tol,
+                                                                 mean_tol):
+    """The plain version against ``logmel_pallas`` at n_fft = 512 and 160
+    mel filters, at the bounds derived above."""
+    wav = _wav(seed=11)
+    want, want_len = logmel_pallas(jnp.asarray(wav), JaxAudioConfig(**WIDE),
+                                   jnp.asarray(LENGTHS), high)
+    got, got_len = logmel_fused_reference(t(wav), AudioConfig(**WIDE), t(LENGTHS), high)
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    assert got.shape == want.shape == (len(LENGTHS), got.shape[1], 160)
+    diff = np.concatenate([np.abs(got[i, :n].numpy() - np.asarray(want)[i, :n]).ravel()
+                           for i, n in enumerate(np.asarray(want_len))])
+    assert diff.max() <= max_tol and diff.mean() <= mean_tol, (diff.max(), diff.mean())
+
+
+@pytest.mark.parametrize("audio", [{}, WIDE])
+@pytest.mark.parametrize("high", [False, True])
+def test_kernel_operands_compute_the_plain_version(audio, high):
+    """The kernel's padded operands (bins and filters to 64, samples to 32,
+    the DFT as cos / sin rows with their bf16 low parts, each mel pass over
+    its window of bins) give the plain version's power and mel: the same
+    bf16 values, products summed in fp32 (float64 here), within 1e-5 of the
+    largest power and 1e-5 absolute."""
+    cfg = AudioConfig(**audio)
+    Kf, Kbp, Mp = ff.kernel_dims(cfg)
+    assert (Kf % 32, Kbp % 64, Mp % 64) == (0, 0, 0)
+    assert Kbp >= cfg.n_fft // 2 + 1 and Mp >= cfg.n_mels
+    bd, bm = (a.double() for a in ff.kernel_mats_reference(cfg))
+    assert bd.shape == (Kbp // 64, 4, 64, Kf) and bm.shape == (Mp // 64, 64, Kbp)
+    rows, _ = ff._frames(t(_wav(seed=12)), cfg, t(LENGTHS))
+    x = torch.nn.functional.pad(rows, (0, Kf - cfg.n_fft)).double()
+    xh = x.float().to(torch.bfloat16).double()
+    xl = (x - xh).float().to(torch.bfloat16).double()
+    w = bd.transpose(0, 1).reshape(4, Kbp, Kf)   # cos, sin, cos-low, sin-low
+    re, im = xh @ w[0].t(), xh @ w[1].t()
+    if high:
+        re = re + xl @ w[0].t() + xh @ w[2].t()
+        im = im + xl @ w[1].t() + xh @ w[3].t()
+    power = re * re + im * im
+    want = ff.dft_power_reference(rows, cfg, high).double()
+    K = cfg.n_fft // 2 + 1
+    assert not power[:, K:].any()
+    scale = want.abs().max().item()
+    assert (power[:, :K] - want[:, :K]).abs().max().item() <= 1e-5 * scale
+    # each mel pass multiplies only its window of 32-bin chunks: its filters
+    # are zero outside it
+    k0, ncm = ff.kernel_mel_windows(cfg)
+    assert len(k0) == Mp // 64 and 2 <= ncm <= Kbp // 32
+    pw = power.float().to(torch.bfloat16).double()
+    parts = []
+    for q, k in enumerate(k0):
+        window = slice(32 * k, 32 * (k + ncm))
+        outside = torch.ones(Kbp, dtype=torch.bool)
+        outside[window] = False
+        assert not bm[q][:, outside].any()
+        parts.append(pw[:, window] @ bm[q][:, window].t())
+    mel = torch.log1p(torch.cat(parts, dim=1))[:, :cfg.n_mels]
+    want_mel = ff.mel_reference(power.float(), cfg).double()
+    assert (mel - want_mel).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("audio", [{}, WIDE])
+@pytest.mark.parametrize("high", [False, True])
+def test_wgmma_operands_compute_the_plain_version(audio, high):
+    """The wgmma engine's operands read as its descriptors read them (8 x 8
+    core matrices, the next 8 samples 128 bytes on, the next 8 rows one
+    stage row-group on) and its accumulator columns taken as its epilogue
+    takes them (cos and sin of 32 bins in turn) give the plain version's
+    power and mel, within 1e-5 of the largest power and 1e-5 absolute."""
+    cfg = AudioConfig(**audio)
+    Kf, Kbp, Mp = ff.kernel_dims(cfg)
+    bd, bm = (a.double() for a in ff.kernel_mats_wgmma(cfg))
+    assert bd.shape == (Kbp // 64, Kf // 32, 2, 16, 4, 8, 8)
+    assert bm.shape == (Mp // 64, Kbp // 32, 8, 4, 8, 8)
+    rows, _ = ff._frames(t(_wav(seed=13)), cfg, t(LENGTHS))
+    x = torch.nn.functional.pad(rows, (0, Kf - cfg.n_fft)).double()
+    xh = x.float().to(torch.bfloat16).double()
+    xl = (x - xh).float().to(torch.bfloat16).double()
+    n, k = torch.arange(128)[:, None], torch.arange(Kf)[None, :]
+    power = []
+    for p in range(Kbp // 64):
+        hi, lo = (bd[p, k // 32, part, n // 8, k % 32 // 8, n % 8, k % 8] for part in (0, 1))
+        acc = xh @ hi.t()
+        if high:
+            acc = acc + xl @ hi.t() + xh @ lo.t()
+        re = torch.cat([acc[:, 0:32], acc[:, 64:96]], 1)
+        im = torch.cat([acc[:, 32:64], acc[:, 96:128]], 1)
+        power.append(re * re + im * im)
+    power = torch.cat(power, 1)
+    want = ff.dft_power_reference(rows, cfg, high).double()
+    K = cfg.n_fft // 2 + 1
+    assert not power[:, K:].any()
+    assert (power[:, :K] - want[:, :K]).abs().max().item() <= 1e-5 * want.abs().max().item()
+    k0, ncm = ff.kernel_mel_windows(cfg)
+    pw = power.float().to(torch.bfloat16).double()
+    f, b = torch.arange(64)[:, None], torch.arange(32 * ncm)[None, :]
+    parts = []
+    for q, c0 in enumerate(k0):
+        fb = bm[q, c0 + b // 32, f // 8, b % 32 // 8, f % 8, b % 8]
+        parts.append(pw[:, 32 * c0:32 * (c0 + ncm)] @ fb.t())
+    mel = torch.log1p(torch.cat(parts, dim=1))[:, :cfg.n_mels]
+    assert (mel - ff.mel_reference(power.float(), cfg).double()).abs().max().item() <= 1e-5
+
+
+def test_kernel_plan_follows_the_shared_memory():
+    """The wgmma engine takes 128-row tiles where they fit, 64 in high mode
+    at the flagship width and at n_fft = 512 in both modes; n_fft = 1024 in
+    high mode leaves the mma.sync engine's 32-row tiles; a card with less shared memory gets smaller
+    tiles, and a window too wide for 16 rows raises."""
+    smem = 232448
+    base, wide = AudioConfig(), AudioConfig(**WIDE)
+    assert ff.kernel_plan(base, False, smem) == ("wgmma", 128)
+    assert ff.kernel_plan(base, True, smem) == ("wgmma", 64)
+    assert ff.kernel_plan(wide, False, smem) == ("wgmma", 64)
+    assert ff.kernel_plan(wide, True, smem) == ("wgmma", 64)
+    wider = AudioConfig(window_size_sec=0.064)
+    assert ff.kernel_plan(wider, False, smem) == ("wgmma", 64)
+    assert ff.kernel_plan(wider, True, smem) == ("mma", 32)
+    assert ff.kernel_smem_bytes(("wgmma", 128), base, False) == (
+        128 + 3 * 8192 + 2 * 128 * (416 + 256))
+    assert ff.kernel_smem_bytes(("wgmma", 64), wide, True) == (
+        128 + 3 * 16384 + 2 * 64 * (2 * 512 + 320))
+    assert ff.kernel_smem_bytes(("mma", 32), wider, True) == 2 * (
+        2 * 32 * 1032 + 32 * 584 + 3 * 4 * 64 * 40)
+    assert ff.kernel_plan(base, False, 101376) == ("mma", 32)
+    with pytest.raises(ValueError, match="at least 16 frame rows"):
+        ff.kernel_plan(AudioConfig(window_size_sec=0.5), True, smem)
+
+
 def test_frame_lengths_match_logmel_pallas_without_lengths():
     wav = _wav(seed=4, lengths=np.array([1000, 1000], np.int32))
     _, want_len = logmel_pallas(jnp.asarray(wav), JaxAudioConfig())
@@ -219,13 +355,15 @@ def test_loss_fn_on_wav_batch_equals_loss_fn_on_its_features():
 def test_logmel_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    cfg = AudioConfig()
-    wav = t(_wav(seed=9)).to("cuda")
-    rows, _ = ff._frames(wav, cfg, t(LENGTHS).to("cuda"))
-    for high in (False, True):
-        power = torch.empty((rows.shape[0], 256), device="cuda")
-        got = ff.logmel_rows_cuda(rows, cfg, high, power)
-        want_power = ff.dft_power_reference(rows, cfg, high)
+    for cfg, high in ((AudioConfig(), False), (AudioConfig(), True),
+                      (AudioConfig(**WIDE), False), (AudioConfig(**WIDE), True)):
+        wav = t(_wav(seed=9)).to("cuda")
+        rows, _ = ff._frames(wav, cfg, t(LENGTHS).to("cuda"))
+        K = cfg.n_fft // 2 + 1
+        want_power = ff.dft_power_reference(rows, cfg, high)[:, :K]
         scale = want_power.abs().max()
-        assert ((power - want_power).abs().max() / scale).item() <= 1e-5
-        assert (got - ff.mel_reference(power, cfg)).abs().max().item() <= 1e-4
+        for plan in (None, ("mma", 32)):   # the wrapper's pick, and the mma.sync engine
+            power = torch.empty((rows.shape[0], ff.kernel_dims(cfg)[1]), device="cuda")
+            got = ff.logmel_rows_cuda(rows, cfg, high, power, plan)
+            assert ((power[:, :K] - want_power).abs().max() / scale).item() <= 1e-5
+            assert (got - ff.mel_reference(power, cfg)).abs().max().item() <= 1e-4

@@ -48,7 +48,10 @@ def _edges(N, T, U1, seed):
     return lp[..., 0], lp[..., 3]
 
 
-@pytest.mark.parametrize("N,T,U1", [(3, 7, 4), (2, 24, 6), (1, 1, 1), (4, 130, 3)])
+# T = 300 is no multiple of the Pallas kernel's 128 lanes; T = 9000 is above
+# the 8192 steps the port's earlier kernel took
+@pytest.mark.parametrize("N,T,U1", [(3, 7, 4), (2, 24, 6), (1, 1, 1), (4, 130, 3),
+                                    (2, 300, 5), (2, 9000, 5)])
 def test_sweep_reference_matches_pallas_and_xla(N, T, U1):
     be, le = _edges(N, T, U1, seed=T)
     got = rnnt_kernels.sweep_reference(t(be), t(le))
@@ -58,6 +61,22 @@ def test_sweep_reference_matches_pallas_and_xla(N, T, U1):
     scale = max(1.0, float(np.abs(np.asarray(want_xla)).max()))
     close(got, want_pallas, atol=TOL * scale)
     close(got, want_xla, atol=TOL * scale)
+
+
+@pytest.mark.parametrize("N,T,U1,chunk", [(2, 300, 5, 128), (3, 1030, 11, 512),
+                                          (2, 9000, 5, 512), (1, 7, 1, 3),
+                                          (2, 24, 9, 5)])
+def test_chunked_sweep_matches_the_plain_sweep(N, T, U1, chunk):
+    """The kernel's decomposition (T in chunks, each column's running sum
+    and running logsumexp carried between chunks) computes the plain sweep,
+    also with -1e30 fills."""
+    be, le = _edges(N, T, U1, seed=T + U1)
+    le[:, T // 2:, -1] = pl.NEG
+    got = rnnt_kernels.sweep_chunked_reference(t(be), t(le), chunk)
+    want = rnnt_kernels.sweep_reference(t(be), t(le))
+    assert got.shape == want.shape
+    scale = max(1.0, want.abs().max().item())
+    close(got, want.numpy(), atol=TOL * scale)
 
 
 def test_sweep_on_cpu_is_the_plain_version_and_neg_safe():
@@ -233,9 +252,9 @@ def test_rnnt_loss_fused_matches_jax(chunk):
 def test_sweep_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for N, T, U1 in ((5, 37, 4), (3, 1100, 6)):
+    for N, T, U1 in ((5, 37, 4), (3, 1100, 6), (2, 9000, 5), (2, 300, 20)):
         be, le = (t(a).cuda() for a in _edges(N, T, U1, seed=N))
         got = rnnt_kernels.sweep(be, le)
         want = rnnt_kernels.sweep_reference(be, le)
         err = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
-        assert err <= TOL
+        assert err <= TOL, (N, T, U1, err)
