@@ -7,10 +7,9 @@ Phases (each raises, and the script exits non-zero, on failure):
 1. Print the card's name and power limit, require CUDA, build every kernel
    from ``rnntransducer_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together): gru_fwd (K1), gru_bwd (K2), lstm_fwd (K3), lstm_bwd (K4),
-   rnnt_sweep (K5), logmel (K6); and the earlier K5 / K6 designs where
-   their sources sit under ``build/baseline/`` (``build_baselines``).
-   Print the SM count and the shared memory a block may opt in to, read
-   from the card: every co-residency limit and route comes from them.
+   rnnt_sweep (K5), logmel (K6).  Print the SM count and the shared memory
+   a block may opt in to, read from the card: every co-residency limit and
+   route comes from them.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes the training and serving paths give it, and time both: K1 and K2
    (persistent: one launch per forward scan, the gates GEMM and the chain
@@ -27,22 +26,28 @@ Phases (each raises, and the script exits non-zero, on failure):
    including 1 and T (K4 also against autograd), their limit (as the
    GRU's), their times at B in {1, 8, 64} beside the per-step route's and,
    at H=320, both block widths; a timing-only yardstick of cuDNN's
-   one-layer LSTM / GRU against the port's layer; K5 at the flagship
-   lattice (B=64 and the 2B of one loss, T=512, U+1=49), a ragged T=300
-   and T=9000, every block shape, and the earlier design in the same call;
-   K6 at the flagship raw-PCM shape (32768 frame rows), a ragged batch and
-   n_fft=512 with 160 filters, in both precision modes, the power spectrum
-   and the mel stage apart and end to end, and the earlier design in the
-   same call.
+   one-layer LSTM / GRU against the port's layer; the per-step kernels
+   above their whole-slice limits (route "step_chunked", the slice streamed
+   in K chunks: fp32 GRU backward H=1280, fp32 LSTM H=2048 forward and
+   backward, bf16 GRU forward H=4800, bf16 LSTM backward H=3584, against
+   the plain versions and, fp32 backward, autograd), each timed beside the
+   whole-slice kernel at its last H; K5 at the flagship lattice (B=64 and
+   the 2B of one loss, T=512, U+1=49), a ragged T=300 and T=9000; K6 at the
+   flagship raw-PCM shape (32768 frame rows), a ragged batch, n_fft=512
+   with 160 filters and n_fft=4096 with 128 filters, in both precision
+   modes, the power spectrum and the mel stage apart and end to end, on the
+   plan the wrapper picks, on the mma.sync engine at 32 rows and on the
+   chunked engine.
 3. Drive the serving path: ``Recognizer.transcribe_batch`` / ``transcribe``
    with greedy decoding on ``base_config()`` at full width (8-layer
    bidirectional GRU encoder, H=1024), random weights from a seeded
    ``torch.Generator`` passed through the flax-layout weight bridge, in bf16
    and fp32.  The GRU kernel's launch count is set to 0 before and read
    after; every GRU scan must have gone through the kernel (one launch per
-   layer and direction).  Then the
-   encoder is run again with the plain GRU on the card, and outputs and
-   greedy tokens are compared.
+   layer and direction).  Label-looping greedy decode against the frame
+   scan on the bf16 batch of 8 (equal tokens).  Then the encoder is run
+   again with the plain GRU on the card, and outputs and greedy tokens are
+   compared.
 4. The main paths, each with every launch count set to 0 before each timed
    step and read after it, against the count the design gives
    (``step_launches``):
@@ -58,10 +63,20 @@ Phases (each raises, and the script exits non-zero, on failure):
    c. ``tiny_config()`` at full width (2-layer bidirectional LSTM encoder,
       H=320): bf16 steps at the same shape, then one greedy
       ``transcribe_batch`` of 8 waves; every LSTM scan through K3 / K4.
-5. One fp32 step at full width (B=8: the plain backward scans are Python
+5. The training loop through its entry points (``phase_trainer``):
+   ``Trainer.fit`` on ``base_config()`` at full width in bf16 on a raw-PCM
+   ``SyntheticAudioDataset`` (1-5.11 s, 4-48 labels), global batch 64, to
+   step 8 with validation and a checkpoint at steps 4 and 8, then
+   ``fit(resume=True)`` to step 10 (it must continue the data schedule at
+   step 8), every train step's launches checked (16 K1, 32 K2, 2 K3, 4 K4,
+   1 K5, 1 K6); then ``Recognizer.from_checkpoint`` transcribes 8 waves.
+   The logged step time, the host feed per batch, the device-busy share of
+   a profiled window of 2 steps beside 4a's, validation and checkpoint
+   times.
+6. One fp32 step at full width (B=8: the plain backward scans are Python
    loops of small launches), kernels against plain versions (GRU, LSTM and
    the sweep): loss and the grads of named params.
-6. Print one JSON line describing every kernel, then, as the last line,
+7. Print one JSON line describing every kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -70,7 +85,6 @@ Imports nothing from JAX or from the JAX package.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import dataclasses
 import json
 import os
@@ -86,7 +100,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from rnntransducer_tpu_torch.config import (  # noqa: E402
-    AudioConfig, TrainConfig, base_config, tiny_config)
+    TrainConfig, base_config, tiny_config)
+from rnntransducer_tpu_torch.data.dataset import SyntheticAudioDataset  # noqa: E402
 from rnntransducer_tpu_torch.decode import greedy as greedy_mod  # noqa: E402
 from rnntransducer_tpu_torch.frontend import fused_frontend  # noqa: E402
 from rnntransducer_tpu_torch.models import cells  # noqa: E402
@@ -95,6 +110,7 @@ from rnntransducer_tpu_torch.ops import build, rnn_kernels, rnnt_kernels  # noqa
 from rnntransducer_tpu_torch.serve import Recognizer  # noqa: E402
 from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer  # noqa: E402
 from rnntransducer_tpu_torch.train import TrainState, loss_fn, train_step  # noqa: E402
+from rnntransducer_tpu_torch.train import loop as train_loop  # noqa: E402
 from rnntransducer_tpu_torch.train.state import (  # noqa: E402
     dequantize_wav, device_frontend)
 from rnntransducer_tpu_torch.utils.weights import (  # noqa: E402
@@ -169,10 +185,6 @@ LOGMEL_END_TOL = 2.0 ** -7 + 1e-4
 # the thousands at T=512, where one fp32 ulp is ~1e-4; the two scans add in
 # another order.  Relative to max(|alpha|, 1).
 SWEEP_TOL = 1e-5
-# sources of the earlier K5 / K6 designs for same-call timings
-# (build_baselines): build/baseline/<name>.cu, or this git revision's
-BASELINE_DIR = os.path.join(REPO, "build", "baseline")
-BASELINE_REV = "11bc201"
 # Full-width fp32 training step, kernels vs plain versions: the same
 # function in another summation order through 16 GRU scans and their
 # backward; loss relative, grads relative to the param grad's largest entry.
@@ -738,6 +750,160 @@ def phase_lstm_limits(gen):
                                      f"versions: {errs} {berrs}")
 
 
+# The shapes above the per-step kernels' whole-slice limits (PERF.md §6):
+# (cell, dtype, H, the routes forward / backward, which directions to
+# check).  fp32 LSTM H=2048 is He et al. 2019's streaming RNN-T width
+# (arXiv:1811.06621): its forward stays whole-slice, its backward streams.
+STEP_CHUNKED_CASES = (("gru", torch.float32, 1280, ("per_step", "step_chunked"), "fb"),
+                      ("lstm", torch.float32, 2048, ("per_step", "step_chunked"), "fb"),
+                      ("gru", torch.bfloat16, 4800, ("step_chunked", "step_chunked"), "f"),
+                      ("lstm", torch.bfloat16, 3584, ("per_step", "step_chunked"), "fb"))
+STEP_CHUNKED_TB = (8, 8)
+
+
+@contextlib.contextmanager
+def _step_route_forced(route):
+    """Every per-step call forced onto ``route`` (timing the whole-slice and
+    streamed kernels at one H only)."""
+    saved = rnn_kernels._step_route
+    rnn_kernels._step_route = lambda *args: route
+    try:
+        yield
+    finally:
+        rnn_kernels._step_route = saved
+
+
+def _autograd_check(cell, inputs, gen):
+    """GRUScanFunction / LSTMScanFunction against autograd of the plain loop,
+    fp32: rel errs of every grad."""
+    T, B = inputs[0].shape[:2]
+    H = inputs[1].shape[0]
+    n = 4 if cell == "gru" else 5
+    leaves = [a.clone().requires_grad_() for a in inputs[:n]]
+    lengths = inputs[n]
+    fn = rnn_kernels.GRUScanFunction if cell == "gru" else rnn_kernels.LSTMScanFunction
+    ref = rnn_kernels.gru_scan_reference if cell == "gru" else rnn_kernels.lstm_scan_reference
+    cot = [torch.randn(T, B, H, device=DEVICE, generator=gen)] + [
+        torch.randn(B, H, device=DEVICE, generator=gen) for _ in range(n - 3)]
+    want = torch.autograd.grad(ref(*leaves, lengths), leaves, cot)
+    got = torch.autograd.grad(fn.apply(*leaves, lengths, False), leaves, cot)
+    torch.cuda.synchronize()
+    return [_rel_err(g, r) for g, r in zip(got, want)]
+
+
+def phase_step_chunked(gen):
+    """The per-step kernels above their whole-slice limits (route
+    "step_chunked": the slice streamed through shared memory in K chunks):
+    the wrappers' shared memory equals the kernels' own, each case takes the
+    routes and launch counts it should and holds its plain versions at the
+    existing tolerances, fp32 backward also autograd of the plain loop; then
+    each kernel timed whole-slice and streamed at its last whole-slice H
+    (fp32, forced)."""
+    libs = {"gru": (rnn_kernels._library(), rnn_kernels._bwd_library()),
+            "lstm": (rnn_kernels._lstm_fwd_library(), rnn_kernels._lstm_bwd_library())}
+    for cell, (fl, bl) in libs.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            code = rnn_kernels._DTYPE_CODES[dtype]
+            got = (getattr(fl, f"{cell}_scan_fwd_step_chunked_smem")(code),
+                   getattr(bl, f"{cell}_scan_bwd_step_chunked_smem")(code))
+            want = (rnn_kernels.step_chunked_smem_bytes(cell, dtype),
+                    rnn_kernels.step_chunked_smem_bytes(cell, dtype, backward=True))
+            if got != want:
+                raise AssertionError(f"{cell} streamed per-step shared memory {dtype}: "
+                                     f"kernels {got}, wrapper {want}")
+    T, B = STEP_CHUNKED_TB
+    results = []
+    for cell, dtype, H, routes, dirs in STEP_CHUNKED_CASES:
+        route_fn = rnn_kernels.gru_route if cell == "gru" else rnn_kernels.lstm_route
+        got_routes = (route_fn(H, B, dtype, DEVICE), route_fn(H, B, dtype, DEVICE,
+                                                               backward=True))
+        if got_routes != routes:
+            raise AssertionError(f"{cell} H={H} {dtype}: routes {got_routes}, not {routes}")
+        fwd_op = rnn_kernels.gru_scan if cell == "gru" else rnn_kernels.lstm_scan
+        bwd_op = (rnn_kernels.gru_scan_backward if cell == "gru"
+                  else rnn_kernels.lstm_scan_backward)
+        inputs = (_gru_inputs if cell == "gru" else _lstm_inputs)(T, B, H, dtype, gen)
+        before = (fwd_op.launches, bwd_op.launches)
+        if dirs == "f":
+            xw, w, b, h0, lengths = inputs
+            got = rnn_kernels.gru_scan(xw, w, b, h0, lengths)
+            want = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths)
+            torch.cuda.synchronize()
+            errs, berrs = [_rel_err(g, r) for g, r in zip(got, want)], []
+            ferr = max((g.float() - r.float()).abs().max().item()
+                       for g, r in zip(got, want))
+            ok = ferr <= KERNEL_TOL[dtype]
+            tol = f"fwd max_abs_err {ferr:.2e} (tol {KERNEL_TOL[dtype]:.0e})"
+            want_launches = (T, 0)
+        elif cell == "gru":
+            ferr, berrs = _gru_check(*inputs, False, gen)
+            ok = ferr <= KERNEL_TOL[dtype] and max(berrs) <= BWD_TOL[dtype]
+            tol = (f"fwd max_abs_err {ferr:.2e} (tol {KERNEL_TOL[dtype]:.0e}), bwd "
+                   f"rel_err dxw/dnr/dh0/dW/db {'/'.join(f'{e:.2e}' for e in berrs)} "
+                   f"(tol {BWD_TOL[dtype]:.1e})")
+            want_launches = (T, T + 1)
+        else:
+            errs, berrs, _, _ = _lstm_check(*inputs, False, gen)
+            ok = max(errs + berrs) <= LSTM_TOL[dtype]
+            tol = (f"rel_err fwd {max(errs):.2e} bwd {max(berrs):.2e} "
+                   f"(tol {LSTM_TOL[dtype]:.1e})")
+            want_launches = (T, T + 1)
+        launched = (fwd_op.launches - before[0], bwd_op.launches - before[1])
+        auto = ""
+        if dtype == torch.float32 and "b" in dirs:
+            before = (fwd_op.launches, bwd_op.launches)
+            aerrs = _autograd_check(cell, inputs, gen)
+            alaunched = (fwd_op.launches - before[0], bwd_op.launches - before[1])
+            auto = (f"; {cell.upper()}ScanFunction vs autograd of the plain loop "
+                    f"launches {alaunched}, rel_err {'/'.join(f'{e:.2e}' for e in aerrs)}"
+                    f" (tol {BWD_TOL[dtype]:.0e})")
+            ok = ok and max(aerrs) <= BWD_TOL[dtype] and alaunched == (T, T + 1)
+        print(f"step chunked {cell} {str(dtype)[6:]} H={H} T={T} B={B}: routes fwd/bwd "
+              f"{got_routes}, launches {launched}, {tol}{auto}", flush=True)
+        if launched != want_launches:
+            raise AssertionError(f"{cell} H={H}: launches {launched}, expected "
+                                 f"{want_launches}")
+        if not ok:
+            raise AssertionError(f"{cell} H={H} {dtype} on the streamed per-step route "
+                                 "disagrees with its plain versions")
+        results.append((cell, dtype, H))
+    times = {}
+    for cell in ("gru", "lstm"):
+        for backward in (False, True):
+            dtype = torch.float32
+            H = rnn_kernels.step_max_hidden(cell, dtype, backward, DEVICE)
+            inputs = (_gru_inputs if cell == "gru" else _lstm_inputs)(T, B, H, dtype, gen)
+            if cell == "gru":
+                xw, w, b, h0, lengths = inputs
+                hall, _ = rnn_kernels.gru_scan_reference(xw, w, b, h0, lengths)
+                hp = rnn_kernels.prev_all(hall, h0, lengths)
+                gh = torch.randn(T, B, H, device=DEVICE, generator=gen)
+                call = ((lambda: rnn_kernels.gru_scan_backward(
+                    xw, hp, w, b, lengths, gh, h0)) if backward
+                    else (lambda: rnn_kernels.gru_scan(xw, w, b, h0, lengths)))
+            else:
+                xw, w, b, h0, c0, lengths = inputs
+                hall, call_, _, _ = rnn_kernels.lstm_scan_reference(
+                    xw, w, b, h0, c0, lengths, with_carry=True)
+                hp = rnn_kernels.prev_all(hall, h0, lengths)
+                cp = rnn_kernels.prev_all(call_, c0, lengths)
+                gh = torch.randn(T, B, H, device=DEVICE, generator=gen)
+                call = ((lambda: rnn_kernels.lstm_scan_backward(
+                    xw, hp, cp, w, b, lengths, gh, h0, c0)) if backward
+                    else (lambda: rnn_kernels.lstm_scan(xw, w, b, h0, c0, lengths)))
+            with _step_route_forced("per_step"):
+                whole = _sync_time(call, 5)
+            with _step_route_forced("step_chunked"):
+                streamed = _sync_time(call, 5)
+            with _step_route_forced("per_step"):
+                whole = (whole + _sync_time(call, 5)) / 2
+            name = f"{cell} {'bwd' if backward else 'fwd'}"
+            times[name] = (H, whole, streamed)
+            print(f"step chunked time {name} fp32 H={H} T={T} B={B}: whole-slice "
+                  f"{whole:.3f} ms, streamed {streamed:.3f} ms (per scan)", flush=True)
+    return times
+
+
 def phase_cudnn_layers(gen):
     """Timing only, a yardstick: cuDNN's one-layer ``torch.nn.LSTM`` /
     ``torch.nn.GRU`` against the port's layer (``cells.RNNLayer``: the input
@@ -807,93 +973,42 @@ def logmel_bound_ms(rows, n_fft, n_bins, n_mels, high: bool) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _interleaved(old, new, reps: int) -> tuple:
-    """Mean ms of two calls timed in turns, old, new, new, old."""
-    a = _sync_time(old, reps)
-    b = _sync_time(new, reps)
-    b = (b + _sync_time(new, reps)) / 2
-    a = (a + _sync_time(old, reps)) / 2
-    return a, b
-
-
-def build_baselines() -> dict:
-    """The earlier designs of K5 and K6, for same-call timings only: each
-    ``build/baseline/<name>.cu`` (``rnntransducer_tpu_torch/csrc/<name>.cu``
-    of revision ``BASELINE_REV``, taken from git where the checkout has its
-    history) is compiled with the kernels' flags, all together, and loaded.
-    Where neither is there, they are not measured.  Nothing on any path
-    calls them."""
-    jobs = {}
-    for name in ("rnnt_sweep", "logmel"):
-        src = os.path.join(BASELINE_DIR, f"{name}.cu")
-        if not os.path.exists(src) and shutil.which("git"):
-            got = subprocess.run(
-                ["git", "-C", REPO, "show",
-                 f"{BASELINE_REV}:rnntransducer_tpu_torch/csrc/{name}.cu"],
-                capture_output=True)
-            if got.returncode == 0:
-                os.makedirs(BASELINE_DIR, exist_ok=True)
-                with open(src, "wb") as f:
-                    f.write(got.stdout)
-        if os.path.exists(src):
-            out = os.path.join(BASELINE_DIR, f"lib{name}.so")
-            jobs[name] = (out, subprocess.Popen(
-                [build.find_nvcc(), *build.NVCC_FLAGS, "-o", out, src],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in jobs.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the baseline {name}.cu:\n{report}")
-        libs[name] = ctypes.CDLL(out)
-    print(f"baseline kernels: {sorted(libs) or 'none (not measured)'}", flush=True)
-    return libs
-
-
-def _baseline_logmel_mats(cfg):
-    """The earlier K6's operands: cos / sin bf16 high and low parts (n_fft
-    rounded up to 16, 256 bins) and the filterbank (256, 128), on the card."""
-    wc, ws, fb = fused_frontend._dft_mats(cfg.n_fft, cfg.window, cfg.n_mels,
-                                          cfg.sample_rate)
-    Kf = -(-cfg.n_fft // 16) * 16
-    mats = []
-    for w in (wc, ws):
-        full = torch.zeros((Kf, 256))
-        full[:cfg.n_fft, :w.shape[1]] = torch.from_numpy(w)
-        hi = full.to(torch.bfloat16)
-        mats += [hi, (full - hi.float()).to(torch.bfloat16)]
-    fbp = torch.zeros((256, 128))
-    fbp[:fb.shape[0], :fb.shape[1]] = torch.from_numpy(fb)
-    return Kf, [m.to(DEVICE) for m in mats + [fbp.to(torch.bfloat16)]]
-
-
 def _logmel_plans(cfg, high, smem):
-    """The plan the wrapper picks, and where that is the wgmma engine the
-    mma.sync engine at the most tile rows, up to the same, that fit the
-    shared memory (its comparison)."""
+    """The plan the wrapper picks; where that is the wgmma engine also the
+    mma.sync engine at 32 rows (its own check, the tiles it runs for wide
+    windows); and the chunked engine wherever it was not picked."""
     plan = fused_frontend.kernel_plan(cfg, high, smem)
-    if plan[0] != "wgmma":
-        return [plan]
-    return [plan, next(("mma", r) for r in (128, 64, 32, 16) if r <= plan[1] and
-                       fused_frontend.kernel_smem_bytes(("mma", r), cfg, high) <= smem)]
+    plans = [plan]
+    if plan[0] == "wgmma" and fused_frontend.kernel_smem_bytes(("mma", 32), cfg, high) <= smem:
+        plans.append(("mma", 32))
+    if plan[0] != "chunked":
+        plans.append(("chunked", 32))
+    return plans
 
 
-def phase_logmel(baselines):
+# K6 beyond a 16-row tile of whole frames in high mode: n_fft=4096 (a 256 ms
+# window at 16 kHz), hop 1024, 128 filters; 8 flagship waves, 640 frame rows
+LOGMEL_WIDE = dict(window_size_sec=0.256, window_stride_sec=0.064, n_mels=128)
+
+
+def phase_logmel():
     """Log-mel kernel vs its plain version at the flagship raw-PCM shape
     (B=64 waves up to 81760 samples, 32768 frame rows), a ragged batch with
-    short utterances, and the flagship waves at n_fft=512 with 160 filters,
-    in both precision modes, on the plan the wrapper picks and, where that is
-    the wgmma engine, on the mma.sync engine at the same tile rows; timed at
-    the flagship shape: both engines in turns, beside the earlier design
-    where its source is present."""
+    short utterances, the flagship waves at n_fft=512 with 160 filters, and
+    8 of them at n_fft=4096 with 128 filters, in both precision modes, on
+    the plan the wrapper picks, on the mma.sync engine at 32 rows where the
+    pick is wgmma, and on the chunked engine; timed at the flagship shape
+    and at n_fft=4096 (the picked plan and the chunked engine)."""
     base = base_config().data.audio
     wide = dataclasses.replace(base, window_size_sec=0.032, n_mels=160)
+    widest = dataclasses.replace(base, **LOGMEL_WIDE)
     smem = rnn_kernels.device_limits(DEVICE)[1]
     worst, times = 0.0, {}
     batches = {"flagship": (base, _pcm(TRAIN_B)),
                "ragged": (base, _pcm(8, [N_SAMPLES, 4800, 3333, 1601, 250, 161, 40000,
                                          1])),
-               "wide": (wide, _pcm(TRAIN_B))}
+               "wide": (wide, _pcm(TRAIN_B)),
+               "n_fft=4096": (widest, _pcm(8))}
     for name, (cfg, (wav, lengths)) in batches.items():
         wav = torch.from_numpy(wav).to(DEVICE)
         lengths = torch.from_numpy(lengths).to(DEVICE)
@@ -941,48 +1056,23 @@ def phase_logmel(baselines):
                                     .to(torch.int32))
                     and torch.equal(feats.reshape(-1, cfg.n_mels), chosen)):
                 raise AssertionError("logmel_fused: wrong shape, lengths or values")
-            if name != "flagship":
+            if name not in ("flagship", "n_fft=4096"):
                 continue
-            new = lambda: fused_frontend.logmel_rows_cuda(rows, cfg, high)
-            engines = {}
-            if len(plans) > 1:
-                other = lambda: fused_frontend.logmel_rows_cuda(rows, cfg, high, None,
-                                                                plans[1])
-                engines[plans[1]], engines[plans[0]] = _interleaved(other, new, 20)
-            old_ms = None
-            if "logmel" in baselines:
-                lib = baselines["logmel"]
-                old_kf, mats = _baseline_logmel_mats(cfg)
-                out = torch.empty((rows.shape[0], cfg.n_mels), device=DEVICE)
-                stream = torch.cuda.current_stream().cuda_stream
-                p_, i_ = ctypes.c_void_p, ctypes.c_int
-                lib.logmel_rows.argtypes = [p_, i_, i_, i_] + [p_] * 6 + [i_, p_, i_, p_]
-                old = lambda: lib.logmel_rows(
-                    rows.data_ptr(), rows.shape[0], cfg.n_fft, old_kf, mats[0].data_ptr(),
-                    mats[2].data_ptr(), mats[1].data_ptr(), mats[3].data_ptr(),
-                    mats[4].data_ptr(), out.data_ptr(), cfg.n_mels, None, int(high), stream)
-                if old() != 0:
-                    raise RuntimeError("the baseline logmel kernel failed")
-                torch.cuda.synchronize()
-                if not (out - chosen).abs().max().item() <= LOGMEL_END_TOL:
-                    raise AssertionError("the baseline logmel kernel disagrees")
-                old_ms, ms = _interleaved(old, new, 20)
-            else:
-                ms = _sync_time(new, 20)
+            ms = _sync_time(lambda: fused_frontend.logmel_rows_cuda(rows, cfg, high), 20)
             plain = _sync_time(lambda: fused_frontend.mel_reference(
                 fused_frontend.dft_power_reference(rows, cfg, high), cfg), 5)
             bound, bound_by = logmel_bound_ms(rows.shape[0], cfg.n_fft, K, cfg.n_mels, high)
-            times[high] = (ms, plain, bound, bound_by)
-            times[("earlier", high)] = old_ms
-            times[("engines", high)] = {f"{e} {r}": t for (e, r), t in engines.items()}
-            print(f"logmel time rows={rows.shape[0]} high={high}: kernel ({plans[0][0]} "
-                  f"engine) {ms:.4f} ms; same call in turns: "
-                  + ", ".join(f"{e} engine {r} rows {t:.4f} ms"
-                              for (e, r), t in engines.items())
-                  + f"; earlier design "
-                  f"{'not measured' if old_ms is None else f'{old_ms:.4f} ms'}"
-                  f" (same call), plain {plain:.3f} ms, bound {bound:.4f} ms by {bound_by}",
-                  flush=True)
+            extra = ""
+            if name == "flagship":
+                times[high] = (ms, plain, bound, bound_by)
+            else:
+                chunked = _sync_time(lambda: fused_frontend.logmel_rows_cuda(
+                    rows, cfg, high, None, ("chunked", 32)), 20)
+                times[("wide", high)] = (plans[0], ms, chunked, bound)
+                extra = f", chunked engine {chunked:.4f} ms"
+            print(f"logmel time {name} rows={rows.shape[0]} high={high}: kernel "
+                  f"({plans[0][0]} engine, {plans[0][1]} rows) {ms:.4f} ms{extra}, plain "
+                  f"{plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
     return worst, times
 
 
@@ -996,11 +1086,10 @@ def _sweep_err(got, want) -> float:
     return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
 
 
-def phase_sweep(gen, baselines):
+def phase_sweep(gen):
     """RNN-T sweep kernel vs its plain version: the flagship lattice, the 2B
     lattices of one loss (alpha and beta in one launch), a ragged T and a T
-    above 8192; the earlier design (time-contiguous edges, transposed by its
-    wrapper) timed in the same call where its source is present."""
+    above 8192."""
     U1 = TRAIN_U + 1
     worst = 0.0
     for N, T in ((TRAIN_B, T_FRAMES), (2 * TRAIN_B, T_FRAMES), (TRAIN_B, 300), (2, 9000)):
@@ -1025,39 +1114,6 @@ def phase_sweep(gen, baselines):
         times[N] = (ms, plain, bound, bound_by)
         print(f"rnnt_sweep time N={N} T={T_FRAMES} U+1={U1}: kernel {ms:.4f} ms, "
               f"plain {plain:.3f} ms, bound {bound:.4f} ms by {bound_by}", flush=True)
-    N = 2 * TRAIN_B
-    times["earlier"] = None
-    if "rnnt_sweep" in baselines:
-        lib = baselines["rnnt_sweep"]
-        p_, i_ = ctypes.c_void_p, ctypes.c_int
-        lib.rnnt_sweep.argtypes = [p_, p_, p_, i_, i_, i_, p_]
-        stream = torch.cuda.current_stream().cuda_stream
-        be_t, le_t = be.transpose(1, 2).contiguous(), le.transpose(1, 2).contiguous()
-        alpha_t = torch.empty_like(be_t)
-
-        def old():
-            return lib.rnnt_sweep(be_t.data_ptr(), le_t.data_ptr(), alpha_t.data_ptr(),
-                                  N, T_FRAMES, U1, stream)
-
-        def old_wrapper():
-            bt, lt = be.transpose(1, 2).contiguous(), le.transpose(1, 2).contiguous()
-            lib.rnnt_sweep(bt.data_ptr(), lt.data_ptr(), alpha_t.data_ptr(), N, T_FRAMES,
-                           U1, stream)
-
-        if old() != 0:
-            raise RuntimeError("the baseline rnnt_sweep kernel failed")
-        torch.cuda.synchronize()
-        if not _sweep_err(alpha_t.transpose(1, 2),
-                          rnnt_kernels.sweep_reference(be, le)) <= SWEEP_TOL:
-            raise AssertionError("the baseline rnnt_sweep kernel disagrees")
-        new = lambda: rnnt_kernels.sweep(be, le)
-        old_ms, new_ms = _interleaved(old, new, 20)
-        old_wrapper_ms, _ = _interleaved(old_wrapper, new, 20)
-        times["earlier"] = {"kernel_ms": old_ms, "with_transposes_ms": old_wrapper_ms,
-                            "new_ms": new_ms}
-        print(f"rnnt_sweep same call at N={N}: earlier design kernel {old_ms:.4f} ms, with "
-              f"its wrapper's two transposes {old_wrapper_ms:.4f} ms; this design "
-              f"{new_ms:.4f} ms", flush=True)
     return worst, times
 
 
@@ -1193,7 +1249,7 @@ def scan_launches(rnn_type: str, steps: int, hidden: int = 1024,
     or an LSTM takes the per-step kernels, T forward and T + 1 backward."""
     route = {"gru": rnn_kernels.gru_route, "lstm": rnn_kernels.lstm_route}[
         rnn_type.lower()]
-    if route(hidden, batch, dtype, device) == "per_step":
+    if route(hidden, batch, dtype, device) != "persistent":
         return steps, steps + 1
     return 1, 2
 
@@ -1494,6 +1550,7 @@ def phase_serving(flax_params, tokenizer, waves):
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
           flush=True)
     phase_profile(recognizers["bf16"], waves)
+    results["label_looping"] = phase_label_looping(recognizers["bf16"], waves)
 
     # ---- kernel vs plain GRU through the whole encoder -------------------
     for precision, rec in recognizers.items():
@@ -1546,6 +1603,206 @@ def phase_serving(flax_params, tokenizer, waves):
                                   encoder_max_abs_err=enc_err)
     return launches, results
 
+# Phase 5, the Trainer: base_config() on raw PCM, a global batch of 64,
+# validation and a checkpoint at step 4 and at the end of fit (step 8), then
+# a resumed fit to step 10; 2 steps profiled; checkpoints under build/.
+TRAINER_N, TRAINER_VAL, TRAINER_B = 640, 16, 64
+TRAINER_STEPS, TRAINER_RESUME_STEPS, TRAINER_VAL_EVERY = 8, 10, 4
+TRAINER_PROFILE = (5, 7)
+TRAINER_DIR = os.path.join(REPO, "build", "trainer")
+
+
+def _fingerprint(batch) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(batch["targets"]).tobytes()
+                          + np.ascontiguousarray(batch["wav_lengths"]).tobytes()
+                          ).hexdigest()[:16]
+
+
+def _recording_trainer(trainer, seen):
+    """Record a fingerprint of every training batch the feed yields, in
+    order (the prefetcher hands them to train_step in that order)."""
+    host = trainer._host_batches
+
+    def recorded(dataset, *args, **kwargs):
+        for batch in host(dataset, *args, **kwargs):
+            if dataset is trainer.train_ds:
+                seen.append(_fingerprint(batch))
+            yield batch
+    trainer._host_batches = recorded
+
+
+def _device_busy_ms(prof) -> float:
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def phase_trainer(flax_params, waves, bare_busy):
+    """The training loop through its entry points: Trainer.fit on raw PCM,
+    validation (eval_step, greedy decode, WER / CER), checkpoints, a resumed
+    fit, then Recognizer.from_checkpoint; every train_step's launches
+    checked; the step time, the host feed per batch, the device-busy share
+    of a profiled window, validation and checkpoint times."""
+    base = base_config()
+    audio = base.data.audio
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, precision="bf16", per_device_train_batch_size=TRAINER_B,
+        per_device_eval_batch_size=8, max_steps=TRAINER_STEPS,
+        val_every_steps=TRAINER_VAL_EVERY, log_every_steps=2,
+        checkpoint_dir=TRAINER_DIR, wav_transfer_dtype="int16", seed=SEED))
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    V = cfg.model.jointnet.num_classes
+    max_sec = N_SAMPLES / audio.sample_rate
+    train_ds = SyntheticAudioDataset(TRAINER_N, audio, vocab_size=V, min_sec=1.0,
+                                     max_sec=max_sec, min_labels=4, max_labels=48,
+                                     seed=SEED, as_waveform=True)
+    val_ds = SyntheticAudioDataset(TRAINER_VAL, audio, vocab_size=V, min_sec=1.0,
+                                   max_sec=max_sec, min_labels=4, max_labels=48,
+                                   seed=SEED + 1, as_waveform=True)
+    sd = state_dict_from_flax(flax_params, cfg.model)
+    want = step_launches(cfg, T_FRAMES, TRAIN_U, raw_pcm=True, device=DEVICE)
+    launches = dict.fromkeys(KERNELS, 0)
+    steps_checked = []
+    step_fn = train_loop.train_step
+
+    def counted_step(state, batch):
+        _zero_counts()
+        metrics = step_fn(state, batch)
+        got = _counts()
+        steps_checked.append(got)
+        if got != want:
+            raise AssertionError(f"Trainer step {state.step}: launches {got}, "
+                                 f"expected {want}")
+        for k in KERNELS:
+            launches[k] += got[k]
+        return metrics
+
+    train_loop.train_step = counted_step
+    try:
+        seen_a, seen_b = [], []
+        trainer = train_loop.Trainer(cfg, train_ds, val_ds, device=DEVICE, state_dict=sd,
+                                     profile_dir=os.path.join(TRAINER_DIR, "profile"),
+                                     profile_steps=TRAINER_PROFILE)
+        _recording_trainer(trainer, seen_a)
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        if state.step != TRAINER_STEPS or trainer.ckpt.latest_step() != TRAINER_STEPS:
+            raise AssertionError(f"fit ended at step {state.step}, latest checkpoint "
+                                 f"{trainer.ckpt.latest_step()}")
+        busy_ms = _device_busy_ms(trainer.profile)
+        wall_ms = trainer.profile_wall_s * 1e3
+        busy = busy_ms / wall_ms if busy_ms > 0 else None  # no device time seen
+        feed_a, val_s, save_s = (list(trainer.feed_s), list(trainer.validate_s),
+                                 list(trainer.save_s))
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        resumed_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, max_steps=TRAINER_RESUME_STEPS))
+        trainer = train_loop.Trainer(resumed_cfg, train_ds, val_ds, device=DEVICE)
+        _recording_trainer(trainer, seen_b)
+        state = trainer.fit(resume=True)
+        if state.step != TRAINER_RESUME_STEPS:
+            raise AssertionError(f"the resumed fit ended at step {state.step}")
+        schedule = [_fingerprint(b) for epoch in (0, 1)
+                    for b in train_loop.Trainer._host_batches(
+                        trainer, train_ds, epoch, TRAINER_B)][:TRAINER_RESUME_STEPS]
+        if (seen_a[:TRAINER_STEPS] != schedule[:TRAINER_STEPS]
+                or seen_b[:TRAINER_RESUME_STEPS - TRAINER_STEPS]
+                != schedule[TRAINER_STEPS:]):
+            raise AssertionError("the resumed fit did not continue the schedule at step "
+                                 f"{TRAINER_STEPS}: {seen_a} {seen_b} {schedule}")
+        restore_s, val_s = trainer.restore_s, val_s + trainer.validate_s
+        save_s += trainer.save_s
+        ledger = trainer.ckpt._read_ledger()
+        del trainer, state
+        torch.cuda.empty_cache()
+    finally:
+        train_loop.train_step = step_fn
+    if len(steps_checked) != TRAINER_RESUME_STEPS:
+        raise AssertionError(f"{len(steps_checked)} train steps counted")
+
+    logs = [json.loads(line) for line in open(os.path.join(TRAINER_DIR, "metrics.jsonl"))]
+    train_logs = [r for r in logs if r.get("split") == "train"]
+    val_logs = [r for r in logs if r.get("split") == "val"]
+    if not (train_logs and all(np.isfinite(r["loss"]) for r in train_logs)
+            and len(val_logs) == 3 and all(np.isfinite(r["val_loss"]) for r in val_logs)
+            and any(r.get("event") == "resumed" and r["step"] == TRAINER_STEPS
+                    for r in logs)):
+        raise AssertionError(f"Trainer logs: {logs}")
+
+    rec = Recognizer.from_checkpoint(TRAINER_DIR, use_ema=False, precision="bf16",
+                                     device=DEVICE)
+    texts, req_ms, _ = _request(rec.transcribe_batch, waves)
+    if len(texts) != len(waves) or not all(isinstance(x, str) for x in texts):
+        raise AssertionError(f"Recognizer.from_checkpoint transcripts: {texts}")
+    del rec
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    step_ms = [r["step_ms"] for r in train_logs]
+    result = {
+        "steps": TRAINER_RESUME_STEPS, "launches_per_step": want,
+        "step_ms_logged": step_ms, "feed_ms_per_batch": [1e3 * x for x in feed_a],
+        "profile_window_steps": TRAINER_PROFILE, "profile_wall_ms": wall_ms,
+        "device_busy_ms": busy_ms, "device_busy_share": busy,
+        "bare_step_device_busy_share": bare_busy, "fit_s": fit_s,
+        "validate_s": val_s, "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s, "val": [
+            {k: r[k] for k in ("step", "val_loss", "val_wer", "val_cer")}
+            for r in val_logs],
+        "retained_steps": sorted(ledger), "from_checkpoint_batch8_ms": req_ms}
+    print(f"trainer bf16 raw PCM, global batch {TRAINER_B}: fit to step {TRAINER_STEPS} "
+          f"in {fit_s:.1f} s, resumed to {TRAINER_RESUME_STEPS}; logged step_ms "
+          f"{step_ms}; host feed per batch (ms) "
+          f"{[round(1e3 * x, 1) for x in feed_a]}; device busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of a "
+          f"profiled window of 2 steps "
+          f"({wall_ms:.1f} ms, profiler on) vs the bare step's "
+          f"{'not measured' if bare_busy is None else f'{100 * bare_busy:.1f}%'} "
+          f"(phase 4a); validation {[round(x, 2) for x in val_s]} s, checkpoint save "
+          f"{[round(x, 2) for x in save_s]} s, restore {[round(x, 2) for x in restore_s]}"
+          f" s; retained steps {sorted(ledger)}; from_checkpoint batch of 8 "
+          f"{req_ms:.1f} ms: {texts}", flush=True)
+    return launches, result
+
+
+def phase_label_looping(rec, waves):
+    """Label-looping greedy decode against the frame scan on one batch: the
+    tokens must be equal; both timed (host clock, synchronised)."""
+    with torch.inference_mode():
+        feats, feat_lengths = rec._features(waves)
+        kw = dict(blank_id=rec.tokenizer.blank_token_id,
+                  max_symbols=rec.cfg.train.greedy_max_symbols,
+                  max_output_len=rec.max_output_len)
+        out, ms = {}, {}
+        for name, fn in (("frame", greedy_mod.greedy_decode),
+                         ("label", greedy_mod.greedy_decode_label_looping)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn(rec.model, feats, feat_lengths, **kw)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+    (tf, lf), (tl, ll) = out["frame"], out["label"]
+    same = torch.equal(lf, ll) and all(torch.equal(tf[i, :lf[i]], tl[i, :ll[i]])
+                                       for i in range(len(waves)))
+    print(f"label looping vs frame scan, bf16 batch of {len(waves)}: tokens equal "
+          f"{same}; frame scan {ms['frame']:.1f} ms, label looping {ms['label']:.1f} ms "
+          f"(encoder included, after the requests above)", flush=True)
+    if not same:
+        raise AssertionError("label-looping tokens differ from the frame scan's")
+    return {"tokens_equal": same, "frame_scan_ms": ms["frame"],
+            "label_looping_ms": ms["label"]}
+
+
+def _timed(name, fn, *args):
+    """``fn(*args)``, its wall time printed (where the script's time goes)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1563,26 +1820,28 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(KERNELS)
     print(f"built {KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
-    baselines = build_baselines()
     sms, smem = rnn_kernels.device_limits(DEVICE)
     print(f"card limits read from the device: {sms} SMs, {smem} bytes of shared memory "
           f"a block may opt in to", flush=True)
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    fwd_err, fwd_times = phase_kernels(gen)
-    phase_gru_limits(gen)
-    bwd_err, bwd_times = phase_gru_bwd(gen)
-    phase_lstm_limits(gen)
-    lstm_fwd_err, lstm_bwd_err, lstm_times = phase_lstm(gen)
-    print("cudnn_layers " + json.dumps(phase_cudnn_layers(gen)), flush=True)
-    sweep_err, sweep_times = phase_sweep(gen, baselines)
-    logmel_err, logmel_times = phase_logmel(baselines)
+    fwd_err, fwd_times = _timed("kernels", phase_kernels, gen)
+    _timed("gru_limits", phase_gru_limits, gen)
+    bwd_err, bwd_times = _timed("gru_bwd", phase_gru_bwd, gen)
+    _timed("lstm_limits", phase_lstm_limits, gen)
+    lstm_fwd_err, lstm_bwd_err, lstm_times = _timed("lstm", phase_lstm, gen)
+    print("cudnn_layers " + json.dumps(_timed("cudnn_layers", phase_cudnn_layers, gen)),
+          flush=True)
+    _timed("step_chunked", phase_step_chunked, gen)
+    sweep_err, sweep_times = _timed("sweep", phase_sweep, gen)
+    logmel_err, logmel_times = _timed("logmel", phase_logmel)
 
     cfg = base_config()
     flax_params = random_flax_params(cfg.model, torch.Generator().manual_seed(SEED))
     tokenizer = GraphemeTokenizer.default(cfg.model.jointnet.num_classes)
     waves = _waves(8)
-    serve_launches, results = phase_serving(flax_params, tokenizer, waves)
+    serve_launches, results = _timed("serving", phase_serving, flax_params, tokenizer,
+                                     waves)
     print("serving " + json.dumps(results), flush=True)
     if not serve_launches > 0:
         raise AssertionError("the serving path launched no GRU kernel")
@@ -1590,13 +1849,17 @@ def main() -> int:
 
     # ---- the main paths: each sets the counts to 0 before every step -------
     launches = dict.fromkeys(KERNELS, 0)
+    bare_busy = {}
     for name, run in (("training", lambda: phase_training(flax_params)),
                       ("raw_pcm", lambda: phase_raw_pcm(flax_params)),
-                      ("tiny", lambda: phase_tiny(tokenizer, waves))):
-        got, result = run()
+                      ("tiny", lambda: phase_tiny(tokenizer, waves)),
+                      ("trainer", lambda: phase_trainer(flax_params, waves,
+                                                        bare_busy.get("training")))):
+        got, result = _timed(name, run)
+        bare_busy[name] = result.get("device_busy_share")
         launches = {k: launches[k] + got[k] for k in KERNELS}
         print(f"{name} " + json.dumps(result), flush=True)
-    vs_plain = phase_step_vs_plain(flax_params)
+    vs_plain = _timed("step_vs_plain", phase_step_vs_plain, flax_params)
     print("step_vs_plain " + json.dumps(vs_plain), flush=True)
 
     flagship_lstm = lstm_times[(torch.bfloat16,) + LSTM_SHAPES[0]]

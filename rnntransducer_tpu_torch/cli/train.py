@@ -1,0 +1,171 @@
+"""Training CLI of the port: the flags and config of the JAX package's
+``train.py``, run by the port's ``Trainer`` on one CUDA device.
+
+Examples:
+  # smoke-train on synthetic data on the card
+  python -m rnntransducer_tpu_torch.cli.train --synthetic 256 --max_steps 20 \\
+      --checkpoint_dir /tmp/ckpt
+
+  # the same on the CPU (the kernels' plain versions)
+  python -m rnntransducer_tpu_torch.cli.train --synthetic 16 --max_steps 2 \\
+      --device cpu --checkpoint_dir /tmp/ckpt
+
+  # train on preprocessed log-mel Arrow shards (needs ``datasets``)
+  python -m rnntransducer_tpu_torch.cli.train --config configs/base.json \\
+      --pl_data_dir /data/logmel --checkpoint_dir ckpts --max_steps 100000
+
+The mesh, multi-host and Pallas / XLA loss-backend flags of ``train.py``
+are accepted and raise: the port trains on one device, and its loss has
+one backend (the sweep kernel).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from rnntransducer_tpu_torch.config import Config
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", type=str, default=None,
+                   help="JSON config (the JAX package's schema)")
+    p.add_argument("--vocab_path", type=str, default=None)
+    p.add_argument("--hf_data_dirs", type=str, nargs="*", default=None,
+                   help="raw shards to preprocess (not ported yet: raises)")
+    p.add_argument("--pl_data_dir", type=str, default=None,
+                   help="preprocessed log-mel shard root")
+    p.add_argument("--num_shards", type=int, default=20)
+    p.add_argument("--num_proc", type=int, default=None)
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="train on N synthetic utterances instead of real data")
+    p.add_argument("--learning_rate", type=float, default=None)
+    p.add_argument("--weight_decay", type=float, default=None)
+    p.add_argument("--warmup_ratio", type=float, default=None)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--per_device_train_batch_size", type=int, default=None)
+    p.add_argument("--per_device_eval_batch_size", type=int, default=None)
+    p.add_argument("--accumulate_grad_batches", type=int, default=None)
+    p.add_argument("--model_parallel", type=int, default=None,
+                   help="tensor parallelism (not ported: raises above 1)")
+    p.add_argument("--shard_optimizer_state", action="store_true", default=None,
+                   help="ZeRO-1 moments (not ported: raises)")
+    p.add_argument("--precision", type=str, default=None, choices=["bf16", "fp32"])
+    p.add_argument("--optimizer", type=str, default=None,
+                   choices=["adamw", "adafactor", "lion", "sgd"],
+                   help="adamw and sgd are ported; adafactor and lion raise")
+    p.add_argument("--lr_schedule", type=str, default=None,
+                   choices=["onecycle", "cosine", "linear", "constant"])
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="EMA shadow of the params (0 = off)")
+    p.add_argument("--fastemit_lambda", type=float, default=None)
+    p.add_argument("--weight_noise_std", type=float, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--val_every_steps", type=int, default=None)
+    p.add_argument("--log_every_steps", type=int, default=None)
+    p.add_argument("--watch_every_steps", type=int, default=None,
+                   help="param/grad histograms every N steps (0 = off)")
+    p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--loss_backend", type=str, default="auto",
+                   choices=["auto", "pallas", "xla", "pallas_interpret"],
+                   help="only auto: the port's loss runs on its sweep kernel")
+    p.add_argument("--eval_only", action="store_true",
+                   help="restore the best checkpoint and evaluate instead of training")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of steps 10-15 here")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="torch.autograd anomaly detection")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default cuda; raises without a card)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="multi-host (not ported: raises)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    return p.parse_args(argv)
+
+
+def build_config(args) -> Config:
+    cfg = Config.from_json(args.config) if args.config else Config()
+    overrides = {k: getattr(args, k) for k in (
+        "learning_rate", "weight_decay", "warmup_ratio", "max_steps",
+        "per_device_train_batch_size", "per_device_eval_batch_size",
+        "accumulate_grad_batches", "model_parallel", "shard_optimizer_state",
+        "precision", "optimizer", "lr_schedule", "ema_decay", "fastemit_lambda",
+        "weight_noise_std", "seed", "val_every_steps", "log_every_steps",
+        "watch_every_steps", "checkpoint_dir")
+        if getattr(args, k) is not None}
+    train = dataclasses.replace(cfg.train, **overrides)
+    return dataclasses.replace(cfg, train=train,
+                               vocab_path=args.vocab_path or cfg.vocab_path)
+
+
+def _check_flags(args) -> None:
+    if args.coordinator_address or args.num_processes or args.process_id is not None:
+        raise NotImplementedError(
+            "multi-host training is not ported: the port trains in one process "
+            "on one device (its parallel/ package is a later slice)")
+    if args.loss_backend != "auto":
+        raise NotImplementedError(
+            f"--loss_backend {args.loss_backend}: the port's RNN-T loss has one "
+            "backend, its sweep kernel (the plain version on the CPU)")
+    if args.hf_data_dirs:
+        raise NotImplementedError(
+            "--hf_data_dirs: dataset preparation is not ported yet; prepare the "
+            "log-mel shards with the JAX package's train.py and pass --pl_data_dir")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cfg = build_config(args)
+    _check_flags(args)
+
+    import torch
+
+    from rnntransducer_tpu_torch.data.dataset import (ArrowAudioDataset,
+                                                      SyntheticAudioDataset)
+    from rnntransducer_tpu_torch.train.loop import Trainer
+    from rnntransducer_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    if args.synthetic:
+        train_ds = SyntheticAudioDataset(
+            args.synthetic, cfg.data.audio,
+            vocab_size=cfg.model.jointnet.num_classes, seed=cfg.train.seed)
+        val_ds = SyntheticAudioDataset(
+            max(args.synthetic // 8, 2), cfg.data.audio,
+            vocab_size=cfg.model.jointnet.num_classes, seed=cfg.train.seed + 1)
+    else:
+        if not args.pl_data_dir:
+            raise SystemExit("--pl_data_dir (or --synthetic N) required")
+        train_ds = ArrowAudioDataset([args.pl_data_dir], "train")
+        val_ds = ArrowAudioDataset([args.pl_data_dir], "dev")
+
+    trainer = Trainer(cfg, train_ds, val_dataset=val_ds, device=device,
+                      profile_dir=args.profile_dir)
+    if args.eval_only:
+        trainer.ckpt.restore(trainer.state, step=trainer.ckpt.best_or_latest_step())
+        tests = {}
+        if args.synthetic:
+            tests["synthetic"] = val_ds
+        else:
+            for split in ("eval_clean", "eval_other"):
+                try:
+                    tests[split] = ArrowAudioDataset([args.pl_data_dir], split)
+                except FileNotFoundError:
+                    print(f"[eval] no shards for '{split}', skipping")
+        results = trainer.test(tests)
+        for name, r in results.items():
+            print(f"{name}: loss={r['loss']:.4f} wer={r['wer']:.4f} cer={r['cer']:.4f}")
+        return results
+    state = trainer.fit(resume=args.resume)
+    print(f"done at step {int(state.step)}; checkpoints in {cfg.train.checkpoint_dir}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

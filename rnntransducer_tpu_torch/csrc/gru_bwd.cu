@@ -69,6 +69,7 @@
 
 #include "gates_gemm.cuh"
 #include "rnn_persistent.cuh"
+#include "step_stream.cuh"
 
 namespace {
 
@@ -269,6 +270,12 @@ template <typename T> constexpr size_t step_smem(int Hk, int Kc) {
          + sizeof(float) * kRowChunk * 4 * kJT;
 }
 
+// A block that streams both slices (kStream) holds the chunk ring of the
+// wider one and the two dot buffers, whatever H is.
+template <typename T> constexpr size_t stream_smem() {
+  return step_stream::ring_bytes<T>(3 * kJT) + sizeof(float) * kRowChunk * 4 * kJT;
+}
+
 // dots[(ks * npad + row) * C + c] = partial sum over this warp's share of K
 // of quant<T>(act[r0 + row, k]) * w_s[c, k], for rows of the chunk
 // [r0, r0 + nrows).  act is (rows, lda) of type TA, zero for k >= its width;
@@ -349,7 +356,7 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t elems) {
 // (ceil(H/kJT), kJT, Kc), both zero padded; b_hh (3H); dhw_in / dhw_out
 // (B, Kc) fp32, zero for k >= 3H; rest_in / rest_out (B, H) fp32; dxw_t
 // (B, 3H); dnr_t (B, H).  final != 0: only close the chain into dh0 (B, H).
-template <typename T>
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gru_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
              const T* __restrict__ gout_t, const T* __restrict__ rec_tiles,
@@ -362,23 +369,37 @@ gru_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
   constexpr int CR = 3 * kJT;  // gate columns of the block
   constexpr int CC = kJT;      // chain rows of the block
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* wc_s = reinterpret_cast<T*>(smem_raw);          // (CC, Kc)
+  T* wc_s = reinterpret_cast<T*>(smem_raw);          // (CC, Kc), or the chunk ring
   T* wr_s = wc_s + (size_t)CC * Kc;                  // (CR, Hk)
-  float* dots_c = reinterpret_cast<float*>(wr_s + (size_t)CR * Hk);
+  float* dots_c = reinterpret_cast<float*>(
+      kStream ? smem_raw + step_stream::ring_bytes<T>(CR)
+              : reinterpret_cast<unsigned char*>(wr_s + (size_t)CR * Hk));
   float* dots_r = dots_c + kRowChunk * CC;
 
   const int j0 = blockIdx.x * kJT;
-  copy_tile(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, (size_t)CC * Kc);
-  if (!final)
-    copy_tile(wr_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, (size_t)CR * Hk);
-  __syncthreads();
+  if constexpr (!kStream) {
+    copy_tile(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, (size_t)CC * Kc);
+    if (!final)
+      copy_tile(wr_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, (size_t)CR * Hk);
+    __syncthreads();
+  }
 
   for (int r0 = 0; r0 < B; r0 += kRowChunk) {
     const int nrows = min(kRowChunk, B - r0);
     const Split s = split_rows(nrows, kRows);
-    chunk_dots<T, float, CC>(wc_s, dhw_in, Kc, Kc, r0, nrows, s, dots_c);
-    if (!final)
-      chunk_dots<T, T, CR>(wr_s, hprev_t, Hk, Hk, r0, nrows, s, dots_r);
+    if constexpr (kStream) {
+      step_stream::streamed_dots<T, float, CC, kRows>(
+          wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, Kc, dhw_in, Kc, Kc, r0,
+          nrows, s, dots_c);
+      if (!final)
+        step_stream::streamed_dots<T, T, CR, kRows>(
+            wc_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, Hk, hprev_t, Hk, Hk, r0,
+            nrows, s, dots_r);
+    } else {
+      chunk_dots<T, float, CC>(wc_s, dhw_in, Kc, Kc, r0, nrows, s, dots_c);
+      if (!final)
+        chunk_dots<T, T, CR>(wr_s, hprev_t, Hk, Hk, r0, nrows, s, dots_r);
+    }
     __syncthreads();
 
     for (int p = threadIdx.x; p < nrows * kJT; p += kThreads) {
@@ -430,15 +451,15 @@ gru_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
   }
 }
 
-template <typename T>
+template <typename T, bool kStream>
 int launch_steps(const void* xw, const void* hprev, const void* gout,
                  const void* rec_tiles, const void* chain_tiles, const void* b_hh,
                  const void* lengths, void* dhw_a, void* dhw_b, void* rest_a,
                  void* rest_b, void* dxw, void* dnr, void* dh0, int T_len, int B,
                  int H, int Hk, int Kc, int reverse, cudaStream_t stream) {
-  const size_t smem = step_smem<T>(Hk, Kc);
+  const size_t smem = kStream ? stream_smem<T>() : step_smem<T>(Hk, Kc);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gru_bwd_step<T, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + kJT - 1) / kJT);
   const T* xw_p = static_cast<const T*>(xw);
@@ -451,7 +472,7 @@ int launch_steps(const void* xw, const void* hprev, const void* gout,
   for (int s = 0; s <= T_len; ++s) {
     const int final = s == T_len;
     const int t = final ? 0 : (reverse ? s : T_len - 1 - s);
-    gru_bwd_step<T><<<grid, kThreads, smem, stream>>>(
+    gru_bwd_step<T, kStream><<<grid, kThreads, smem, stream>>>(
         xw_p + (size_t)t * B * 3 * H, hp_p + (size_t)t * B * Hk,
         go_p + (size_t)t * B * H, static_cast<const T*>(rec_tiles),
         static_cast<const T*>(chain_tiles), static_cast<const T*>(b_hh),
@@ -541,30 +562,64 @@ extern "C" int gru_scan_bwd_max_blocks(int Kc, int dtype) {
 // chain (jt = kJT units per block).  dhw_a must be zero (B, Kc) fp32 and
 // rest_a must hold g_hfin as (B, H) fp32; dhw_b (zero) and rest_b are
 // scratch of the same shapes.  Returns 0 or the first cudaError_t met.
-extern "C" int gru_scan_bwd_step(const void* xw, const void* hprev, const void* gout,
-                                 const void* rec_tiles, const void* chain_tiles,
-                                 const void* b_hh, const void* lengths, void* dhw_a,
-                                 void* dhw_b, void* rest_a, void* rest_b, void* dxw,
-                                 void* dnr, void* dh0, int T_len, int B, int H, int Hk,
-                                 int Kc, int jt, int reverse, int dtype, void* stream) {
+template <bool kStream>
+static int bwd_steps(const void* xw, const void* hprev, const void* gout,
+                     const void* rec_tiles, const void* chain_tiles, const void* b_hh,
+                     const void* lengths, void* dhw_a, void* dhw_b, void* rest_a,
+                     void* rest_b, void* dxw, void* dnr, void* dh0, int T_len, int B,
+                     int H, int Hk, int Kc, int jt, int reverse, int dtype,
+                     void* stream) {
   using namespace per_step;
   if (T_len <= 0 || B <= 0) return 0;
   if (jt != kJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 3 * H)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_steps<float>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh, lengths,
-                               dhw_a, dhw_b, rest_a, rest_b, dxw, dnr, dh0, T_len, B,
-                               H, Hk, Kc, reverse, s);
+    return launch_steps<float, kStream>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh,
+                                        lengths, dhw_a, dhw_b, rest_a, rest_b, dxw, dnr,
+                                        dh0, T_len, B, H, Hk, Kc, reverse, s);
   if (dtype == 1)
-    return launch_steps<__nv_bfloat16>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh,
-                                       lengths, dhw_a, dhw_b, rest_a, rest_b, dxw, dnr,
-                                       dh0, T_len, B, H, Hk, Kc, reverse, s);
+    return launch_steps<__nv_bfloat16, kStream>(xw, hprev, gout, rec_tiles, chain_tiles,
+                                                b_hh, lengths, dhw_a, dhw_b, rest_a,
+                                                rest_b, dxw, dnr, dh0, T_len, B, H, Hk,
+                                                Kc, reverse, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gru_scan_bwd_step(const void* xw, const void* hprev, const void* gout,
+                                 const void* rec_tiles, const void* chain_tiles,
+                                 const void* b_hh, const void* lengths, void* dhw_a,
+                                 void* dhw_b, void* rest_a, void* rest_b, void* dxw,
+                                 void* dnr, void* dh0, int T_len, int B, int H, int Hk,
+                                 int Kc, int jt, int reverse, int dtype, void* stream) {
+  return bwd_steps<false>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh, lengths, dhw_a,
+                          dhw_b, rest_a, rest_b, dxw, dnr, dh0, T_len, B, H, Hk, Kc, jt,
+                          reverse, dtype, stream);
+}
+
+// The same launches with both slices streamed through shared memory in K
+// chunks (step_stream.cuh): any H, for H above the whole-slice block's limit.
+extern "C" int gru_scan_bwd_step_chunked(const void* xw, const void* hprev,
+                                         const void* gout, const void* rec_tiles,
+                                         const void* chain_tiles, const void* b_hh,
+                                         const void* lengths, void* dhw_a, void* dhw_b,
+                                         void* rest_a, void* rest_b, void* dxw,
+                                         void* dnr, void* dh0, int T_len, int B, int H,
+                                         int Hk, int Kc, int jt, int reverse, int dtype,
+                                         void* stream) {
+  return bwd_steps<true>(xw, hprev, gout, rec_tiles, chain_tiles, b_hh, lengths, dhw_a,
+                         dhw_b, rest_a, rest_b, dxw, dnr, dh0, T_len, B, H, Hk, Kc, jt,
+                         reverse, dtype, stream);
 }
 
 // Dynamic shared memory of one per-step block, for the wrapper's limit.
 extern "C" int gru_scan_bwd_step_smem(int Hk, int Kc, int dtype) {
   return (int)(dtype == 0 ? per_step::step_smem<float>(Hk, Kc)
                           : per_step::step_smem<__nv_bfloat16>(Hk, Kc));
+}
+
+// Dynamic shared memory of one streamed per-step block (any H).
+extern "C" int gru_scan_bwd_step_chunked_smem(int dtype) {
+  return (int)(dtype == 0 ? per_step::stream_smem<float>()
+                          : per_step::stream_smem<__nv_bfloat16>());
 }

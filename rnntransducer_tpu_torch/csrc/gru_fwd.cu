@@ -50,6 +50,7 @@
 #include <cuda_runtime.h>
 
 #include "rnn_persistent.cuh"
+#include "step_stream.cuh"
 
 namespace {
 
@@ -242,10 +243,18 @@ template <typename T> constexpr size_t step_smem(int Hk) {
   return sizeof(T) * 3 * kJT * (size_t)Hk + sizeof(float) * kRowChunk * 3 * kJT;
 }
 
+// Dynamic shared memory of a block that streams its slice (kStream):
+// the two chunk buffers and the dot buffer, whatever H is.
+template <typename T> constexpr size_t stream_smem() {
+  return step_stream::ring_bytes<T>(3 * kJT) + sizeof(float) * kRowChunk * 3 * kJT;
+}
+
 // One timestep.  Shapes: xw_t (B, 3H); w_tiles (ceil(H/kJT), 3 kJT, Hk) with
 // zero padding for k >= H and j >= H; b_hh (3H); h_prev / h_next (B, Hk)
 // fp32 with zero padding for k >= H; hall_t (B, H); h_fin (B, H) or null.
-template <typename T>
+// kStream: the slice is streamed through shared memory in K chunks
+// (step_stream.cuh) instead of copied whole.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 gru_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
              const T* __restrict__ b_hh, const float* __restrict__ h_prev,
@@ -254,18 +263,19 @@ gru_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
              int t, int B, int H, int Hk) {
   constexpr int C = 3 * kJT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // (C, Hk)
-  float* dots = reinterpret_cast<float*>(smem_raw + sizeof(T) * C * (size_t)Hk);
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // (C, Hk), or the chunk ring
+  float* dots = reinterpret_cast<float*>(
+      smem_raw + (kStream ? step_stream::ring_bytes<T>(C) : sizeof(T) * C * (size_t)Hk));
 
   const int j0 = blockIdx.x * kJT;
-  {
+  if constexpr (!kStream) {
     const int4* src = reinterpret_cast<const int4*>(
         w_tiles + (size_t)blockIdx.x * C * Hk);
     int4* dst = reinterpret_cast<int4*>(w_s);
     const int n16 = (int)(sizeof(T) * C * (size_t)Hk / 16);
     for (int i = threadIdx.x; i < n16; i += kThreads) dst[i] = __ldg(src + i);
+    __syncthreads();
   }
-  __syncthreads();
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -280,6 +290,11 @@ gru_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
     const int my_ks = warp % ksplit;
     const int npad = ngroups * kRows;
 
+    if constexpr (kStream)
+      step_stream::streamed_dots<T, float, C, kRows>(
+          w_s, w_tiles + (size_t)blockIdx.x * C * Hk, Hk, h_prev, Hk, Hk, r0, nrows,
+          split_rows(nrows, kRows), dots);
+    else
     for (int g = my_rg; g < ngroups; g += rg) {
       float acc[kRows][C];
 #pragma unroll
@@ -367,13 +382,13 @@ gru_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
   }
 }
 
-template <typename T>
+template <typename T, bool kStream>
 int launch_steps(const void* xw, const void* w_tiles, const void* b_hh, void* h_a,
                  void* h_b, void* h_all, void* h_fin, const void* lengths,
                  int T_len, int B, int H, int Hk, int reverse, cudaStream_t stream) {
-  const size_t smem = step_smem<T>(Hk);
+  const size_t smem = kStream ? stream_smem<T>() : step_smem<T>(Hk);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gru_fwd_step<T, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + kJT - 1) / kJT);
   const T* xw_p = static_cast<const T*>(xw);
@@ -382,7 +397,7 @@ int launch_steps(const void* xw, const void* w_tiles, const void* b_hh, void* h_
   float* hn = static_cast<float*>(h_b);
   for (int s = 0; s < T_len; ++s) {
     const int t = reverse ? T_len - 1 - s : s;
-    gru_fwd_step<T><<<grid, kThreads, smem, stream>>>(
+    gru_fwd_step<T, kStream><<<grid, kThreads, smem, stream>>>(
         xw_p + (size_t)t * B * 3 * H, static_cast<const T*>(w_tiles),
         static_cast<const T*>(b_hh), hp, hn, hall_p + (size_t)t * B * H,
         s == T_len - 1 ? static_cast<T*>(h_fin) : nullptr,
@@ -413,25 +428,52 @@ extern "C" int gru_scan_fwd_max_blocks(int Hk, int dtype) {
 // persistent scan.  dtype as above.  h_a holds h0 (fp32, (B, Hk), zero
 // padded); h_b is scratch of the same shape.  Returns 0 or the first
 // cudaError_t met.
-extern "C" int gru_scan_fwd_step(const void* xw, const void* w_tiles, const void* b_hh,
-                                 void* h_a, void* h_b, void* h_all, void* h_fin,
-                                 const void* lengths, int T_len, int B, int H, int Hk,
-                                 int jt, int reverse, int dtype, void* stream) {
+template <bool kStream>
+static int fwd_steps(const void* xw, const void* w_tiles, const void* b_hh, void* h_a,
+                     void* h_b, void* h_all, void* h_fin, const void* lengths,
+                     int T_len, int B, int H, int Hk, int jt, int reverse, int dtype,
+                     void* stream) {
   using namespace per_step;
   if (T_len <= 0 || B <= 0) return 0;
   if (jt != kJT || Hk % 64 != 0 || Hk < H) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_steps<float>(xw, w_tiles, b_hh, h_a, h_b, h_all, h_fin, lengths,
-                               T_len, B, H, Hk, reverse, s);
+    return launch_steps<float, kStream>(xw, w_tiles, b_hh, h_a, h_b, h_all, h_fin,
+                                        lengths, T_len, B, H, Hk, reverse, s);
   if (dtype == 1)
-    return launch_steps<__nv_bfloat16>(xw, w_tiles, b_hh, h_a, h_b, h_all, h_fin,
-                                       lengths, T_len, B, H, Hk, reverse, s);
+    return launch_steps<__nv_bfloat16, kStream>(xw, w_tiles, b_hh, h_a, h_b, h_all,
+                                                h_fin, lengths, T_len, B, H, Hk,
+                                                reverse, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int gru_scan_fwd_step(const void* xw, const void* w_tiles, const void* b_hh,
+                                 void* h_a, void* h_b, void* h_all, void* h_fin,
+                                 const void* lengths, int T_len, int B, int H, int Hk,
+                                 int jt, int reverse, int dtype, void* stream) {
+  return fwd_steps<false>(xw, w_tiles, b_hh, h_a, h_b, h_all, h_fin, lengths, T_len,
+                          B, H, Hk, jt, reverse, dtype, stream);
+}
+
+// The same launches with the slice streamed through shared memory in K
+// chunks (step_stream.cuh): any H, for H above the whole-slice block's limit.
+extern "C" int gru_scan_fwd_step_chunked(const void* xw, const void* w_tiles,
+                                         const void* b_hh, void* h_a, void* h_b,
+                                         void* h_all, void* h_fin, const void* lengths,
+                                         int T_len, int B, int H, int Hk, int jt,
+                                         int reverse, int dtype, void* stream) {
+  return fwd_steps<true>(xw, w_tiles, b_hh, h_a, h_b, h_all, h_fin, lengths, T_len,
+                         B, H, Hk, jt, reverse, dtype, stream);
 }
 
 // Dynamic shared memory of one per-step block, for the wrapper's limit.
 extern "C" int gru_scan_fwd_step_smem(int Hk, int dtype) {
   return (int)(dtype == 0 ? per_step::step_smem<float>(Hk)
                           : per_step::step_smem<__nv_bfloat16>(Hk));
+}
+
+// Dynamic shared memory of one streamed per-step block (any H).
+extern "C" int gru_scan_fwd_step_chunked_smem(int dtype) {
+  return (int)(dtype == 0 ? per_step::stream_smem<float>()
+                          : per_step::stream_smem<__nv_bfloat16>());
 }

@@ -19,9 +19,10 @@
 // tensor-core work (~14 us at the bf16 peak; three times that with high).
 // So it sits near the ridge: both the loads and the tensor cores count.
 //
-// Two engines share the operands' values, the padding and the frames
-// pipeline; the wrapper picks the wgmma engine wherever its 64-row slab
-// fits the shared memory, else the mma.sync engine's 32- or 16-row tiles.
+// Three engines share the operands' values and the padding; the wrapper
+// picks the wgmma engine wherever its 64-row slab fits the shared memory,
+// else the mma.sync engine's 32- or 16-row tiles, else (windows too wide
+// for even 16 rows of frames) the chunked engine at the end of this file.
 // At the flagship shape the wgmma engine took 0.081 ms against the mma.sync
 // engine's 0.114 at the same 128-row tiles, 0.135 against 0.231 in high
 // mode at 64 rows (chip_smoke.py, H100 SXM at 700 W).
@@ -58,9 +59,8 @@
 //
 // The mma.sync engine (logmel_persistent), for windows whose 64-row slab
 // does not fit:
-//   * one block of 8 warps per SM walking tiles of 32 or 16 rows (128 or 64
-//     for comparison), the tile's frames and power in shared memory with
-//     padded rows;
+//   * one block of 8 warps per SM walking tiles of 32 or 16 rows, the
+//     tile's frames and power in shared memory with padded rows;
 //   * the B operands n-major, 64-byte rows, through a ring of 3 stages fed
 //     by 16-byte cp.async with one block barrier per stage;
 //   * ldmatrix + mma.sync m16n8k16, a warp owning rows x (the same bins of
@@ -89,7 +89,7 @@ constexpr int kLDS = kKC + 8;  // stage row stride (bf16): conflict-free ldmatri
 
 template <int TR, bool HIGH>
 struct Cfg {
-  static constexpr int WR = TR >= 64 ? 4 : TR / 16;  // warps along rows
+  static constexpr int WR = TR / 16;                 // warps along rows
   static constexpr int WN = 8 / WR;                  // warps along bins / filters
   static constexpr int MT = TR / (16 * WR);          // m16 tiles per warp
   static constexpr int NT = kPass / (8 * WN);        // n8 tiles per warp (per half)
@@ -326,6 +326,16 @@ logmel_persistent(const float* __restrict__ frames, int rows, int n_fft, int Kf,
         frames_step();
         const bf16* st = ring + slot * stage_elems;
         slot = slot + 1 == kStages ? 0 : slot + 1;
+        // the stage's products go into fresh accumulators, added to the
+        // running sums after it: the tensor cores' accumulation truncates,
+        // so summing all of K in one accumulator drifts with n_fft
+        float sr[MT][NT][4], si[MT][NT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sr[m][j][e] = si[m][j][e] = 0.0f;
 #pragma unroll
         for (int ks = 0; ks < kKC; ks += 16) {
           uint32_t ah[MT][4], al[MT][4];
@@ -341,11 +351,11 @@ logmel_persistent(const float* __restrict__ frames, int rows, int n_fft, int Kf,
           for (int m = 0; m < MT; ++m)
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
-              mma(re[m][j], ah[m], bc[j]);
-              mma(im[m][j], ah[m], bs[j]);
+              mma(sr[m][j], ah[m], bc[j]);
+              mma(si[m][j], ah[m], bs[j]);
               if (HIGH) {
-                mma(re[m][j], al[m], bc[j]);
-                mma(im[m][j], al[m], bs[j]);
+                mma(sr[m][j], al[m], bc[j]);
+                mma(si[m][j], al[m], bs[j]);
               }
             }
           if (HIGH) {
@@ -355,11 +365,20 @@ logmel_persistent(const float* __restrict__ frames, int rows, int n_fft, int Kf,
             for (int m = 0; m < MT; ++m)
 #pragma unroll
               for (int j = 0; j < NT; ++j) {
-                mma(re[m][j], ah[m], bc[j]);
-                mma(im[m][j], ah[m], bs[j]);
+                mma(sr[m][j], ah[m], bc[j]);
+                mma(si[m][j], ah[m], bs[j]);
               }
           }
         }
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              re[m][j][e] += sr[m][j][e];
+              im[m][j][e] += si[m][j][e];
+            }
       }
 #pragma unroll
       for (int m = 0; m < MT; ++m)
@@ -448,12 +467,6 @@ int launch_rows(int tile_rows, const void* frames, int rows, int n_fft, int Kf, 
                 int Mp, const void* bd, const void* bm, const void* k0, int ncm, void* out,
                 int n_mels, void* power, int grid, cudaStream_t s) {
   switch (tile_rows) {
-    case 128:
-      return launch<128, HIGH>(frames, rows, n_fft, Kf, Kbp, Mp, bd, bm, k0, ncm, out,
-                               n_mels, power, grid, s);
-    case 64:
-      return launch<64, HIGH>(frames, rows, n_fft, Kf, Kbp, Mp, bd, bm, k0, ncm, out,
-                              n_mels, power, grid, s);
     case 32:
       return launch<32, HIGH>(frames, rows, n_fft, Kf, Kbp, Mp, bd, bm, k0, ncm, out,
                               n_mels, power, grid, s);
@@ -878,13 +891,195 @@ int launch_rows(int tile_rows, const void* frames, int rows, int n_fft, int Kf, 
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// The chunked engine (namespace wide), for windows whose tile of frames does
+// not fit the shared memory at all (n_fft above ~3500, ~2200 in high mode,
+// on an H100): two launches that hold only K chunks.
+//   * dft_chunked: a block per 32 frame rows and DFT pass of 64 bins walks
+//     the sample axis 32 values at a time: the chunk's frames (split into
+//     bf16 high and low parts in high mode) and its cos / sin rows of the
+//     pass (and their low parts) go into shared memory, ldmatrix +
+//     mma.sync m16n8k16 accumulate re and im in fp32 registers; then
+//     power = re^2 + im^2 is written to global memory rounded to bf16 (and
+//     in fp32 where the caller asks for it);
+//   * mel_chunked: a block per 32 rows and mel pass of 64 filters walks its
+//     pass's window of 32-bin chunks of that power with the filterbank, then
+//     log1p and the store of the real rows and filters.
+// Shared memory is the same for every n_fft (wide::kSmem).
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+constexpr int kRows = 32;       // frame rows of a block
+constexpr int kWideThreads = 128;  // 4 warps: 2 along rows x 2 along bins / filters
+
+__host__ __device__ constexpr size_t smem_bytes() {
+  return 2 * ((size_t)2 * kRows * kLDS + (size_t)4 * kPass * kLDS);
+}
+
+// Shapes as logmel_rows's; pw (rows, Kbp) bf16 receives the power rounded
+// to bf16, power (rows, Kbp) fp32 (or null) the power before rounding.
+template <bool HIGH>
+__global__ void __launch_bounds__(kWideThreads)
+dft_chunked(const float* __restrict__ frames, int rows, int n_fft, int Kf, int Kbp,
+            const bf16* __restrict__ bd, bf16* __restrict__ pw, float* __restrict__ power) {
+  __shared__ __align__(16) bf16 fh[kRows * kLDS];
+  __shared__ __align__(16) bf16 fl[kRows * kLDS];
+  __shared__ __align__(16) bf16 st[4 * kPass * kLDS];  // cos, sin, cos-low, sin-low
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = blockIdx.x * kRows, p = blockIdx.y;
+  const int wr = (warp % 2) * 16, wn = (warp / 2) * 32;
+  constexpr int NQ = HIGH ? 4 : 2;
+  float re[4][4] = {}, im[4][4] = {};
+
+  for (int k0 = 0; k0 < Kf; k0 += kKC) {
+    __syncthreads();  // the chunk before is no longer read
+    for (int i = threadIdx.x; i < NQ * kPass * 4; i += kWideThreads) {
+      const int row = i / 4, q16 = i % 4;
+      cp16(st + row * kLDS + 8 * q16,
+           bd + ((size_t)(p * 4 + row / kPass) * kPass + row % kPass) * Kf + k0 + 8 * q16);
+    }
+    cp_commit();
+    for (int i = threadIdx.x; i < kRows * kKC; i += kWideThreads) {
+      const int r = i / kKC, k = i % kKC;
+      const float x = (r0 + r < rows && k0 + k < n_fft)
+                          ? frames[(size_t)(r0 + r) * n_fft + k0 + k] : 0.0f;
+      const bf16 h = __float2bfloat16(x);
+      fh[r * kLDS + k] = h;
+      if (HIGH) fl[r * kLDS + k] = __float2bfloat16(x - __bfloat162float(h));
+    }
+    cp_wait<0>();
+    __syncthreads();
+    // the chunk's products into fresh accumulators, then added to the
+    // running sums (the tensor cores' accumulation truncates)
+    float sr[4][4] = {}, si[4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kKC; ks += 16) {
+      uint32_t ah[4], al[4], bc[4][2], bs[4][2];
+      load_a(ah, fh, kLDS, wr, ks, lane);
+      load_b<4>(bc, st, wn, ks, lane);
+      load_b<4>(bs, st + kPass * kLDS, wn, ks, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma(sr[j], ah, bc[j]);
+        mma(si[j], ah, bs[j]);
+      }
+      if (HIGH) {
+        uint32_t bcl[4][2], bsl[4][2];
+        load_a(al, fl, kLDS, wr, ks, lane);
+        load_b<4>(bcl, st + 2 * kPass * kLDS, wn, ks, lane);
+        load_b<4>(bsl, st + 3 * kPass * kLDS, wn, ks, lane);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma(sr[j], ah, bcl[j]);
+          mma(si[j], ah, bsl[j]);
+          mma(sr[j], al, bc[j]);
+          mma(si[j], al, bs[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        re[j][e] += sr[j][e];
+        im[j][e] += si[j][e];
+      }
+  }
+
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + wr + g + (e / 2) * 8;
+      const int bin = p * kPass + wn + 8 * j + 2 * t + e % 2;
+      if (row >= rows) continue;
+      const float v = re[j][e] * re[j][e] + im[j][e] * im[j][e];
+      pw[(size_t)row * Kbp + bin] = __float2bfloat16(v);
+      if (power != nullptr) power[(size_t)row * Kbp + bin] = v;
+    }
+}
+
+// pw (rows, Kbp) bf16 from dft_chunked; bm, mel_k0, ncm, out as
+// logmel_rows's.
+__global__ void __launch_bounds__(kWideThreads)
+mel_chunked(const bf16* __restrict__ pw, int rows, int Kbp, const bf16* __restrict__ bm,
+            const int* __restrict__ mel_k0, int ncm, float* __restrict__ out, int n_mels) {
+  __shared__ __align__(16) bf16 pa[kRows * kLDS];
+  __shared__ __align__(16) bf16 st[kPass * kLDS];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = blockIdx.x * kRows, q = blockIdx.y;
+  const int wr = (warp % 2) * 16, wn = (warp / 2) * 32;
+  float acc[4][4] = {};
+  const int c0 = mel_k0[q];
+
+  for (int c = c0; c < c0 + ncm; ++c) {
+    const int k0 = c * kKC;
+    __syncthreads();
+    for (int i = threadIdx.x; i < (kRows + kPass) * 4; i += kWideThreads) {
+      const int row = i / 4, q16 = i % 4;
+      if (row < kRows) {
+        bf16* dst = pa + row * kLDS + 8 * q16;
+        if (r0 + row < rows)
+          cp16(dst, pw + (size_t)(r0 + row) * Kbp + k0 + 8 * q16);
+        else
+          *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
+      } else {
+        const int n = row - kRows;
+        cp16(st + n * kLDS + 8 * q16, bm + ((size_t)q * kPass + n) * Kbp + k0 + 8 * q16);
+      }
+    }
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kKC; ks += 16) {
+      uint32_t a[4], b[4][2];
+      load_a(a, pa, kLDS, wr, ks, lane);
+      load_b<4>(b, st, wn, ks, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma(acc[j], a, b[j]);
+    }
+  }
+
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + wr + g + (e / 2) * 8;
+      const int f = q * kPass + wn + 8 * j + 2 * t + e % 2;
+      if (row < rows && f < n_mels) out[(size_t)row * n_mels + f] = log1pf(acc[j][e]);
+    }
+}
+
+template <bool HIGH>
+int launch(const void* frames, int rows, int n_fft, int Kf, int Kbp, int Mp, const void* bd,
+           const void* bm, const void* mel_k0, int ncm, void* out, int n_mels, void* power,
+           void* pw, cudaStream_t stream) {
+  const dim3 grid_d((rows + kRows - 1) / kRows, Kbp / kPass);
+  dft_chunked<HIGH><<<grid_d, kWideThreads, 0, stream>>>(
+      static_cast<const float*>(frames), rows, n_fft, Kf, Kbp, static_cast<const bf16*>(bd),
+      static_cast<bf16*>(pw), static_cast<float*>(power));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_m((rows + kRows - 1) / kRows, Mp / kPass);
+  mel_chunked<<<grid_m, kWideThreads, 0, stream>>>(
+      static_cast<const bf16*>(pw), rows, Kbp, static_cast<const bf16*>(bm),
+      static_cast<const int*>(mel_k0), ncm, static_cast<float*>(out), n_mels);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide
+
 }  // namespace
 
 // One launch over all rows on `stream`, no sync: a persistent grid of at
 // most `grid` blocks (one per SM).  engine 1 is the wgmma engine, walking
 // tiles of tile_rows = 128 or 64 rows (two or one consumer warpgroups), with
 // bd and bm in its core-matrix layout (see logmel_wgmma); engine 0 the
-// mma.sync engine, tiles of 128, 64, 32 or 16 rows, bd and bm n-major (see
+// mma.sync engine, tiles of 32 or 16 rows, bd and bm n-major (see
 // logmel_persistent).  frames (rows, n_fft) fp32; Kf = n_fft rounded up to
 // 32, Kbp the bins (n_fft / 2 + 1) and Mp the filters rounded up to 64;
 // mel_k0 (Mp / 64) int and ncm the mel passes' windows of 32-bin chunks; out
@@ -914,9 +1109,29 @@ extern "C" int logmel_rows(const void* frames, int rows, int n_fft, int Kf, int 
                             ncm, out, n_mels, power, grid, s);
 }
 
-// Dynamic shared memory of one block, for the wrapper's choice of engine
-// and tile_rows.
+// The chunked engine (any n_fft): two launches on `stream`, no sync, of
+// the DFT power into pw (rows, Kbp) bf16 scratch and of the mel product
+// from it.  Arguments otherwise as logmel_rows's, with bd and bm n-major.
+extern "C" int logmel_rows_chunked(const void* frames, int rows, int n_fft, int Kf, int Kbp,
+                                   int Mp, const void* bd, const void* bm,
+                                   const void* mel_k0, int ncm, void* out, int n_mels,
+                                   void* power, void* pw, int high, void* stream) {
+  if (rows <= 0) return 0;
+  if (Kf % kKC != 0 || Kf < n_fft || Kbp % kPass != 0 || Kbp < n_fft / 2 + 1
+      || Mp % kPass != 0 || n_mels <= 0 || Mp < n_mels || ncm < 1 || ncm > Kbp / kKC)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (high)
+    return wide::launch<true>(frames, rows, n_fft, Kf, Kbp, Mp, bd, bm, mel_k0, ncm, out,
+                              n_mels, power, pw, s);
+  return wide::launch<false>(frames, rows, n_fft, Kf, Kbp, Mp, bd, bm, mel_k0, ncm, out,
+                             n_mels, power, pw, s);
+}
+
+// Shared memory of one block, for the wrapper's choice of engine and
+// tile_rows (engine 2, the chunked engine: its static shared memory).
 extern "C" int logmel_smem(int tile_rows, int Kf, int Kbp, int high, int engine) {
+  if (engine == 2) return (int)wide::smem_bytes();
   if (engine == 1) return (int)wg::smem_bytes(tile_rows / 64, Kf, Kbp, high != 0);
   return (int)smem_bytes(tile_rows, Kf, Kbp, high != 0);
 }

@@ -68,6 +68,7 @@
 
 #include "gates_gemm.cuh"
 #include "rnn_persistent.cuh"
+#include "step_stream.cuh"
 
 namespace {
 
@@ -364,7 +365,7 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* src, size_t elems) {
 // dg_in / dg_out (B, Kc) fp32, zero for k >= 4H; rest_in / rest_out and dc
 // (B, H) fp32; dxw_t (B, 4H).  final != 0: only close the chains into dh0
 // and dc0 (B, H).
-template <typename T>
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 lstm_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
               const T* __restrict__ cprev_t, const T* __restrict__ gout_t,
@@ -378,23 +379,37 @@ lstm_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
   constexpr int CR = 4 * kStepJT;  // gate columns of the block
   constexpr int CC = kStepJT;      // chain rows of the block
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* wc_s = reinterpret_cast<T*>(smem_raw);          // (CC, Kc)
+  T* wc_s = reinterpret_cast<T*>(smem_raw);          // (CC, Kc), or the chunk ring
   T* wr_s = wc_s + (size_t)CC * Kc;                  // (CR, Hk)
-  float* dots_c = reinterpret_cast<float*>(wr_s + (size_t)CR * Hk);
+  float* dots_c = reinterpret_cast<float*>(
+      kStream ? smem_raw + step_stream::ring_bytes<T>(CR)
+              : reinterpret_cast<unsigned char*>(wr_s + (size_t)CR * Hk));
   float* dots_r = dots_c + kRowChunk * CC;
 
   const int j0 = blockIdx.x * kStepJT;
-  copy_tile(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, (size_t)CC * Kc);
-  if (!final)
-    copy_tile(wr_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, (size_t)CR * Hk);
-  __syncthreads();
+  if constexpr (!kStream) {
+    copy_tile(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, (size_t)CC * Kc);
+    if (!final)
+      copy_tile(wr_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, (size_t)CR * Hk);
+    __syncthreads();
+  }
 
   for (int r0 = 0; r0 < B; r0 += kRowChunk) {
     const int nrows = min(kRowChunk, B - r0);
     const Split s = split_rows(nrows, kRows);
-    chunk_dots<T, float, CC>(wc_s, dg_in, Kc, Kc, r0, nrows, s, dots_c);
-    if (!final)
-      chunk_dots<T, T, CR>(wr_s, hprev_t, Hk, Hk, r0, nrows, s, dots_r);
+    if constexpr (kStream) {
+      step_stream::streamed_dots<T, float, CC, kRows>(
+          wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, Kc, dg_in, Kc, Kc, r0,
+          nrows, s, dots_c);
+      if (!final)
+        step_stream::streamed_dots<T, T, CR, kRows>(
+            wc_s, rec_tiles + (size_t)blockIdx.x * CR * Hk, Hk, hprev_t, Hk, Hk, r0,
+            nrows, s, dots_r);
+    } else {
+      chunk_dots<T, float, CC>(wc_s, dg_in, Kc, Kc, r0, nrows, s, dots_c);
+      if (!final)
+        chunk_dots<T, T, CR>(wr_s, hprev_t, Hk, Hk, r0, nrows, s, dots_r);
+    }
     __syncthreads();
 
     for (int p = threadIdx.x; p < nrows * kStepJT; p += kThreads) {
@@ -455,17 +470,25 @@ lstm_bwd_step(const T* __restrict__ xw_t, const T* __restrict__ hprev_t,
   }
 }
 
-template <typename T>
+// Dynamic shared memory of one per-step block: its two whole slices (kStepJT
+// rows of Kc, 4 kStepJT rows of Hk), or, streamed, the chunk ring of the
+// wider one, whatever H is; plus the two dot buffers.
+template <typename T, bool kStream> constexpr size_t step_smem(int Hk, int Kc) {
+  return (kStream ? step_stream::ring_bytes<T>(4 * kStepJT)
+                  : sizeof(T) * ((size_t)kStepJT * Kc + (size_t)4 * kStepJT * Hk))
+         + sizeof(float) * kRowChunk * 5 * kStepJT;
+}
+
+template <typename T, bool kStream>
 int launch_steps(const void* xw, const void* hprev, const void* cprev,
                  const void* gout, const void* rec_tiles, const void* chain_tiles,
                  const void* b_hh, const void* lengths, void* dg_a, void* dg_b,
                  void* rest_a, void* rest_b, void* dc, void* dxw, void* dh0,
                  void* dc0, int T_len, int B, int H, int Hk, int Kc, int reverse,
                  cudaStream_t stream) {
-  const size_t smem = sizeof(T) * ((size_t)kStepJT * Kc + (size_t)4 * kStepJT * Hk)
-                      + sizeof(float) * kRowChunk * 5 * kStepJT;
+  const size_t smem = step_smem<T, kStream>(Hk, Kc);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      lstm_bwd_step<T, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + kStepJT - 1) / kStepJT);
   const T* xw_p = static_cast<const T*>(xw);
@@ -478,7 +501,7 @@ int launch_steps(const void* xw, const void* hprev, const void* cprev,
   for (int s = 0; s <= T_len; ++s) {
     const int final = s == T_len;
     const int t = final ? 0 : (reverse ? s : T_len - 1 - s);
-    lstm_bwd_step<T><<<grid, kThreads, smem, stream>>>(
+    lstm_bwd_step<T, kStream><<<grid, kThreads, smem, stream>>>(
         xw_p + (size_t)t * B * 4 * H, hp_p + (size_t)t * B * Hk,
         cp_p + (size_t)t * B * H, go_p + (size_t)t * B * H,
         static_cast<const T*>(rec_tiles), static_cast<const T*>(chain_tiles),
@@ -542,6 +565,30 @@ extern "C" int lstm_scan_bwd_max_blocks(int Kc, int jt, int dtype) {
 // g_hfin as (B, H) fp32; dg_b (zero) and rest_b are scratch of the same
 // shapes; dc holds g_cfin as (B, H) fp32 and is updated in place.  jt must
 // be kStepJT.  Returns 0 or the first cudaError_t met.
+template <bool kStream>
+static int bwd_steps(const void* xw, const void* hprev, const void* cprev,
+                     const void* gout, const void* rec_tiles, const void* chain_tiles,
+                     const void* b_hh, const void* lengths, void* dg_a, void* dg_b,
+                     void* rest_a, void* rest_b, void* dc, void* dxw, void* dh0,
+                     void* dc0, int T_len, int B, int H, int Hk, int Kc, int jt,
+                     int reverse, int dtype, void* stream) {
+  using namespace per_step;
+  if (T_len <= 0 || B <= 0) return 0;
+  if (jt != kStepJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 4 * H)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_steps<float, kStream>(xw, hprev, cprev, gout, rec_tiles, chain_tiles,
+                                        b_hh, lengths, dg_a, dg_b, rest_a, rest_b, dc,
+                                        dxw, dh0, dc0, T_len, B, H, Hk, Kc, reverse, s);
+  if (dtype == 1)
+    return launch_steps<__nv_bfloat16, kStream>(xw, hprev, cprev, gout, rec_tiles,
+                                                chain_tiles, b_hh, lengths, dg_a, dg_b,
+                                                rest_a, rest_b, dc, dxw, dh0, dc0,
+                                                T_len, B, H, Hk, Kc, reverse, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int lstm_scan_bwd_step(const void* xw, const void* hprev, const void* cprev,
                                   const void* gout, const void* rec_tiles,
                                   const void* chain_tiles, const void* b_hh,
@@ -550,19 +597,30 @@ extern "C" int lstm_scan_bwd_step(const void* xw, const void* hprev, const void*
                                   void* dh0, void* dc0, int T_len, int B, int H,
                                   int Hk, int Kc, int jt, int reverse, int dtype,
                                   void* stream) {
+  return bwd_steps<false>(xw, hprev, cprev, gout, rec_tiles, chain_tiles, b_hh, lengths,
+                          dg_a, dg_b, rest_a, rest_b, dc, dxw, dh0, dc0, T_len, B, H,
+                          Hk, Kc, jt, reverse, dtype, stream);
+}
+
+// The same launches with both slices streamed through shared memory in K
+// chunks (step_stream.cuh): any H, for H above the whole-slice block's limit.
+extern "C" int lstm_scan_bwd_step_chunked(const void* xw, const void* hprev,
+                                          const void* cprev, const void* gout,
+                                          const void* rec_tiles, const void* chain_tiles,
+                                          const void* b_hh, const void* lengths,
+                                          void* dg_a, void* dg_b, void* rest_a,
+                                          void* rest_b, void* dc, void* dxw, void* dh0,
+                                          void* dc0, int T_len, int B, int H, int Hk,
+                                          int Kc, int jt, int reverse, int dtype,
+                                          void* stream) {
+  return bwd_steps<true>(xw, hprev, cprev, gout, rec_tiles, chain_tiles, b_hh, lengths,
+                         dg_a, dg_b, rest_a, rest_b, dc, dxw, dh0, dc0, T_len, B, H, Hk,
+                         Kc, jt, reverse, dtype, stream);
+}
+
+// Dynamic shared memory of one streamed per-step block (any H).
+extern "C" int lstm_scan_bwd_step_chunked_smem(int dtype) {
   using namespace per_step;
-  if (T_len <= 0 || B <= 0) return 0;
-  if (jt != kStepJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 4 * H)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_steps<float>(xw, hprev, cprev, gout, rec_tiles, chain_tiles,
-                               b_hh, lengths, dg_a, dg_b, rest_a, rest_b, dc, dxw,
-                               dh0, dc0, T_len, B, H, Hk, Kc, reverse, s);
-  if (dtype == 1)
-    return launch_steps<__nv_bfloat16>(xw, hprev, cprev, gout, rec_tiles,
-                                       chain_tiles, b_hh, lengths, dg_a, dg_b,
-                                       rest_a, rest_b, dc, dxw, dh0, dc0, T_len,
-                                       B, H, Hk, Kc, reverse, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 0 ? step_smem<float, true>(0, 0)
+                          : step_smem<__nv_bfloat16, true>(0, 0));
 }

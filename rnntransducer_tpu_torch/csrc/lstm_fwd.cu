@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "rnn_persistent.cuh"
+#include "step_stream.cuh"
 
 namespace {
 
@@ -251,8 +252,10 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 // One timestep.  Shapes: xw_t (B, 4H); w_tiles (ceil(H/kStepJT),
 // 4 kStepJT, Hk) with zero padding for k >= H and j >= H; b_hh (4H); h_prev / h_next (B, Hk)
 // fp32 with zero padding for k >= H; c_state (B, H) fp32; hall_t and call_t
-// (B, H); h_fin and c_fin (B, H) or null.
-template <typename T>
+// (B, H); h_fin and c_fin (B, H) or null.  kStream: the slice is streamed
+// through shared memory in K chunks (step_stream.cuh) instead of copied
+// whole.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kThreads)
 lstm_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
               const T* __restrict__ b_hh, const float* __restrict__ h_prev,
@@ -262,18 +265,19 @@ lstm_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
               const int* __restrict__ lengths, int t, int B, int H, int Hk) {
   constexpr int C = 4 * kStepJT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // (C, Hk)
-  float* dots = reinterpret_cast<float*>(smem_raw + sizeof(T) * C * (size_t)Hk);
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // (C, Hk), or the chunk ring
+  float* dots = reinterpret_cast<float*>(
+      smem_raw + (kStream ? step_stream::ring_bytes<T>(C) : sizeof(T) * C * (size_t)Hk));
 
   const int j0 = blockIdx.x * kStepJT;
-  {
+  if constexpr (!kStream) {
     const int4* src = reinterpret_cast<const int4*>(
         w_tiles + (size_t)blockIdx.x * C * Hk);
     int4* dst = reinterpret_cast<int4*>(w_s);
     const int n16 = (int)(sizeof(T) * C * (size_t)Hk / 16);
     for (int i = threadIdx.x; i < n16; i += kThreads) dst[i] = __ldg(src + i);
+    __syncthreads();
   }
-  __syncthreads();
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -288,6 +292,11 @@ lstm_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
     const int my_ks = warp % ksplit;
     const int npad = ngroups * kRows;
 
+    if constexpr (kStream)
+      step_stream::streamed_dots<T, float, C, kRows>(
+          w_s, w_tiles + (size_t)blockIdx.x * C * Hk, Hk, h_prev, Hk, Hk, r0, nrows,
+          split_rows(nrows, kRows), dots);
+    else
     for (int g = my_rg; g < ngroups; g += rg) {
       float acc[kRows][C];
 #pragma unroll
@@ -383,15 +392,22 @@ lstm_fwd_step(const T* __restrict__ xw_t, const T* __restrict__ w_tiles,
   }
 }
 
-template <typename T>
+// Dynamic shared memory of one per-step block: its whole slice, or the two
+// chunk buffers when it streams the slice; plus the dot buffer.
+template <typename T, bool kStream> constexpr size_t step_smem(int Hk) {
+  return (kStream ? step_stream::ring_bytes<T>(4 * kStepJT)
+                  : sizeof(T) * 4 * kStepJT * (size_t)Hk)
+         + sizeof(float) * kRowChunk * 4 * kStepJT;
+}
+
+template <typename T, bool kStream>
 int launch_steps(const void* xw, const void* w_tiles, const void* b_hh,
                  void* h_a, void* h_b, void* c_state, void* h_all, void* c_all,
                  void* h_fin, void* c_fin, const void* lengths, int T_len, int B,
                  int H, int Hk, int reverse, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * 4 * kStepJT * (size_t)Hk
-                      + sizeof(float) * kRowChunk * 4 * kStepJT;
+  const size_t smem = step_smem<T, kStream>(Hk);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_step<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_fwd_step<T, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((H + kStepJT - 1) / kStepJT);
@@ -403,7 +419,7 @@ int launch_steps(const void* xw, const void* w_tiles, const void* b_hh,
   for (int s = 0; s < T_len; ++s) {
     const int t = reverse ? T_len - 1 - s : s;
     const bool last = s == T_len - 1;
-    lstm_fwd_step<T><<<grid, kThreads, smem, stream>>>(
+    lstm_fwd_step<T, kStream><<<grid, kThreads, smem, stream>>>(
         xw_p + (size_t)t * B * 4 * H, static_cast<const T*>(w_tiles),
         static_cast<const T*>(b_hh), hp, hn, static_cast<float*>(c_state),
         hall_p + (size_t)t * B * H, call_p + (size_t)t * B * H,
@@ -466,23 +482,50 @@ extern "C" int lstm_scan_fwd_max_blocks(int Hk, int jt, int dtype) {
 // kStepJT.  dtype as above.  h_a holds h0 (fp32, (B, Hk), zero padded); h_b
 // is scratch of the same shape; c_state holds c0 (fp32, (B, H)) and is
 // updated in place.  Returns 0 or the first cudaError_t met.
+template <bool kStream>
+static int fwd_steps(const void* xw, const void* w_tiles, const void* b_hh, void* h_a,
+                     void* h_b, void* c_state, void* h_all, void* c_all, void* h_fin,
+                     void* c_fin, const void* lengths, int T_len, int B, int H, int Hk,
+                     int jt, int reverse, int dtype, void* stream) {
+  using namespace per_step;
+  if (T_len <= 0 || B <= 0) return 0;
+  if (jt != kStepJT || Hk % 64 != 0 || Hk < H) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_steps<float, kStream>(xw, w_tiles, b_hh, h_a, h_b, c_state, h_all,
+                                        c_all, h_fin, c_fin, lengths, T_len, B, H, Hk,
+                                        reverse, s);
+  if (dtype == 1)
+    return launch_steps<__nv_bfloat16, kStream>(xw, w_tiles, b_hh, h_a, h_b, c_state,
+                                                h_all, c_all, h_fin, c_fin, lengths,
+                                                T_len, B, H, Hk, reverse, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int lstm_scan_fwd_step(const void* xw, const void* w_tiles,
                                   const void* b_hh, void* h_a, void* h_b,
                                   void* c_state, void* h_all, void* c_all,
                                   void* h_fin, void* c_fin, const void* lengths,
                                   int T_len, int B, int H, int Hk, int jt,
                                   int reverse, int dtype, void* stream) {
+  return fwd_steps<false>(xw, w_tiles, b_hh, h_a, h_b, c_state, h_all, c_all, h_fin,
+                          c_fin, lengths, T_len, B, H, Hk, jt, reverse, dtype, stream);
+}
+
+// The same launches with the slice streamed through shared memory in K
+// chunks (step_stream.cuh): any H, for H above the whole-slice block's limit.
+extern "C" int lstm_scan_fwd_step_chunked(const void* xw, const void* w_tiles,
+                                          const void* b_hh, void* h_a, void* h_b,
+                                          void* c_state, void* h_all, void* c_all,
+                                          void* h_fin, void* c_fin, const void* lengths,
+                                          int T_len, int B, int H, int Hk, int jt,
+                                          int reverse, int dtype, void* stream) {
+  return fwd_steps<true>(xw, w_tiles, b_hh, h_a, h_b, c_state, h_all, c_all, h_fin,
+                         c_fin, lengths, T_len, B, H, Hk, jt, reverse, dtype, stream);
+}
+
+// Dynamic shared memory of one streamed per-step block (any H).
+extern "C" int lstm_scan_fwd_step_chunked_smem(int dtype) {
   using namespace per_step;
-  if (T_len <= 0 || B <= 0) return 0;
-  if (jt != kStepJT || Hk % 64 != 0 || Hk < H) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_steps<float>(xw, w_tiles, b_hh, h_a, h_b, c_state, h_all,
-                               c_all, h_fin, c_fin, lengths, T_len, B, H, Hk,
-                               reverse, s);
-  if (dtype == 1)
-    return launch_steps<__nv_bfloat16>(xw, w_tiles, b_hh, h_a, h_b, c_state,
-                                       h_all, c_all, h_fin, c_fin, lengths,
-                                       T_len, B, H, Hk, reverse, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 0 ? step_smem<float, true>(0) : step_smem<__nv_bfloat16, true>(0));
 }

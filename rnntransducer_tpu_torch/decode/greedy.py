@@ -12,6 +12,8 @@ Same emission rule as the JAX frame scan:
 
 The frame loop is a Python loop of device ops with no host sync inside;
 the carry's token and time buffers are updated in place.
+:func:`greedy_decode_label_looping` walks events instead of frames and
+emits the same tokens.
 """
 
 from __future__ import annotations
@@ -127,3 +129,57 @@ def greedy_decode_with_times(model: RNNTransducer, feats: torch.Tensor,
     carry = greedy_decode_frames(model, enc, enc_lengths, carry, blank_id,
                                  max_symbols)
     return carry.tokens, carry.lengths, carry.times
+
+
+# iterations of the label loop between two host reads of "any utterance
+# still active" (each read is a sync)
+_CHECK_EVERY = 8
+
+
+@torch.inference_mode()
+def greedy_decode_label_looping(model: RNNTransducer, feats: torch.Tensor,
+                                feat_lengths: torch.Tensor, blank_id: int = 0,
+                                max_symbols: int = 3, max_output_len: int = 256
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Label-looping greedy decode (after arXiv:2406.03791): a loop over
+    events instead of frames.  Each iteration advances every utterance by
+    one event, a blank (its frame pointer moves on) or a label (one
+    prediction-network step), so the loop runs about T + U iterations of
+    one joint and one prediction step, where the frame loop runs
+    ``max_symbols`` of each on every frame.  The tokens are the frame loop's
+    (the same emission rule).  The loop is Python over device tensors; the
+    host reads whether any utterance is still active every ``_CHECK_EVERY``
+    iterations (an iteration after all are done changes nothing).  Returns
+    (tokens (B, max_output_len) padded with blank_id, lengths (B,))."""
+    enc, lengths = _encode(model, feats, feat_lengths)
+    B, T = enc.shape[0], enc.shape[1]
+    dev = enc.device
+    lengths = lengths.to(dev)
+    rows = torch.arange(B, device=dev)
+    blank = torch.full((B,), blank_id, dtype=torch.int64, device=dev)
+    dec_out, state = model.predict_step(blank, None)
+    t_ptr = torch.zeros((B,), dtype=torch.int64, device=dev)
+    syms = torch.zeros_like(t_ptr)
+    last_app = blank.clone()
+    out_buf = torch.full((B, max_output_len), blank_id, dtype=torch.int64, device=dev)
+    out_len = torch.zeros_like(t_ptr)
+    it = 0
+    while it % _CHECK_EVERY or bool((t_ptr < lengths).any()):
+        it += 1
+        active = t_ptr < lengths
+        enc_t = enc[rows, t_ptr.clamp(max=T - 1)]
+        tok = model.joint_step(enc_t, dec_out).argmax(dim=-1)
+        emit = active & (tok != blank_id) & (syms < max_symbols)
+        # a blank or an exhausted budget moves the frame pointer on
+        t_ptr = torch.where(active & ~emit, t_ptr + 1, t_ptr)
+        syms = torch.where(emit, syms + 1, torch.where(active, 0, syms))
+        # a label: appended unless it repeats the last one, then fed back
+        do_append = emit & (tok != last_app) & (out_len < max_output_len)
+        idx = out_len.clamp(max=max_output_len - 1)
+        out_buf[rows, idx] = torch.where(do_append, tok, out_buf[rows, idx])
+        out_len = out_len + do_append.to(torch.int64)
+        last_app = torch.where(do_append, tok, last_app)
+        new_dec_out, new_state = model.predict_step(torch.where(emit, tok, blank), state)
+        dec_out = torch.where(emit[:, None], new_dec_out, dec_out)
+        state = _select_state(emit, new_state, state)
+    return out_buf, out_len

@@ -25,9 +25,12 @@ and multiplies in fp32, so on the CPU it is exact up to summation order.
 ``logmel_fused`` dispatches on the device of ``wav``: the plain version for
 a CPU tensor, the hand-written kernel ``csrc/logmel.cu`` for a CUDA tensor,
 or the call raises.  ``logmel_fused.launches`` counts its kernel launches
-(one per call).  The kernel has two engines (:func:`kernel_plan`): wgmma
-where its 64-row slab fits the card's shared memory, else mma.sync on
-smaller tiles.  :func:`kernel_mats_reference` is the plain mirror of the
+(one per call; two on the chunked engine).  The kernel has three engines
+(:func:`kernel_plan`): wgmma where its 64-row slab fits the card's shared
+memory, else mma.sync on smaller tiles, else, for windows too wide for a
+16-row tile of frames, the chunked engine, which holds only 32-sample
+chunks of the frames and passes the power through global memory to its
+mel stage, so any n_fft runs.  :func:`kernel_mats_reference` is the plain mirror of the
 kernel's padded operands, :func:`kernel_mats_wgmma` the same values in the
 wgmma engine's layout.  A launch's plan, operands and mel windows are
 worked out once per (config, mode, device).
@@ -53,13 +56,14 @@ from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 # the kernel's widths (csrc/logmel.cu): bins and mel filters are walked in
 # passes of 64, the sample axis (and bins, as the mel product's K) in ring
 # stages of 32, a ring of 3 stages; the wgmma engine's tile holds 128 or 64
-# frame rows, the mma.sync engine's 128, 64, 32 or 16
+# frame rows, the mma.sync engine's 32 or 16, the chunked engine's blocks 32
 _PASS, _K_STAGE = 64, 32
 _STAGES = {"wgmma": 3, "mma": 3}
-_ENGINES = {"mma": 0, "wgmma": 1}
+_ENGINES = {"mma": 0, "wgmma": 1, "chunked": 2}
 # the plans in the order the wrapper tries them: the wgmma engine where a
-# 64-row slab fits the shared memory, else the mma.sync engine's small tiles
-_PLANS = (("wgmma", 128), ("wgmma", 64), ("mma", 32), ("mma", 16))
+# 64-row slab fits the shared memory, else the mma.sync engine's small
+# tiles, else the chunked engine (its shared memory does not grow with n_fft)
+_PLANS = (("wgmma", 128), ("wgmma", 64), ("mma", 32), ("mma", 16), ("chunked", 32))
 
 
 def _round_up(x, m):
@@ -201,8 +205,13 @@ def kernel_smem_bytes(plan, cfg: AudioConfig, high: bool) -> int:
     stages of 128 (256 in high mode) operand rows, 128 bytes of barriers,
     and per 64-row slab the bf16 frames (and their remainders in high mode)
     and the bf16 power.  mma.sync: the tile's frames and power, every row
-    padded by 8 values, and its ring's 3 stages of 2 (4) x 64 rows."""
+    padded by 8 values, and its ring's 3 stages of 2 (4) x 64 rows.  The
+    chunked engine: 32 rows of a 32-sample chunk of frames and of their low
+    parts, and 4 x 64 operand rows of the chunk, each row padded by 8, in
+    static shared memory, whatever n_fft and the mode."""
     engine, tile_rows = plan
+    if engine == "chunked":
+        return 2 * (2 * tile_rows + 4 * _PASS) * (_K_STAGE + 8)
     Kf, Kbp, _ = kernel_dims(cfg)
     h = 2 if high else 1
     if engine == "wgmma":
@@ -216,15 +225,13 @@ def kernel_plan(cfg: AudioConfig, high: bool, smem: int):
     """(engine, tile rows) of a launch: the first of 128 and 64 rows on the
     wgmma engine, then 32 and 16 on the mma.sync engine, whose block fits
     ``smem`` bytes of shared memory (larger tiles read the operands from L2
-    fewer times).  ValueError where not even 16 rows fit."""
+    fewer times); where not even 16 rows of frames fit, the chunked engine,
+    whose shared memory does not depend on n_fft."""
     for plan in _PLANS:
         if kernel_smem_bytes(plan, cfg, high) <= smem:
             return plan
-    raise ValueError(
-        f"the logmel kernel holds a tile of at least 16 frame rows of n_fft = "
-        f"{cfg.n_fft} in shared memory; that takes "
-        f"{kernel_smem_bytes(_PLANS[-1], cfg, high)} bytes, above the {smem} a block "
-        f"may use on this card (high_precision={high})")
+    raise ValueError(f"the logmel kernel needs {kernel_smem_bytes(_PLANS[-1], cfg, high)} "
+                     f"bytes of shared memory, above the {smem} a block may use")
 
 
 def kernel_mats_reference(cfg: AudioConfig):
@@ -290,6 +297,8 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.logmel_rows.argtypes = [p] + [i] * 5 + [p] * 3 + [i, p, i, p] + [i] * 4 + [p]
         lib.logmel_rows.restype = i
+        lib.logmel_rows_chunked.argtypes = [p] + [i] * 5 + [p] * 3 + [i, p, i, p, p, i, p]
+        lib.logmel_rows_chunked.restype = i
         lib.logmel_smem.argtypes = [i] * 5
         lib.logmel_smem.restype = i
         lib._argtypes_set = True
@@ -338,12 +347,23 @@ def logmel_rows_cuda(rows, cfg: AudioConfig, high_precision: bool = False,
     out = torch.empty((R, cfg.n_mels), dtype=torch.float32, device=dev)
     if R == 0:
         return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if engine == _ENGINES["chunked"]:
+        pw = torch.empty((R, Kbp), dtype=torch.bfloat16, device=dev)
+        err = _library().logmel_rows_chunked(
+            rows.data_ptr(), R, n_fft, Kf, Kbp, Mp, bd.data_ptr(), bm.data_ptr(),
+            mel_k0.data_ptr(), ncm, out.data_ptr(), cfg.n_mels,
+            power.data_ptr() if power is not None else None, pw.data_ptr(),
+            int(high_precision), stream)
+        if err != 0:
+            raise RuntimeError(f"logmel kernel failed with CUDA error {err}")
+        logmel_fused.launches += 2
+        return out
     err = _library().logmel_rows(
         rows.data_ptr(), R, n_fft, Kf, Kbp, Mp, bd.data_ptr(), bm.data_ptr(),
         mel_k0.data_ptr(), ncm, out.data_ptr(), cfg.n_mels,
         power.data_ptr() if power is not None else None,
-        int(high_precision), tile_rows, engine, grid,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(high_precision), tile_rows, engine, grid, stream)
     if err != 0:
         raise RuntimeError(f"logmel kernel failed with CUDA error {err}")
     logmel_fused.launches += 1

@@ -29,8 +29,11 @@ may opt in to (:func:`device_limits`).  Above it a call takes the per-step
 kernels (T launches per forward scan, T + 1 per backward scan), chosen by
 :func:`gru_route` / :func:`lstm_route` from (H, B, dtype, device) before
 any launch, as the JAX package's ``rnn_pallas.supported()`` gate chooses.
-Where even a per-step block's slice does not fit the card's shared memory
-(:func:`step_max_hidden`), the call raises ``ValueError`` before any launch.
+Where even a per-step block's whole slice does not fit the card's shared
+memory (:func:`step_max_hidden`), the per-step kernels stream the slice
+through shared memory in K chunks (route ``"step_chunked"``, the same
+launch counts), so every H runs; :func:`step_chunked_reference` mirrors
+that arithmetic on the CPU.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ _LSTM_STEP_TILE_WIDTH = 4          # LSTM units per block, per-step route (kStep
 _LSTM_CHAIN_ROWS = 8               # rows of a persistent LSTM chain slice (CC)
 _K_ALIGN = 64                      # the kernel's K loop walks 64 at a time
 _STEP_ROWS = 64                    # rows of a per-step block's dot buffer (kRowChunk)
+_STEP_CHUNK = 256                  # K values a streamed per-step block holds (kChunk)
 _COOPERATIVE_TOO_LARGE = 720       # cudaErrorCooperativeLaunchTooLarge
 def _is_cuda(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
@@ -67,14 +71,28 @@ def _limits(device, sms: Optional[int], smem: Optional[int]) -> Tuple[int, int]:
     return (d_sms if sms is None else sms), (d_smem if smem is None else smem)
 
 
-def gru_scan_reference(xw, w_hh, b_hh, h0, lengths, reverse: bool = False):
+def _product(a, w, chunk: Optional[int] = None):
+    """a @ w in fp32; with ``chunk``, summed over K in chunks of that many
+    values, as a per-step block that streams its slice sums it
+    (``csrc/step_stream.cuh``)."""
+    if chunk is None:
+        return torch.matmul(a, w)
+    out = torch.matmul(a[..., :chunk], w[:chunk])
+    for k0 in range(chunk, a.shape[-1], chunk):
+        out = out + torch.matmul(a[..., k0:k0 + chunk], w[k0:k0 + chunk])
+    return out
+
+
+def gru_scan_reference(xw, w_hh, b_hh, h0, lengths, reverse: bool = False, *,
+                       chunk: Optional[int] = None):
     """Plain PyTorch version of the kernel, under the same numeric contract:
     fp32 carry, h rounded to W's dtype for the product, fp32 accumulation,
     b_hh added in fp32, xw read as fp32, outputs in xw's dtype.
 
     xw (T, B, 3H); w_hh (H, 3H); b_hh (3H,); h0 (B, H); lengths (B,).
     Returns (h_all (T, B, H), h_final (B, H)); steps t >= lengths[b] keep
-    the carry and emit zeros."""
+    the carry and emit zeros.  ``chunk``: sum each product over K in chunks
+    (:func:`step_chunked_reference`)."""
     T, B, G = xw.shape
     H = G // 3
     w = w_hh.float()
@@ -83,7 +101,7 @@ def gru_scan_reference(xw, w_hh, b_hh, h0, lengths, reverse: bool = False):
     lengths = lengths.to(xw.device)
     h_all = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        hw = torch.matmul(h.to(w_hh.dtype).float(), w) + b
+        hw = _product(h.to(w_hh.dtype).float(), w, chunk) + b
         x = xw[t].float()
         r = torch.sigmoid(x[:, :H] + hw[:, :H])
         z = torch.sigmoid(x[:, H:2 * H] + hw[:, H:2 * H])
@@ -101,8 +119,11 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_scan_fwd.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.gru_scan_fwd.restype = i
-        lib.gru_scan_fwd_step.argtypes = [p] * 8 + [i] * 7 + [p]
-        lib.gru_scan_fwd_step.restype = i
+        for fn in (lib.gru_scan_fwd_step, lib.gru_scan_fwd_step_chunked):
+            fn.argtypes = [p] * 8 + [i] * 7 + [p]
+            fn.restype = i
+        lib.gru_scan_fwd_step_chunked_smem.argtypes = [i]
+        lib.gru_scan_fwd_step_chunked_smem.restype = i
         for fn in (lib.gru_scan_fwd_smem, lib.gru_scan_fwd_max_blocks):
             fn.argtypes = [i, i]
             fn.restype = i
@@ -194,14 +215,24 @@ def gru_max_hidden(B: int, dtype: torch.dtype, device=None, *,
 
 
 def gru_route(H: int, B: int, dtype: torch.dtype, device=None, *,
-              sms: Optional[int] = None, smem: Optional[int] = None) -> str:
-    """The GRU kernels a CUDA call of hidden size H takes, from the shape and
-    the card alone and before any launch: ``"persistent"`` (1 forward
-    launch, 2 backward) or, above :func:`gru_max_hidden`, ``"per_step"`` (T
-    forward, T + 1 backward).  The counterpart of the JAX package's shape
-    gate ``rnn_pallas.supported()``; never a reaction to a failed launch."""
-    return "persistent" if gru_fits(H, B, dtype, device, sms=sms, smem=smem) \
-        else "per_step"
+              backward: bool = False, sms: Optional[int] = None,
+              smem: Optional[int] = None) -> str:
+    """The GRU kernels a CUDA call of hidden size H takes (the backward scan
+    where ``backward``), from the shape and the card alone and before any
+    launch: ``"persistent"`` (1 forward launch, 2 backward); above
+    :func:`gru_max_hidden`, ``"per_step"`` (T forward, T + 1 backward); and
+    above the per-step block's whole-slice limit (:func:`step_max_hidden`),
+    ``"step_chunked"`` (the same launches, the slice streamed in K chunks).
+    The counterpart of the JAX package's shape gate
+    ``rnn_pallas.supported()``; never a reaction to a failed launch."""
+    if gru_fits(H, B, dtype, device, sms=sms, smem=smem):
+        return "persistent"
+    return _step_route("gru", H, dtype, backward, device, smem)
+
+
+def _step_route(cell, H, dtype, backward, device, smem) -> str:
+    top = _step_max_hidden(cell, dtype, backward, _limits(device, None, smem)[1])
+    return "per_step" if H <= top else "step_chunked"
 
 
 def step_smem_bytes(cell: str, H: int, dtype: torch.dtype,
@@ -219,11 +250,24 @@ def step_smem_bytes(cell: str, H: int, dtype: torch.dtype,
     return e * G * jt * Hk + 4 * _STEP_ROWS * G * jt
 
 
+def step_chunked_smem_bytes(cell: str, dtype: torch.dtype,
+                            backward: bool = False) -> int:
+    """Dynamic shared memory of one per-step block that streams its slice
+    (``*_step_chunked_smem`` of ``csrc/{gru,lstm}_*.cu``): two chunk buffers
+    of its widest slice (G jt rows of ``_STEP_CHUNK`` values) plus the dot
+    buffers, the same for every H."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    G, jt = (3, _TILE_WIDTH) if cell == "gru" else (4, _LSTM_STEP_TILE_WIDTH)
+    rows = (G + 1) * jt if backward else G * jt
+    return 2 * e * G * jt * _STEP_CHUNK + 4 * _STEP_ROWS * rows
+
+
 def step_max_hidden(cell: str, dtype: torch.dtype, backward: bool = False,
                     device=None, *, smem: Optional[int] = None) -> int:
-    """The largest hidden size whose per-step block fits the shared memory
-    a block may opt in to on that card (the H100 SXM's where no device or
-    ``smem`` is given)."""
+    """The largest hidden size whose per-step block holds its whole slice in
+    the shared memory a block may opt in to on that card (the H100 SXM's
+    where no device or ``smem`` is given); above it the per-step kernels
+    stream the slice (route ``"step_chunked"``)."""
     return _step_max_hidden(cell, dtype, backward, _limits(device, None, smem)[1])
 
 
@@ -237,19 +281,6 @@ def _step_max_hidden(cell: str, dtype: torch.dtype, backward: bool, limit: int) 
         else:
             hi = mid - 1
     return lo
-
-
-def _check_step_fits(op: str, cell: str, H: int, dtype: torch.dtype,
-                     backward: bool, device) -> None:
-    """Raise before any launch where a per-step block cannot hold its slice."""
-    top = step_max_hidden(cell, dtype, backward, device)
-    if H > top:
-        raise ValueError(
-            f"{op}: H={H} is above {top}, the largest hidden size whose per-step "
-            f"block holds its W_hh slice in the {device_limits(device)[1]} bytes of "
-            f"shared memory a block may use on this card ({dtype}); the "
-            f"persistent kernels take H up to "
-            f"{(gru_max_hidden if cell == 'gru' else lstm_max_hidden)(1, dtype, device)}")
 
 
 def _cuda_error(op: str, err: int) -> RuntimeError:
@@ -282,9 +313,8 @@ def _gru_scan_cuda(xw, w_hh, b_hh, h0, lengths, reverse):
                         f"got {xw.dtype}, {w_hh.dtype}, {b_hh.dtype}")
     if not (xw.is_contiguous() and w_hh.is_contiguous() and b_hh.is_contiguous()):
         raise ValueError("gru_scan kernel needs contiguous xw, w_hh and b_hh")
-    persistent = gru_route(H, B, xw.dtype, dev) == "persistent"
-    if not persistent:
-        _check_step_fits("gru_scan", "gru", H, xw.dtype, False, dev)
+    route = gru_route(H, B, xw.dtype, dev)
+    persistent = route == "persistent"
 
     lib = _library()
     Hk = _padded(H)
@@ -310,7 +340,9 @@ def _gru_scan_cuda(xw, w_hh, b_hh, h0, lengths, reverse):
             h_a = torch.zeros((B, Hk), dtype=torch.float32, device=dev)
             h_a[:, :H] = h0.float()
             h_b = torch.zeros_like(h_a)
-            err = lib.gru_scan_fwd_step(
+            step = (lib.gru_scan_fwd_step_chunked if route == "step_chunked"
+                    else lib.gru_scan_fwd_step)
+            err = step(
                 xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), h_a.data_ptr(),
                 h_b.data_ptr(), h_all.data_ptr(), h_fin.data_ptr(), lens.data_ptr(),
                 T, B, H, Hk, _TILE_WIDTH, int(reverse), code, stream)
@@ -361,7 +393,7 @@ def prev_all(h_all, h0, lengths, reverse: bool = False):
 
 
 def gru_scan_backward_reference(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
-                                reverse: bool = False):
+                                reverse: bool = False, *, chunk: Optional[int] = None):
     """Plain PyTorch version of the backward kernel, under its numeric
     contract: fp32 dh carry; gates rebuilt in fp32 from xw and h_prev (h_prev
     rounded to W's dtype for the product, b_hh added in fp32); dhw rounded to
@@ -371,7 +403,8 @@ def gru_scan_backward_reference(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
     xw (T, B, 3H); h_prev (T, B, H) from :func:`prev_all`; g_hall (T, B, H)
     and g_hfin (B, H) are the cotangents of h_all and h_final.  Returns
     (dxw (T, B, 3H), dnr (T, B, H), dh0 (B, H)): dxw = [dr, dz, dn] of the
-    pre-activations, dnr = dn * r the n third of d(hw)."""
+    pre-activations, dnr = dn * r the n third of d(hw).  ``chunk``: sum each
+    product over K in chunks (:func:`step_chunked_reference`)."""
     T, B, G = xw.shape
     H = G // 3
     w = w_hh.float()
@@ -382,7 +415,7 @@ def gru_scan_backward_reference(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
     dnr = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
         hp = h_prev[t]
-        hw = torch.matmul(hp.to(w_hh.dtype).float(), w) + b
+        hw = _product(hp.to(w_hh.dtype).float(), w, chunk) + b
         x = xw[t].float()
         hn = hw[:, 2 * H:]
         r = torch.sigmoid(x[:, :H] + hw[:, :H])
@@ -397,7 +430,7 @@ def gru_scan_backward_reference(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
         dxw[t] = torch.cat([dr, dz, dn], dim=1).to(xw.dtype)
         dnr[t] = dnr_t.to(xw.dtype)
         dhw = torch.cat([dr, dz, dnr_t], dim=1).to(w_hh.dtype).float()
-        dh = torch.matmul(dhw, w.t()) + g * z + torch.where(m, 0.0, dh)
+        dh = _product(dhw, w.t(), chunk) + g * z + torch.where(m, 0.0, dh)
     return dxw, dnr, dh.to(xw.dtype)
 
 
@@ -473,8 +506,11 @@ def _bwd_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_scan_bwd.argtypes = [p] * 14 + [i] * 8 + [p]
         lib.gru_scan_bwd.restype = i
-        lib.gru_scan_bwd_step.argtypes = [p] * 14 + [i] * 8 + [p]
-        lib.gru_scan_bwd_step.restype = i
+        for fn in (lib.gru_scan_bwd_step, lib.gru_scan_bwd_step_chunked):
+            fn.argtypes = [p] * 14 + [i] * 8 + [p]
+            fn.restype = i
+        lib.gru_scan_bwd_step_chunked_smem.argtypes = [i]
+        lib.gru_scan_bwd_step_chunked_smem.restype = i
         lib.gru_bwd_gates.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.gru_bwd_gates.restype = i
         for fn in (lib.gru_scan_bwd_smem, lib.gru_scan_bwd_max_blocks):
@@ -560,9 +596,8 @@ def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
     if not all(x.is_contiguous() for x in (xw, w_hh, b_hh, g_hall)):
         raise ValueError("gru_scan_backward kernel needs contiguous xw, w_hh, "
                          "b_hh and g_hall")
-    persistent = gru_route(H, B, xw.dtype, dev) == "persistent"
-    if not persistent:
-        _check_step_fits("gru_scan_backward", "gru", H, xw.dtype, True, dev)
+    route = gru_route(H, B, xw.dtype, dev, backward=True)
+    persistent = route == "persistent"
 
     lib = _bwd_library()
     Hk, Kc = _padded(H), _padded(G)
@@ -594,7 +629,9 @@ def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
             dhw = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
             rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
             rest[0] = g_hfin.float()
-            err = lib.gru_scan_bwd_step(
+            step = (lib.gru_scan_bwd_step_chunked if route == "step_chunked"
+                    else lib.gru_scan_bwd_step)
+            err = step(
                 xw.data_ptr(), hprev.data_ptr(), g_hall.data_ptr(), rec.data_ptr(),
                 chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(), dhw[0].data_ptr(),
                 dhw[1].data_ptr(), rest[0].data_ptr(), rest[1].data_ptr(),
@@ -661,7 +698,7 @@ def _lstm_gates(s):
 
 
 def lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
-                        with_carry: bool = False):
+                        with_carry: bool = False, *, chunk: Optional[int] = None):
     """Plain PyTorch version of the LSTM kernel, under K1's numeric contract:
     fp32 h and c carry, h rounded to W's dtype for the product, fp32
     accumulation, b_hh added in fp32, xw read as fp32, outputs in xw's dtype.
@@ -671,7 +708,8 @@ def lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
     steps t >= lengths[b] keep the carry and emit zeros in h_all.  With
     ``with_carry`` it returns (h_all, c_all, h_final, c_final), c_all being
     the cell-state carry after every step (not zeroed at padded steps), which
-    the backward reads its predecessor c from."""
+    the backward reads its predecessor c from.  ``chunk``: sum each product
+    over K in chunks (:func:`step_chunked_reference`)."""
     T, B, G = xw.shape
     w = w_hh.float()
     b = b_hh.float()
@@ -681,7 +719,7 @@ def lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
     h_all = torch.empty((T, B, G // 4), dtype=xw.dtype, device=xw.device)
     c_all = torch.empty_like(h_all)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        hw = torch.matmul(h.to(w_hh.dtype).float(), w) + b
+        hw = _product(h.to(w_hh.dtype).float(), w, chunk) + b
         i, f, g, o = _lstm_gates(xw[t].float() + hw)
         c_new = f * c + i * g
         h_new = o * torch.tanh(c_new)
@@ -746,14 +784,15 @@ def lstm_max_hidden(B: int, dtype: torch.dtype, device=None, *,
 
 
 def lstm_route(H: int, B: int, dtype: torch.dtype, device=None, *,
-               sms: Optional[int] = None, smem: Optional[int] = None) -> str:
-    """The LSTM kernels a CUDA call of hidden size H takes, from the shape
-    and the card alone and before any launch: ``"persistent"`` (1 forward
-    launch, 2 backward) or, above :func:`lstm_max_hidden`, ``"per_step"`` (T
-    forward, T + 1 backward).  The counterpart of the JAX package's shape
-    gate ``rnn_pallas.supported()``; never a reaction to a failed launch."""
-    return "persistent" if lstm_fits(H, B, dtype, device, sms=sms, smem=smem) \
-        else "per_step"
+               backward: bool = False, sms: Optional[int] = None,
+               smem: Optional[int] = None) -> str:
+    """The LSTM kernels a CUDA call of hidden size H takes (the backward
+    scan where ``backward``), as :func:`gru_route` chooses the GRU's:
+    ``"persistent"``, ``"per_step"`` above :func:`lstm_max_hidden`, or
+    ``"step_chunked"`` above the per-step block's whole-slice limit."""
+    if lstm_fits(H, B, dtype, device, sms=sms, smem=smem):
+        return "persistent"
+    return _step_route("lstm", H, dtype, backward, device, smem)
 
 
 def _check_lstm_args(op, xw, named, contiguous):
@@ -783,8 +822,11 @@ def _lstm_fwd_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lstm_scan_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.lstm_scan_fwd.restype = i
-        lib.lstm_scan_fwd_step.argtypes = [p] * 11 + [i] * 7 + [p]
-        lib.lstm_scan_fwd_step.restype = i
+        for fn in (lib.lstm_scan_fwd_step, lib.lstm_scan_fwd_step_chunked):
+            fn.argtypes = [p] * 11 + [i] * 7 + [p]
+            fn.restype = i
+        lib.lstm_scan_fwd_step_chunked_smem.argtypes = [i]
+        lib.lstm_scan_fwd_step_chunked_smem.restype = i
         for fn in (lib.lstm_scan_fwd_smem, lib.lstm_scan_fwd_max_blocks):
             fn.argtypes = [i, i, i]
             fn.restype = i
@@ -800,9 +842,8 @@ def _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths, reverse):
         ("h0", h0, (B, H), False), ("c0", c0, (B, H), False),
         ("lengths", lengths, (B,), False)), (w_hh, b_hh))
     dev = xw.device
-    persistent = lstm_route(H, B, xw.dtype, dev) == "persistent"
-    if not persistent:
-        _check_step_fits("lstm_scan", "lstm", H, xw.dtype, False, dev)
+    route = lstm_route(H, B, xw.dtype, dev)
+    persistent = route == "persistent"
     lib = _lstm_fwd_library()
     Hk = _padded(H)
     code = _DTYPE_CODES[xw.dtype]
@@ -833,7 +874,9 @@ def _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths, reverse):
             h_a = torch.zeros((B, Hk), dtype=torch.float32, device=dev)
             h_a[:, :H] = h0.float()
             h_b = torch.zeros_like(h_a)
-            err = lib.lstm_scan_fwd_step(
+            step = (lib.lstm_scan_fwd_step_chunked if route == "step_chunked"
+                    else lib.lstm_scan_fwd_step)
+            err = step(
                 xw.data_ptr(), tiles.data_ptr(), b_hh.data_ptr(), h_a.data_ptr(),
                 h_b.data_ptr(), c.data_ptr(), h_all.data_ptr(), c_all.data_ptr(),
                 h_fin.data_ptr(), c_fin.data_ptr(), lens.data_ptr(), T, B, H, Hk,
@@ -871,7 +914,7 @@ lstm_scan.launches = 0
 
 
 def _lstm_bwd_steps(xw, hw_of, c_prev, w_hh, lengths, g_hall, g_hfin, g_cfin,
-                    reverse):
+                    reverse, chunk: Optional[int] = None):
     """The steps of the LSTM backward, the gates' hw of step t from
     ``hw_of(t)``: shared by the undecomposed plain backward and the chain's
     plain mirror."""
@@ -895,14 +938,15 @@ def _lstm_bwd_steps(xw, hw_of, c_prev, w_hh, lengths, g_hall, g_hfin, g_cfin,
         d_g = dc_new * i * (1.0 - g * g)
         dgates = torch.cat([d_i, d_f, d_g, d_o], dim=1)
         dxw[t] = dgates.to(xw.dtype)
-        dh = (torch.matmul(dgates.to(w_hh.dtype).float(), w.t())
+        dh = (_product(dgates.to(w_hh.dtype).float(), w.t(), chunk)
               + torch.where(m, 0.0, dh))
         dc = dc_new * f + torch.where(m, 0.0, dc)
     return dxw, dh.to(xw.dtype), dc.to(xw.dtype)
 
 
 def lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
-                                 g_hfin, g_cfin, reverse: bool = False):
+                                 g_hfin, g_cfin, reverse: bool = False, *,
+                                 chunk: Optional[int] = None):
     """Plain PyTorch version of the LSTM backward kernel, under its numeric
     contract: fp32 dh and dc carries; gates rebuilt in fp32 from xw, h_prev
     (rounded to W's dtype for the product, b_hh added in fp32) and c_prev;
@@ -912,12 +956,30 @@ def lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall
     xw (T, B, 4H); h_prev, c_prev (T, B, H) from :func:`prev_all`; g_hall
     (T, B, H), g_hfin and g_cfin (B, H) are the cotangents of h_all,
     h_final and c_final.  Returns (dxw (T, B, 4H), dh0, dc0): dxw = [di, df,
-    dg, do] of the pre-activations, which is also d(hw)."""
+    dg, do] of the pre-activations, which is also d(hw).  ``chunk``: sum
+    each product over K in chunks (:func:`step_chunked_reference`)."""
     w = w_hh.float()
     b = b_hh.float()
     return _lstm_bwd_steps(
-        xw, lambda t: torch.matmul(h_prev[t].to(w_hh.dtype).float(), w) + b,
-        c_prev, w_hh, lengths, g_hall, g_hfin, g_cfin, reverse)
+        xw, lambda t: _product(h_prev[t].to(w_hh.dtype).float(), w, chunk) + b,
+        c_prev, w_hh, lengths, g_hall, g_hfin, g_cfin, reverse, chunk)
+
+
+def step_chunked_reference(cell: str, backward: bool, *args, chunk: int = _STEP_CHUNK,
+                           **kwargs):
+    """The arithmetic of the per-step kernels that stream their slice
+    (route ``"step_chunked"``): the plain scan of ``cell`` (``"gru"`` /
+    ``"lstm"``), forward or ``backward``, with every recurrent product
+    summed over K in chunks of ``chunk`` values, each chunk's partial sum
+    added to the fp32 running one, as ``csrc/step_stream.cuh`` does.
+    Takes and returns what :func:`gru_scan_reference`,
+    :func:`gru_scan_backward_reference`, :func:`lstm_scan_reference` or
+    :func:`lstm_scan_backward_reference` takes and returns."""
+    fn = {("gru", False): gru_scan_reference,
+          ("gru", True): gru_scan_backward_reference,
+          ("lstm", False): lstm_scan_reference,
+          ("lstm", True): lstm_scan_backward_reference}[(cell, backward)]
+    return fn(*args, chunk=chunk, **kwargs)
 
 
 def lstm_bwd_gates_reference(h_prev, w_hh, b_hh):
@@ -958,8 +1020,11 @@ def _lstm_bwd_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lstm_scan_bwd.argtypes = [p] * 16 + [i] * 8 + [p]
         lib.lstm_scan_bwd.restype = i
-        lib.lstm_scan_bwd_step.argtypes = [p] * 16 + [i] * 8 + [p]
-        lib.lstm_scan_bwd_step.restype = i
+        for fn in (lib.lstm_scan_bwd_step, lib.lstm_scan_bwd_step_chunked):
+            fn.argtypes = [p] * 16 + [i] * 8 + [p]
+            fn.restype = i
+        lib.lstm_scan_bwd_step_chunked_smem.argtypes = [i]
+        lib.lstm_scan_bwd_step_chunked_smem.restype = i
         lib.lstm_scan_bwd_smem.argtypes = [i, i]
         lib.lstm_scan_bwd_smem.restype = i
         lib.lstm_scan_bwd_max_blocks.argtypes = [i, i, i]
@@ -987,9 +1052,8 @@ def _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
         ("g_hfin", g_hfin, (B, H), True), ("g_cfin", g_cfin, (B, H), True)),
         (c_prev, w_hh, b_hh, g_hall))
     dev = xw.device
-    persistent = lstm_route(H, B, xw.dtype, dev) == "persistent"
-    if not persistent:
-        _check_step_fits("lstm_scan_backward", "lstm", H, xw.dtype, True, dev)
+    route = lstm_route(H, B, xw.dtype, dev, backward=True)
+    persistent = route == "persistent"
     lib = _lstm_bwd_library()
     Hk, Kc = _padded(H), _padded(G)
     code = _DTYPE_CODES[xw.dtype]
@@ -1024,7 +1088,9 @@ def _lstm_scan_backward_cuda(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall,
             dgates = torch.zeros((2, B, Kc), dtype=torch.float32, device=dev)
             rest = torch.empty((2, B, H), dtype=torch.float32, device=dev)
             rest[0] = g_hfin.float()
-            err = lib.lstm_scan_bwd_step(
+            step = (lib.lstm_scan_bwd_step_chunked if route == "step_chunked"
+                    else lib.lstm_scan_bwd_step)
+            err = step(
                 xw.data_ptr(), hprev.data_ptr(), c_prev.data_ptr(), g_hall.data_ptr(),
                 rec.data_ptr(), chain.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
                 dgates[0].data_ptr(), dgates[1].data_ptr(), rest[0].data_ptr(),

@@ -1,6 +1,7 @@
 """Recognition API for serving (port of ``rnntransducer_tpu/serve.py``).
 
     rec = Recognizer.from_torch_params("bundle")        # config.json + params.pt
+    rec = Recognizer.from_checkpoint("checkpoints")     # a Trainer's checkpoints
     text = rec.transcribe("utt.wav")
     texts = rec.transcribe_batch([wav1, wav2])          # one batched greedy decode
 
@@ -67,6 +68,25 @@ class Recognizer:
                                        cfg.model.jointnet.num_classes)
         return cls(cfg, weights.state_dict_from_flax(params, cfg.model),
                    tokenizer, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, step: Optional[int] = None,
+                        vocab_path: Optional[str] = None,
+                        average_k: Optional[int] = None, use_ema: bool = False,
+                        **kw) -> "Recognizer":
+        """From a Trainer's checkpoint directory: the best-by-val_cer (else
+        latest) step, or ``step``; ``average_k``: the element-wise mean of the
+        best k checkpoints' params; ``use_ema``: the EMA shadow of the run
+        (``train.ema_decay > 0``)."""
+        from rnntransducer_tpu_torch.train.checkpoint import (load_config,
+                                                              load_decode_params)
+
+        cfg = load_config(checkpoint_dir)
+        params, _ = load_decode_params(checkpoint_dir, cfg, step=step,
+                                       average_k=average_k, use_ema=use_ema)
+        tokenizer = load_tokenizer(vocab_path or cfg.vocab_path,
+                                   cfg.model.jointnet.num_classes)
+        return cls(cfg, params, tokenizer, **kw)
 
     @classmethod
     def from_torch_params(cls, directory: str, vocab_path: Optional[str] = None,

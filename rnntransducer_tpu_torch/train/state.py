@@ -229,6 +229,56 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]
             "nonfinite_grad": nonfinite.to(torch.int32)}
 
 
+def histogram(x: torch.Tensor, bins: int = 64):
+    """``jnp.histogram(x, bins)`` on x's own device: (counts (bins,) int64,
+    edges (bins + 1,) float32).  The range is [min, max] (+-0.5 where they
+    are equal), the edges ``linspace`` over it; a value goes to the bin whose
+    left edge is the last one at or below it, the maximum to the last bin."""
+    x = x.detach().float().reshape(-1)
+    lo, hi = x.min(), x.max()
+    flat = lo == hi
+    lo, hi = torch.where(flat, lo - 0.5, lo), torch.where(flat, hi + 0.5, hi)
+    steps = torch.arange(bins + 1, device=x.device, dtype=torch.float32)
+    edges = lo + steps * ((hi - lo) / bins)
+    edges[-1] = hi
+    idx = torch.bucketize(x, edges, right=True)
+    idx = torch.where(x == edges[-1], bins, idx)
+    counts = torch.bincount(idx, minlength=bins + 2)[1:bins + 1]
+    return counts, edges
+
+
+def watch_step(state: TrainState, batch: Mapping[str, torch.Tensor], bins: int = 64
+               ) -> Dict[str, Dict[str, tuple]]:
+    """Parameter and gradient histograms (as ``wandb.watch(model,
+    log="all")``), reduced on the device: one forward and backward over the
+    first of ``cfg.train.accumulate_grad_batches`` microbatches (a gradient
+    over the whole batch would hold that many microbatches' activations),
+    with SpecAugment, dropout and weight noise drawn from a generator of its
+    own, so training's draws are untouched.  Each histogram is of one leaf
+    of the JAX package's params tree, named by its flax path
+    (``encoder/rnn/fwd_0/w_hh``; layers a scanned stack holds in one leaf are
+    one histogram).  Returns ``{"params": {name: (counts, edges)}, "grads":
+    {...}}`` of device tensors."""
+    from rnntransducer_tpu_torch.utils.weights import flax_layout
+
+    cfg = state.cfg
+    accum = max(cfg.train.accumulate_grad_batches, 1)
+    if accum > 1:
+        batch = {k: v[: v.shape[0] // accum] for k, v in batch.items()}
+    names, masters = zip(*state.model.named_parameters())
+    params = dict(zip(names, masters))
+    gen = torch.Generator(device=masters[0].device).manual_seed(
+        state.generator.initial_seed() + 1 + state.step)
+    loss = loss_fn(state.model, cfg, params, batch, gen, deterministic=False)
+    grads = dict(zip(names, torch.autograd.grad(loss, masters)))
+    leaves: Dict[str, list] = {}
+    for path, key, _, _ in flax_layout(cfg.model):
+        leaves.setdefault("/".join(path), []).append(key)
+    return {group: {name: histogram(torch.cat([src[k].reshape(-1) for k in keys]), bins)
+                    for name, keys in leaves.items()}
+            for group, src in (("params", params), ("grads", grads))}
+
+
 def eval_step(cfg: Config, model: RNNTransducer, batch: Mapping[str, torch.Tensor],
               reduction: str = "mean") -> torch.Tensor:
     """Validation loss under the model's own params: no SpecAugment, no

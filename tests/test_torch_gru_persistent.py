@@ -120,34 +120,38 @@ def test_coresidency_limit(B, dtype):
 
 
 @pytest.mark.parametrize("backward", [False, True])
-def test_wrappers_raise_above_the_limit(backward):
+def test_wrappers_raise_above_the_limit(backward, stand_in):
     """Above the persistent limit the wrappers take the per-step kernels;
-    above the per-step block's own limit (its W_hh slices in 227 KB of
-    shared memory: fp32 H <= 2304 forward, <= 1152 backward) they raise
-    ValueError naming it, before the library is built or any launch is
-    counted."""
+    above the per-step block's whole-slice limit (its W_hh slices in 227 KB
+    of shared memory: fp32 H <= 2304 forward, <= 1152 backward) they no
+    longer raise: they take the streamed per-step kernels (route
+    ``"step_chunked"``, the same T / T + 1 launches), whose block needs the
+    same shared memory at every H."""
     dtype = torch.float32
     top = rnn_kernels.step_max_hidden("gru", dtype, backward)
     assert top == (1152 if backward else 2304)
     assert rnn_kernels.step_smem_bytes("gru", top, dtype, backward) <= SMEM_LIMIT
     assert rnn_kernels.step_smem_bytes("gru", top + 1, dtype, backward) > SMEM_LIMIT
+    assert rnn_kernels.step_chunked_smem_bytes("gru", dtype, backward) <= SMEM_LIMIT
     Hs, T, B = top + 1, 2, 3
     xw = torch.zeros(T, B, 3 * Hs)
     w = torch.zeros(Hs, 3 * Hs)
     b = torch.zeros(3 * Hs)
     h0 = torch.zeros(B, Hs)
     lengths = torch.tensor([2, 1, 2])
-    assert rnn_kernels.gru_route(Hs, B, dtype) == "per_step"
+    assert rnn_kernels.gru_route(Hs, B, dtype, backward=backward) == "step_chunked"
+    assert rnn_kernels.gru_route(top, B, dtype, backward=backward) == "per_step"
     before = (rnn_kernels.gru_scan.launches, rnn_kernels.gru_scan_backward.launches)
-    with pytest.raises(ValueError, match=f"above {top}, the largest hidden size whose "
-                                         "per-step block"):
-        if backward:
-            seq = torch.zeros(T, B, Hs)
-            rnn_kernels._gru_scan_backward_cuda(xw, seq, w, b, lengths, seq, h0, False)
-        else:
-            rnn_kernels._gru_scan_cuda(xw, w, b, h0, lengths, False)
-    assert before == (rnn_kernels.gru_scan.launches,
-                      rnn_kernels.gru_scan_backward.launches)
+    if backward:
+        seq = torch.zeros(T, B, Hs)
+        rnn_kernels._gru_scan_backward_cuda(xw, seq, w, b, lengths, seq, h0, False)
+    else:
+        rnn_kernels._gru_scan_cuda(xw, w, b, h0, lengths, False)
+    name = "gru_scan_bwd_step_chunked" if backward else "gru_scan_fwd_step_chunked"
+    assert [n for n, _ in stand_in.calls] == [name]
+    counted = (rnn_kernels.gru_scan.launches - before[0],
+               rnn_kernels.gru_scan_backward.launches - before[1])
+    assert counted == ((0, T + 1) if backward else (T, 0))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -255,7 +255,8 @@ def test_kernel_plan_follows_the_shared_memory():
     """The wgmma engine takes 128-row tiles where they fit, 64 in high mode
     at the flagship width and at n_fft = 512 in both modes; n_fft = 1024 in
     high mode leaves the mma.sync engine's 32-row tiles; a card with less shared memory gets smaller
-    tiles, and a window too wide for 16 rows raises."""
+    tiles, and a window too wide for 16 rows takes the chunked engine, whose
+    shared memory does not grow with n_fft, instead of raising."""
     smem = 232448
     base, wide = AudioConfig(), AudioConfig(**WIDE)
     assert ff.kernel_plan(base, False, smem) == ("wgmma", 128)
@@ -272,8 +273,10 @@ def test_kernel_plan_follows_the_shared_memory():
     assert ff.kernel_smem_bytes(("mma", 32), wider, True) == 2 * (
         2 * 32 * 1032 + 32 * 584 + 3 * 4 * 64 * 40)
     assert ff.kernel_plan(base, False, 101376) == ("mma", 32)
-    with pytest.raises(ValueError, match="at least 16 frame rows"):
-        ff.kernel_plan(AudioConfig(window_size_sec=0.5), True, smem)
+    widest = AudioConfig(window_size_sec=0.5)
+    assert ff.kernel_smem_bytes(("mma", 16), widest, True) > smem
+    assert ff.kernel_plan(widest, True, smem) == ("chunked", 32)
+    assert ff.kernel_smem_bytes(("chunked", 32), widest, True) == 2 * (64 + 256) * 40
 
 
 def test_frame_lengths_match_logmel_pallas_without_lengths():

@@ -45,6 +45,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_scan_covers_the_training_loop_and_cli():
+    """The modules of the training loop, the data feed and the train CLI are
+    among those scanned, and each imports the port's own copies."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    pkg = "rnntransducer_tpu_torch"
+    for mod in ("train/metrics.py", "train/checkpoint.py", "train/loop.py",
+                "data/bucketing.py", "data/collate.py", "data/dataset.py",
+                "data/prefetch.py", "utils/logging.py", "utils/profiling.py",
+                "cli/train.py", "cli/__init__.py"):
+        path = os.path.join(pkg, mod)
+        assert path in scanned, path
+        own = [m for m in _imported_modules(os.path.join(REPO, path))
+               if m.startswith("rnntransducer")]
+        assert all(m.split(".")[0] == pkg for m in own), (path, own)
+    assert not os.path.exists(os.path.join(REPO, "train_torch.py"))
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_config()
