@@ -73,10 +73,31 @@ Phases (each raises, and the script exits non-zero, on failure):
    The logged step time, the host feed per batch, the device-busy share of
    a profiled window of 2 steps beside 4a's, validation and checkpoint
    times.
-6. One fp32 step at full width (B=8: the plain backward scans are Python
+6. The decoding paths (``phase_decoding``, ``phase_streaming``,
+   ``phase_cli``), each run's launches checked:
+   a. the default ``Recognizer`` (the device beam, width 5) on
+      ``base_config()`` at full width in bf16, batches of 1 and 8 (16 K1
+      launches each); beam width 1 against greedy on the same features;
+      fp32 beam tokens with the kernels against the plain GRU;
+   b. the same with an order-3 char LM table on the card, built from an
+      ARPA file the script writes over the graphemes: weight 0 gives the
+      no-LM tokens;
+   c. the host A/B beam with that LM and two hotwords on 2 waves of up to
+      2 s, fp32 (16 K1 launches per wave), kernels against the plain GRU;
+   d. streaming on ``bench_streaming.py``'s model (6-layer unidirectional
+      LSTM encoder, H=1024) at full width: K3 against its plain version at
+      one chunk's shape (T=64, B=1) with a carried h0 / c0, full and
+      ragged; bf16 sessions, 100 ms feeds, chunk_frames 64, greedy and
+      beam 4, 6 K3 launches per chunk, RTF and p50 first-token latency as
+      ``bench_streaming.py`` defines them; streaming greedy tokens against
+      offline greedy in fp32;
+   e. the inference CLI on phase 5's checkpoint (``--decoder
+      beam_batched``, then ``beam``) and ``--stream`` on a checkpoint of
+      (d)'s model (phase 5's encoder is bidirectional).
+7. One fp32 step at full width (B=8: the plain backward scans are Python
    loops of small launches), kernels against plain versions (GRU, LSTM and
    the sweep): loss and the grads of named params.
-7. Print one JSON line describing every kernel, then, as the last line,
+8. Print one JSON line describing every kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -103,6 +124,7 @@ from rnntransducer_tpu_torch.config import (  # noqa: E402
     TrainConfig, base_config, tiny_config)
 from rnntransducer_tpu_torch.data.dataset import SyntheticAudioDataset  # noqa: E402
 from rnntransducer_tpu_torch.decode import greedy as greedy_mod  # noqa: E402
+from rnntransducer_tpu_torch.decode.device_lm import DeviceCharLM  # noqa: E402
 from rnntransducer_tpu_torch.frontend import fused_frontend  # noqa: E402
 from rnntransducer_tpu_torch.models import cells  # noqa: E402
 from rnntransducer_tpu_torch.models.transducer import build_model  # noqa: E402
@@ -1154,13 +1176,23 @@ def _first_symbol_logits(model, enc):
     return logits.view(B, T, -1).float()
 
 
+@contextlib.contextmanager
+def _plain_gru(plain: bool = True):
+    """Within the block (where ``plain``), the encoder's GRU layers run the
+    plain GRU on the card (comparison only)."""
+    saved = cells.gru_scan
+    if plain:
+        cells.gru_scan = rnn_kernels.gru_scan_reference
+    try:
+        yield
+    finally:
+        cells.gru_scan = saved
+
+
 def _encode_plain(model, feats, lengths):
     """The encoder with the plain GRU on the card (comparison only)."""
-    cells.gru_scan = rnn_kernels.gru_scan_reference
-    try:
+    with _plain_gru():
         return model.encode(feats, lengths)[0]
-    finally:
-        cells.gru_scan = rnn_kernels.gru_scan
 
 
 def phase_profile(rec, waves):
@@ -1451,7 +1483,8 @@ def phase_tiny(tokenizer, waves):
     step_ms, launches, metrics = _run_steps("tiny", state, batch, want, 1,
                                             TINY_STEPS, "encoder.rnn.bwd.1.w_hh")
     del state
-    rec = Recognizer(cfg, flax_params, tokenizer, precision="bf16", device=DEVICE)
+    rec = Recognizer(cfg, flax_params, tokenizer, decoder="greedy", precision="bf16",
+                     device=DEVICE)
     rec.transcribe(waves[0][:16000])  # warm-up
     _zero_counts()
     texts, req_ms, _ = _request(rec.transcribe_batch, waves)
@@ -1519,7 +1552,8 @@ def phase_serving(flax_params, tokenizer, waves):
     recognizers = {}
     for precision in ("bf16", "fp32"):
         recognizers[precision] = Recognizer(cfg, flax_params, tokenizer,
-                                            precision=precision, device=DEVICE)
+                                            decoder="greedy", precision=precision,
+                                            device=DEVICE)
         recognizers[precision].transcribe(waves[0][:16000])  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1732,13 +1766,12 @@ def phase_trainer(flax_params, waves, bare_busy):
                     for r in logs)):
         raise AssertionError(f"Trainer logs: {logs}")
 
-    rec = Recognizer.from_checkpoint(TRAINER_DIR, use_ema=False, precision="bf16",
-                                     device=DEVICE)
+    rec = Recognizer.from_checkpoint(TRAINER_DIR, use_ema=False, decoder="greedy",
+                                     precision="bf16", device=DEVICE)
     texts, req_ms, _ = _request(rec.transcribe_batch, waves)
     if len(texts) != len(waves) or not all(isinstance(x, str) for x in texts):
         raise AssertionError(f"Recognizer.from_checkpoint transcripts: {texts}")
     del rec
-    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
 
     step_ms = [r["step_ms"] for r in train_logs]
@@ -1796,6 +1829,421 @@ def phase_label_looping(rec, waves):
             "label_looping_ms": ms["label"]}
 
 
+# Phase 6, decoding: the serving paths users run.  Offline: the default
+# Recognizer (the device beam, width cfg.inference.beam_width = 5) on
+# base_config() in bf16, with and without an on-device char LM, and the host
+# A/B beam with that LM and two hotwords; streaming on bench_streaming.py's
+# model; the inference CLI.
+HOST_BEAM_SAMPLES = (16000, 12000)  # the host beam's 2 waves: 1.0 s and 0.75 s
+CLI_SAMPLES = 16000                 # the CLI's 2 waves: 1.0 s each
+HOTWORDS = ["ㄱㅏ", "ㄴㅏ"]          # graphemes of the default vocabulary
+DEVICE_LM_WEIGHT = 0.5
+STREAM_CHUNK_FRAMES = 64
+STREAM_FEED_MS = 100
+STREAM_UTT_SEC = 10.0
+STREAM_UTTS = 5        # bench_streaming.py: 5 timed utterances after a warm-up
+STREAM_POLL_EVERY = 5  # beam partials polled every 5 feeds, as bench_streaming.py
+DECODE_DIR = os.path.join(REPO, "build", "decoding")
+
+
+def write_char_arpa(tokenizer, path: str, seed: int = SEED) -> str:
+    """A seeded order-3 ARPA file over the tokenizer's graphemes (the word
+    delimiter included): every grapheme a unigram, 400 bigrams and 400
+    trigrams whose histories are among the bigrams."""
+    rng = np.random.RandomState(seed)
+    chars = [tokenizer.ids_to_tokens[i] for i in range(tokenizer.vocab_size)
+             if i not in tokenizer._special_ids]
+    pick = lambda: chars[rng.randint(len(chars))]
+    pairs = set()
+    while len(pairs) < 400:
+        pairs.add((pick(), pick()))
+    pairs = sorted(pairs)
+    triples = set()
+    while len(triples) < 400:
+        triples.add(pairs[rng.randint(len(pairs))] + (pick(),))
+    lines = ["\\data\\", f"ngram 1={len(chars) + 2}", f"ngram 2={len(pairs)}",
+             f"ngram 3={len(triples)}", "", "\\1-grams:",
+             f"-1.0000\t<s>\t{-rng.uniform(0.1, 0.8):.4f}", "-1.5000\t</s>"]
+    lines += [f"{-rng.uniform(0.5, 2.5):.4f}\t{c}\t{-rng.uniform(0.1, 0.8):.4f}"
+              for c in chars]
+    lines += ["", "\\2-grams:"]
+    lines += [f"{-rng.uniform(0.1, 1.5):.4f}\t{' '.join(g)}\t{-rng.uniform(0.1, 0.8):.4f}"
+              for g in pairs]
+    lines += ["", "\\3-grams:"]
+    lines += [f"{-rng.uniform(0.05, 1.0):.4f}\t{' '.join(g)}" for g in sorted(triples)]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines + ["", "\\end\\", ""]))
+    return path
+
+
+def _counted(fn, *args, **kwargs):
+    """``fn`` as a main-path run: every count set to 0 before it and read
+    after it.  Returns (result, host ms synchronised, counts)."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, _counts()
+
+
+def _expect_launches(what: str, got: dict, want: dict) -> None:
+    print(f"{what}: launches {json.dumps(got)}", flush=True)
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def _gru_launches(cfg, batch: int, dtype) -> dict:
+    """Kernel launches of one encode of ``cfg``'s bidirectional GRU."""
+    tn = cfg.model.transnet
+    want = dict.fromkeys(KERNELS, 0)
+    want["gru_fwd"] = tn.num_layers * 2 * scan_launches(
+        "gru", T_FRAMES, tn.hidden_size, batch, dtype, device=DEVICE)[0]
+    return want
+
+
+def _beam_tokens(rec, waves, beam_width=None, device_lm=None, plain=False):
+    """Best beam tokens per wave from ``rec``'s device beam (``plain``: the
+    encoder's GRU on its plain version, for comparison only)."""
+    from rnntransducer_tpu_torch.decode.beam_batched import batched_beam_decode
+    with _plain_gru(plain), torch.inference_mode():
+        feats, lengths = rec._features(waves)
+        toks, lens, _ = batched_beam_decode(
+            rec.model, feats, lengths, blank_id=rec.tokenizer.blank_token_id,
+            beam_width=beam_width or rec.beam_width,
+            max_symbols=rec.cfg.train.greedy_max_symbols,
+            max_output_len=rec.max_output_len, device_lm=device_lm)
+    return [toks[i, 0, :lens[i, 0]].tolist() for i in range(len(waves))]
+
+
+def _greedy_tokens(rec, waves):
+    with torch.inference_mode():
+        feats, lengths = rec._features(waves)
+        toks, lens = greedy_mod.greedy_decode(rec.model, feats, lengths,
+                                              blank_id=rec.tokenizer.blank_token_id,
+                                              max_symbols=rec.cfg.train.greedy_max_symbols,
+                                              max_output_len=rec.max_output_len)
+    return [toks[i, :lens[i]].tolist() for i in range(len(waves))]
+
+
+def _host_tokens(rec, waves, plain=False):
+    """Best host-beam tokens per wave (``plain`` as in ``_beam_tokens``)."""
+    dec = rec._host_beam()
+    with _plain_gru(plain), torch.inference_mode():
+        feats, lengths = rec._features(waves)
+        return [dec.decode(feats[i:i + 1], lengths[i:i + 1])[0]
+                for i in range(len(waves))]
+
+
+def phase_decoding(flax_params, tokenizer, waves):
+    """Offline decoding on base_config() at full width.  (a) The default
+    Recognizer, the device beam at width 5, bf16, batches of 1 and 8 (16
+    K1 launches per request); beam width 1 against greedy on the same
+    features; fp32 tokens with the kernels against the plain GRU.  (b) The
+    same with an order-3 device char LM from a seeded ARPA over the
+    graphemes: weight 0 gives the no-LM tokens.  (c) The host A/B beam with
+    that LM (word-level) and two hotwords on 2 waves of up to 2 s, fp32, 16
+    K1 launches per wave; kernels against the plain GRU."""
+    cfg = base_config()
+    os.makedirs(DECODE_DIR, exist_ok=True)
+    arpa = write_char_arpa(tokenizer, os.path.join(DECODE_DIR, "char3.arpa"))
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {}
+
+    def run(what, fn, *args, want):
+        out, ms, got = _counted(fn, *args)
+        _expect_launches(what, got, want)
+        for k in KERNELS:
+            launches[k] += got[k]
+        return out, ms
+
+    # (a) the default device beam, bf16
+    rec = Recognizer(cfg, flax_params, tokenizer, precision="bf16", device=DEVICE)
+    if (rec.decoder, rec.beam_width) != ("beam_batched", cfg.inference.beam_width):
+        raise AssertionError(f"Recognizer default {rec.decoder} width {rec.beam_width}")
+    rec.transcribe(waves[0][:16000])  # warm-up
+    bf16 = torch.bfloat16
+    one, ms1 = run("beam bf16 batch of 1", rec.transcribe_batch, waves[:1],
+                   want=_gru_launches(cfg, 1, bf16))
+    eight, ms8 = run("beam bf16 batch of 8", rec.transcribe_batch, waves,
+                     want=_gru_launches(cfg, len(waves), bf16))
+    print(f"beam_batched (width {rec.beam_width}) bf16 request latency: batch of 1 "
+          f"{ms1:.1f} ms, batch of 8 {ms8:.1f} ms; transcripts {eight}", flush=True)
+    # beam width 1 against greedy: equal in exact arithmetic; the beam adds
+    # each log-prob to an fp32 running score, and at |score| in the thousands
+    # (random weights emit up to max_output_len tokens) its rounding unit
+    # swallows log-prob gaps greedy's argmax still sees.  Held on the first
+    # second of each wave; the full waves are reported.
+    first = [w[:16000] for w in waves]
+    short_eq = _beam_tokens(rec, first, beam_width=1) == _greedy_tokens(rec, first)
+    beam1, greedy = _beam_tokens(rec, waves, beam_width=1), _greedy_tokens(rec, waves)
+    diverge = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                    None if len(x) == len(y) else min(len(x), len(y)))
+               for x, y in zip(beam1, greedy)]
+    print(f"beam width 1 vs greedy, bf16, first second of the 8 waves: tokens equal "
+          f"{short_eq}; full waves: first differing token per wave {diverge} "
+          f"(greedy tokens per wave {[len(x) for x in greedy]})", flush=True)
+    if not short_eq:
+        raise AssertionError("beam width 1 differs from greedy")
+    no_lm = _beam_tokens(rec, waves)
+    result["beam_bf16"] = {"batch1_ms": ms1, "batch8_ms": ms8,
+                           "tokens_per_wave": [len(x) for x in no_lm]}
+
+    rec32 = Recognizer(cfg, flax_params, tokenizer, precision="fp32", device=DEVICE)
+    rec32.transcribe(waves[0][:16000])  # warm-up
+    _, ms32 = run("beam fp32 batch of 8", rec32.transcribe_batch, waves,
+                  want=_gru_launches(cfg, len(waves), torch.float32))
+    k32, p32 = _beam_tokens(rec32, waves), _beam_tokens(rec32, waves, plain=True)
+    print(f"beam fp32 batch of 8: {ms32:.1f} ms; kernels vs plain GRU tokens equal "
+          f"{k32 == p32} (per wave {[a == b for a, b in zip(k32, p32)]})", flush=True)
+    if k32 != p32:
+        raise AssertionError("fp32 beam tokens differ between the GRU kernel and "
+                             "the plain GRU")
+    result["beam_fp32"] = {"batch8_ms": ms32, "kernel_vs_plain_tokens_equal": True}
+
+    # (b) the device char LM
+    t0 = time.perf_counter()
+    rec_lm = Recognizer(cfg, flax_params, tokenizer, precision="bf16", device=DEVICE,
+                        device_lm_path=arpa, device_lm_weight=DEVICE_LM_WEIGHT)
+    build_s = time.perf_counter() - t0
+    table = rec_lm.device_lm.table
+    if tuple(table.shape) != (72, 72, 72) or table.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"device LM table {tuple(table.shape)} on {table.device}")
+    rec_lm.transcribe(waves[0][:16000])  # warm-up
+    texts_lm, ms_lm = run("beam + device LM bf16 batch of 8", rec_lm.transcribe_batch,
+                          waves, want=_gru_launches(cfg, len(waves), bf16))
+    with_lm = _beam_tokens(rec_lm, waves, device_lm=rec_lm.device_lm)
+    at_zero = _beam_tokens(rec_lm, waves, device_lm=DeviceCharLM(table, weight=0.0))
+    print(f"beam + device char LM (order 3, {table.numel() * 4 / 2**20:.2f} MiB on the "
+          f"card, built in {build_s:.1f} s) bf16 batch of 8: {ms_lm:.1f} ms; weight 0 "
+          f"tokens equal the no-LM tokens {at_zero == no_lm}; weight "
+          f"{DEVICE_LM_WEIGHT} changes {sum(a != b for a, b in zip(with_lm, no_lm))} "
+          f"of {len(waves)} transcripts: {texts_lm}", flush=True)
+    if at_zero != no_lm:
+        raise AssertionError("the device LM at weight 0 changed the beam's tokens")
+    result["device_lm_bf16"] = {"batch8_ms": ms_lm, "table_build_s": build_s}
+
+    # (c) the host A/B beam, n-gram LM and two hotwords, fp32
+    host_waves = _waves(len(HOST_BEAM_SAMPLES), lengths=HOST_BEAM_SAMPLES, seed=SEED + 5)
+    rec_h = Recognizer(cfg, flax_params, tokenizer, precision="fp32", device=DEVICE,
+                       lm_path=arpa, lm_weight=0.5, hotwords=HOTWORDS,
+                       hotword_weight=2.0)
+    if not rec_h.fused:
+        raise AssertionError("the LM / hotword Recognizer is not fused")
+    rec_h.transcribe(host_waves[1][:4000])  # warm-up
+    want_h = {k: v * len(host_waves) for k, v in _gru_launches(
+        cfg, 1, torch.float32).items()}
+    # the Recognizer's own host decoder (what its transcribe_batch runs for a
+    # fused recognizer), run once with the kernels and once with the plain GRU:
+    # with random weights the search prunes weakly and its host work dominates
+    kh, ms_h = run("host beam + LM + hotwords fp32, 2 waves", _host_tokens, rec_h,
+                   host_waves, want=want_h)
+    ph = _host_tokens(rec_h, host_waves, plain=True)
+    texts_h = [rec_h._decode_text(t) for t in kh]
+    secs = sum(HOST_BEAM_SAMPLES) / 16000
+    print(f"host A/B beam + n-gram LM + hotwords {HOTWORDS}, fp32, {len(host_waves)} "
+          f"waves ({secs:.2f} s of audio): {ms_h:.1f} ms, "
+          f"{ms_h / len(host_waves):.1f} ms per utterance; kernels vs plain GRU tokens "
+          f"equal {kh == ph}: {texts_h}", flush=True)
+    if kh != ph:
+        raise AssertionError("host-beam tokens differ between the GRU kernel and the "
+                             "plain GRU")
+    result["host_beam_fp32"] = {"ms": ms_h, "ms_per_utterance": ms_h / len(host_waves),
+                                "audio_s": secs}
+    del rec, rec32, rec_lm, rec_h
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def streaming_config():
+    """bench_streaming.py's model: a 6-layer unidirectional LSTM encoder
+    (H=1024, output 512), a 2-layer LSTM prediction network (H=1024, output
+    512), V=72, audio without per-utterance normalisation."""
+    from rnntransducer_tpu_torch.config import (AudioConfig, Config, DataConfig,
+                                                JointNetConfig, ModelConfig,
+                                                PredNetConfig, TransNetConfig)
+    model = ModelConfig(
+        transnet=TransNetConfig(input_size=80, hidden_size=1024, output_size=512,
+                                num_layers=6, rnn_type="lstm", dropout=0.0,
+                                bidirectional=False),
+        prednet=PredNetConfig(embedding_size=72, hidden_size=1024, output_size=512,
+                              num_layers=2, rnn_type="lstm", dropout=0.0),
+        jointnet=JointNetConfig(num_classes=72))
+    return Config(model=model, data=DataConfig(audio=AudioConfig(normalize=False)))
+
+
+def _stream_waves(n, seed):
+    """bench_streaming.py's utterances: 10 s of seeded noise at scale 2."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(int(16000 * STREAM_UTT_SEC)) * 2).astype(np.float32)
+            for _ in range(n)]
+
+
+def phase_streaming(stream_sd):
+    """Streaming on bench_streaming.py's model at full width.  K3 against its
+    plain version at one chunk's shape (T=64, B=1, H=1024) with a carried
+    h0 / c0, full and ragged; bf16 sessions, 100 ms feeds, chunk_frames 64,
+    greedy and beam 4: 6 K3 launches per chunk, RTF and p50 first-token
+    latency as bench_streaming.py defines them; streaming greedy tokens
+    against offline greedy tokens in fp32."""
+    from rnntransducer_tpu_torch.decode.streaming import StreamingRecognizer
+    from rnntransducer_tpu_torch.frontend.melspec import LogMelFrontend
+    cfg = streaming_config()
+    tn, audio = cfg.model.transnet, cfg.data.audio
+    H, T = tn.hidden_size, STREAM_CHUNK_FRAMES
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    k3 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_valid in (T, 41):
+            xw, w, b, h0, c0, _ = _lstm_inputs(T, 1, H, dtype, gen)
+            lengths = torch.tensor([n_valid], device=DEVICE)
+            got = rnn_kernels.lstm_scan(xw, w, b, h0, c0, lengths, False, True)
+            want = rnn_kernels.lstm_scan_reference(xw, w, b, h0, c0, lengths, False, True)
+            torch.cuda.synchronize()
+            errs = [_rel_err(g, r) for g, r in zip(got, want)]
+            abs_err = max((g.float() - r.float()).abs().max().item()
+                          for g, r in zip(got, want))
+            ms = _sync_time(lambda: rnn_kernels.lstm_scan(xw, w, b, h0, c0, lengths), 20)
+            plain = _sync_time(lambda: rnn_kernels.lstm_scan_reference(
+                xw, w, b, h0, c0, lengths), 3)
+            bound, by = lstm_bound_ms(T, 1, H, dtype, lengths, False)
+            k3[(str(dtype)[6:], n_valid)] = {"ms": ms, "plain_ms": plain,
+                                             "bound_ms": bound, "bound_by": by,
+                                             "max_abs_err": abs_err}
+            print(f"lstm_fwd streaming chunk dtype={str(dtype)[6:]} T={T} B=1 H={H} "
+                  f"valid={n_valid} carried h0/c0: rel_err h_all/c_all/h_fin/c_fin="
+                  f"{'/'.join(f'{e:.2e}' for e in errs)} (tol {LSTM_TOL[dtype]:.1e}); "
+                  f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by})",
+                  flush=True)
+            if not max(errs) <= LSTM_TOL[dtype]:
+                raise AssertionError(f"K3 disagrees with its plain version at the "
+                                     f"streaming chunk: {errs}")
+    per_chunk = tn.num_layers * scan_launches("lstm", T, H, 1, torch.bfloat16,
+                                              device=DEVICE)[0]
+    if per_chunk != tn.num_layers:
+        raise AssertionError(f"K3 at the chunk's shape takes {per_chunk} launches "
+                             f"per chunk, not {tn.num_layers}")
+    model = build_model(cfg, DEVICE, state_dict=stream_sd).to(torch.bfloat16)
+    feed = audio.sample_rate * STREAM_FEED_MS // 1000
+    n_frames = int(audio.sample_rate * STREAM_UTT_SEC) // audio.hop_length + 1
+    n_chunks = -(-n_frames // T)
+    want = dict.fromkeys(KERNELS, 0)
+    want["lstm_fwd"] = per_chunk * n_chunks
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {"k3_chunk": {f"{d} valid={n}": v for (d, n), v in k3.items()}}
+    for decoder in ("greedy", "beam"):
+        rtfs, first = [], []
+        for u, wav in enumerate(_stream_waves(STREAM_UTTS + 1, SEED + 11)):
+            _zero_counts()
+            rec = StreamingRecognizer(model, audio, chunk_frames=T, normalize="none",
+                                      decoder=decoder, beam_width=4)
+            t0 = time.perf_counter()
+            tft, compute = None, 0.0
+            for ci, s in enumerate(range(0, len(wav), feed)):
+                c0 = time.perf_counter()
+                toks = rec.feed(wav[s:s + feed])
+                if decoder == "beam" and ci % STREAM_POLL_EVERY == STREAM_POLL_EVERY - 1:
+                    toks = rec.tokens
+                compute += time.perf_counter() - c0
+                if toks and tft is None:
+                    tft = time.perf_counter() - t0
+            c0 = time.perf_counter()
+            rec.flush()
+            torch.cuda.synchronize()
+            compute += time.perf_counter() - c0
+            got = _counts()
+            _expect_launches(f"streaming {decoder} bf16 utterance {u} ({n_chunks} "
+                             f"chunks)", got, want)
+            for k in KERNELS:
+                launches[k] += got[k]
+            if u == 0:
+                continue  # warm-up
+            rtfs.append(compute / STREAM_UTT_SEC)
+            if tft is not None:
+                first.append(tft)
+        rtf = float(np.median(rtfs))
+        p50 = float(np.median(first)) if first else None
+        print(f"streaming {decoder}{' width 4' if decoder == 'beam' else ''} bf16, "
+              f"{STREAM_FEED_MS} ms feeds, chunk_frames {T}: RTF {rtf:.4f} (median of "
+              f"{rtfs}); p50 first-token latency "
+              f"{'not measured (no token)' if p50 is None else f'{p50 * 1e3:.1f} ms'}; "
+              f"last utterance {len(rec.tokens)} tokens", flush=True)
+        result[decoder] = {"rtf": rtf, "rtf_each": rtfs, "first_token_p50_s": p50,
+                           "first_token_s": first}
+    # streaming greedy against offline greedy, fp32
+    model32 = build_model(cfg, DEVICE, state_dict=stream_sd)
+    wav = _stream_waves(1, SEED + 12)[0]
+    with torch.inference_mode():
+        feats, lengths = LogMelFrontend(audio)(torch.from_numpy(wav[None]).to(DEVICE))
+        toks, lens = greedy_mod.greedy_decode(model32, feats, lengths, max_output_len=512)
+    offline = toks[0, :lens[0]].tolist()
+    rec = StreamingRecognizer(model32, audio, chunk_frames=T, normalize="none")
+    streamed = []
+    for s in range(0, len(wav), feed):
+        streamed += rec.feed(wav[s:s + feed])
+    streamed += rec.flush()
+    print(f"streaming greedy vs offline greedy, fp32, {STREAM_UTT_SEC:.0f} s "
+          f"({n_frames} frames, last chunk {n_frames - (n_chunks - 1) * T} frames): "
+          f"tokens equal {streamed == offline} ({len(offline)} tokens)", flush=True)
+    if streamed != offline or not offline:
+        raise AssertionError("streaming greedy tokens differ from offline greedy "
+                             "(or none were emitted)")
+    result["stream_vs_offline_fp32_tokens"] = len(offline)
+    del model, model32
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def phase_cli(stream_cfg, stream_sd, waves):
+    """``python -m rnntransducer_tpu_torch.cli.infer`` in-process, bf16, on
+    phase 5's checkpoint with --decoder beam_batched, then beam; --stream on
+    a checkpoint of phase 6d's streaming model written by CheckpointManager
+    (phase 5's encoder is bidirectional, which streaming refuses)."""
+    from rnntransducer_tpu_torch.cli import infer
+    from rnntransducer_tpu_torch.train.checkpoint import CheckpointManager
+    from rnntransducer_tpu_torch.utils.audio_io import write_wav
+    base = base_config()
+    os.makedirs(DECODE_DIR, exist_ok=True)
+    paths = []
+    for i, w in enumerate(waves[:2]):
+        paths.append(os.path.join(DECODE_DIR, f"cli{i}.wav"))
+        write_wav(paths[-1], w[:CLI_SAMPLES])
+    stream_dir = os.path.join(DECODE_DIR, "stream_ckpt")
+    mgr = CheckpointManager(stream_dir)
+    mgr.save(1, TrainState.create(stream_cfg, DEVICE, state_dict=stream_sd),
+             config=stream_cfg)
+    mgr.close()
+    torch.cuda.empty_cache()
+    gru_one = _gru_launches(base, 1, torch.bfloat16)
+    stream_chunks = len(paths) * -(-(CLI_SAMPLES // 160 + 1) // STREAM_CHUNK_FRAMES)
+    stream_want = dict.fromkeys(KERNELS, 0)
+    stream_want["lstm_fwd"] = stream_cfg.model.transnet.num_layers * stream_chunks
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {}
+    try:
+        for name, ckpt, flags, want in (
+                ("beam_batched", TRAINER_DIR, ["--decoder", "beam_batched"],
+                 _gru_launches(base, len(paths), torch.bfloat16)),
+                ("beam", TRAINER_DIR, ["--decoder", "beam", "--hotwords", *HOTWORDS],
+                 {k: v * len(paths) for k, v in gru_one.items()}),
+                ("stream", stream_dir, ["--stream", "--decoder", "greedy"], stream_want)):
+            lines, ms, got = _counted(infer.main, [
+                "--checkpoint_dir", ckpt, "--wav", *paths, "--precision", "bf16",
+                "--device", DEVICE, *flags])
+            _expect_launches(f"cli {name}", got, want)
+            for k in KERNELS:
+                launches[k] += got[k]
+            if len(lines) != len(paths):
+                raise AssertionError(f"cli {name} printed {lines}")
+            print(f"cli {name}: {ms:.1f} ms (checkpoint load included): {lines}",
+                  flush=True)
+            result[name] = {"ms": ms}
+    finally:
+        shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+        shutil.rmtree(DECODE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its wall time printed (where the script's time goes)."""
     t0 = time.perf_counter()
@@ -1847,6 +2295,10 @@ def main() -> int:
         raise AssertionError("the serving path launched no GRU kernel")
     torch.cuda.empty_cache()
 
+    stream_cfg = streaming_config()
+    stream_sd = state_dict_from_flax(random_flax_params(
+        stream_cfg.model, torch.Generator().manual_seed(SEED + 7)), stream_cfg.model)
+
     # ---- the main paths: each sets the counts to 0 before every step -------
     launches = dict.fromkeys(KERNELS, 0)
     bare_busy = {}
@@ -1854,7 +2306,10 @@ def main() -> int:
                       ("raw_pcm", lambda: phase_raw_pcm(flax_params)),
                       ("tiny", lambda: phase_tiny(tokenizer, waves)),
                       ("trainer", lambda: phase_trainer(flax_params, waves,
-                                                        bare_busy.get("training")))):
+                                                        bare_busy.get("training"))),
+                      ("decoding", lambda: phase_decoding(flax_params, tokenizer, waves)),
+                      ("streaming", lambda: phase_streaming(stream_sd)),
+                      ("cli", lambda: phase_cli(stream_cfg, stream_sd, waves))):
         got, result = _timed(name, run)
         bare_busy[name] = result.get("device_busy_share")
         launches = {k: launches[k] + got[k] for k in KERNELS}

@@ -3,10 +3,13 @@
     rec = Recognizer.from_torch_params("bundle")        # config.json + params.pt
     rec = Recognizer.from_checkpoint("checkpoints")     # a Trainer's checkpoints
     text = rec.transcribe("utt.wav")
-    texts = rec.transcribe_batch([wav1, wav2])          # one batched greedy decode
+    texts = rec.transcribe_batch([wav1, wav2])          # batched device beam
+    session = rec.stream()                              # StreamingRecognizer
 
-Only the greedy decoder is ported.  Beam decoders, LM / hotword fusion and
-streaming sessions raise ``NotImplementedError``.
+Decoders: ``"beam_batched"`` (the default, the device beam at
+``cfg.inference.beam_width``, with an optional on-device char LM),
+``"greedy"``, and LM / hotword fusion through the host A/B beam
+(``decode/beam.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from rnntransducer_tpu_torch.config import Config
+from rnntransducer_tpu_torch.decode.beam_batched import batched_beam_decode
 from rnntransducer_tpu_torch.decode.greedy import (greedy_decode,
                                                    greedy_decode_with_times)
 from rnntransducer_tpu_torch.frontend.melspec import LogMelFrontend
@@ -33,15 +37,15 @@ def _is_flax_tree(params: Mapping) -> bool:
 
 class Recognizer:
     def __init__(self, cfg: Config, state_dict_or_params: Mapping, tokenizer,
-                 decoder: str = "greedy", max_output_len: int = 512,
-                 compose_hangul: bool = True, precision: Optional[str] = None,
-                 device=None, lm_path: Optional[str] = None,
-                 hotwords: Optional[Sequence[str]] = None):
-        if decoder != "greedy":
-            raise NotImplementedError(
-                f"decoder {decoder!r} is not ported yet; only 'greedy' is")
-        if lm_path or hotwords:
-            raise NotImplementedError("LM / hotword fusion is not ported yet")
+                 decoder: str = "beam_batched", beam_width: Optional[int] = None,
+                 max_output_len: int = 512, compose_hangul: bool = True,
+                 lm_path: Optional[str] = None, lm_weight: Optional[float] = None,
+                 hotwords: Optional[Sequence[str]] = None,
+                 hotword_weight: Optional[float] = None,
+                 device_lm_path: Optional[str] = None,
+                 device_lm_weight: float = 0.3,
+                 device_lm_order: Optional[int] = 3,
+                 precision: Optional[str] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         sd = state_dict_or_params
@@ -49,14 +53,46 @@ class Recognizer:
             sd = weights.state_dict_from_flax(sd, cfg.model)
         self.model = build_model(cfg, self.device, state_dict=sd)
         # precision: cast the float params once; activations follow them
-        # (decode.greedy casts the features to the params' dtype)
+        # (the decoders cast the features to the params' dtype); beam scores
+        # stay fp32
         if precision is not None:
             self.model.to(decode_dtype(precision))
         self.tokenizer = tokenizer
         self.decoder = decoder
+        # the default comes from the config persisted with the checkpoint
+        self.beam_width = (beam_width if beam_width is not None
+                           else cfg.inference.beam_width)
         self.max_output_len = max_output_len
         self.compose_hangul = compose_hangul
         self.frontend = LogMelFrontend(cfg.data.audio)
+        # LM / hotword shallow fusion: fused decodes (and streams) route
+        # through the host A/B beam (decode/beam.py)
+        self.lm = None
+        if lm_path:
+            from rnntransducer_tpu_torch.decode.ngram_lm import NGramLM
+            self.lm = NGramLM.load(lm_path, weight=lm_weight)
+        self.hotwords = list(hotwords) if hotwords else None
+        self.hotword_weight = hotword_weight
+        if self.fused and decoder == "greedy":
+            raise ValueError("LM/hotword fusion requires a beam decoder")
+        # device char-LM fusion (decode/device_lm.py): the table lives on the
+        # card and is gathered inside the device beam's frame loop
+        self.device_lm = None
+        if device_lm_path:
+            if decoder == "greedy":
+                raise ValueError("device_lm requires a beam decoder")
+            if self.fused:
+                raise ValueError(
+                    "device_lm (on-device char fusion) and lm_path/hotwords "
+                    "(host word-level fusion) are mutually exclusive")
+            from rnntransducer_tpu_torch.decode.device_lm import DeviceCharLM
+            self.device_lm = DeviceCharLM.load(
+                device_lm_path, tokenizer, weight=device_lm_weight,
+                max_order=device_lm_order).to(self.device)
+
+    @property
+    def fused(self) -> bool:
+        return self.lm is not None or bool(self.hotwords)
 
     # -- constructors --------------------------------------------------
     @classmethod
@@ -123,15 +159,39 @@ class Recognizer:
 
     def transcribe_batch(self, wavs: Sequence[Union[str, np.ndarray]]) -> List[str]:
         waves = [self._to_wave(w) for w in wavs]
+        blank = self.tokenizer.blank_token_id
+        max_symbols = self.cfg.train.greedy_max_symbols
         with torch.inference_mode():
             feats, feat_lengths = self._features(waves)
-            toks, lens = greedy_decode(
-                self.model, feats, feat_lengths,
-                blank_id=self.tokenizer.blank_token_id,
-                max_symbols=self.cfg.train.greedy_max_symbols,
-                max_output_len=self.max_output_len)
+            if self.fused:
+                dec = self._host_beam()
+                return [self._decode_text(dec.decode(feats[i:i + 1],
+                                                     feat_lengths[i:i + 1])[0])
+                        for i in range(len(waves))]
+            if self.decoder == "greedy" or self.beam_width <= 1:
+                toks, lens = greedy_decode(
+                    self.model, feats, feat_lengths, blank_id=blank,
+                    max_symbols=max_symbols, max_output_len=self.max_output_len)
+            else:
+                toks, lens, _ = batched_beam_decode(
+                    self.model, feats, feat_lengths, blank_id=blank,
+                    beam_width=self.beam_width, max_symbols=max_symbols,
+                    max_output_len=self.max_output_len, device_lm=self.device_lm)
+                toks, lens = toks[:, 0], lens[:, 0]
         toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
         return [self._decode_text(toks[i, :lens[i]]) for i in range(len(waves))]
+
+    def _host_beam(self):
+        from rnntransducer_tpu_torch.decode.beam import BeamSearchDecoder
+        from rnntransducer_tpu_torch.decode.hotwords import DEFAULT_HOTWORD_WEIGHT
+        inf = self.cfg.inference
+        return BeamSearchDecoder(
+            self.model, blank_id=self.tokenizer.blank_token_id,
+            tokenizer=self.tokenizer, beam_width=self.beam_width,
+            improved=inf.improved, state_beam=inf.state_beam,
+            expand_beam=inf.expand_beam, lm=self.lm, hotwords=self.hotwords,
+            hotword_weight=(DEFAULT_HOTWORD_WEIGHT if self.hotword_weight is None
+                            else self.hotword_weight))
 
     def transcribe_with_timestamps(self, wav: Union[str, np.ndarray]
                                    ) -> Tuple[str, List[Tuple[str, float]]]:
@@ -154,5 +214,35 @@ class Recognizer:
                   for i, f in zip(ids, times[0, :n].cpu().tolist())]
         return self._decode_text(ids), stamps
 
-    def stream(self, *args, **kwargs):
-        raise NotImplementedError("streaming sessions are not ported yet")
+    def stream(self, chunk_frames: Optional[int] = None, **kw):
+        """A new streaming session (the encoder must be unidirectional).
+
+        A model trained with per-utterance normalisation
+        (``cfg.data.audio.normalize``) streams with the causal "running"
+        normalisation by default; pass normalize="none" / "running" /
+        "fixed" (with norm_mean / norm_var) to override.  Fused recognizers
+        stream through the host A/B beam, a ``device_lm`` rides in the
+        device beam.
+        """
+        from rnntransducer_tpu_torch.decode.streaming import StreamingRecognizer
+        kw.setdefault("normalize",
+                      "running" if self.cfg.data.audio.normalize else "none")
+        if self.fused:
+            inf = self.cfg.inference
+            kw.setdefault("lm", self.lm)
+            kw.setdefault("hotwords", self.hotwords)
+            kw.setdefault("hotword_weight", self.hotword_weight)
+            kw.setdefault("tokenizer", self.tokenizer)
+            kw.setdefault("improved", inf.improved)
+            kw.setdefault("state_beam", inf.state_beam)
+            kw.setdefault("expand_beam", inf.expand_beam)
+        elif self.device_lm is not None and self.decoder != "greedy":
+            kw.setdefault("device_lm", self.device_lm)
+        kw.setdefault("max_output_len", self.max_output_len)
+        return StreamingRecognizer(
+            self.model, self.cfg.data.audio,
+            blank_id=self.tokenizer.blank_token_id,
+            chunk_frames=chunk_frames or self.cfg.inference.streaming_chunk_frames,
+            max_symbols=self.cfg.train.greedy_max_symbols,
+            decoder="beam" if self.decoder != "greedy" else "greedy",
+            beam_width=self.beam_width, **kw)

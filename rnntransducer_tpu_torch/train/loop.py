@@ -7,8 +7,8 @@
 * ``train_step`` per batch (the recurrent, sweep and, on raw PCM, log-mel
   kernels on the card); the host counts steps itself and reads the loss
   back only at log steps;
-* periodic validation: per-sample loss (``eval_step``) plus greedy decode
-  and corpus WER / CER;
+* periodic validation: per-sample loss (``eval_step``) plus a greedy or
+  batched-beam decode (``train.val_decoder``) and corpus WER / CER;
 * checkpoints: top k by ``val_cer`` plus the latest; ``fit(resume=True)``
   continues the deterministic data schedule exactly where the run stopped;
 * SIGTERM checkpoints the current step and ends ``fit`` cleanly.
@@ -30,6 +30,7 @@ from rnntransducer_tpu_torch.data.bucketing import LengthBucketSampler
 from rnntransducer_tpu_torch.data.collate import collate, collate_waveforms
 from rnntransducer_tpu_torch.data.prefetch import (DevicePrefetcher,
                                                    ordered_readahead, to_device)
+from rnntransducer_tpu_torch.decode.beam_batched import batched_beam_decode
 from rnntransducer_tpu_torch.decode.greedy import greedy_decode
 from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer
 from rnntransducer_tpu_torch.train.checkpoint import CheckpointManager
@@ -64,10 +65,6 @@ class Trainer:
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  profile_dir: Optional[str] = None, profile_steps: tuple = (10, 15)):
         check_single_device(cfg)
-        if cfg.train.val_decoder != "greedy":
-            raise NotImplementedError(
-                f"train.val_decoder={cfg.train.val_decoder!r}: only greedy "
-                "validation decoding is ported (decode/beam_batched.py is not)")
         self.cfg = cfg
         self.train_ds = train_dataset
         self.val_ds = val_dataset
@@ -358,11 +355,17 @@ class Trainer:
                 dev = dict(dev, feats=feats, feat_lengths=feat_lengths)
             # per-sample losses, so the wrap-padding rows do not count
             per_sample = eval_step(cfg, model, dev, reduction="none")
-            toks, lens = greedy_decode(
-                model, dev["feats"], dev["feat_lengths"],
-                blank_id=cfg.data.text.pad_token_id,
-                max_symbols=cfg.train.greedy_max_symbols,
-                max_output_len=max(cfg.data.label_buckets))
+            kw = dict(blank_id=cfg.data.text.pad_token_id,
+                      max_symbols=cfg.train.greedy_max_symbols,
+                      max_output_len=max(cfg.data.label_buckets))
+            if cfg.train.val_decoder == "beam":
+                toks, lens, _ = batched_beam_decode(
+                    model, dev["feats"], dev["feat_lengths"],
+                    beam_width=cfg.train.val_beam_width, **kw)
+                toks, lens = toks[:, 0], lens[:, 0]
+            else:
+                toks, lens = greedy_decode(model, dev["feats"], dev["feat_lengths"],
+                                           **kw)
             per_sample = per_sample.float().cpu().numpy()
             toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
             for j in range(n_valid):

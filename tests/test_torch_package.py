@@ -46,14 +46,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_scan_covers_the_training_loop_and_cli():
-    """The modules of the training loop, the data feed and the train CLI are
-    among those scanned, and each imports the port's own copies."""
+    """The modules of the training loop, the data feed, the decoders, the
+    train and inference CLIs are among those scanned, and each imports the
+    port's own copies."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     pkg = "rnntransducer_tpu_torch"
     for mod in ("train/metrics.py", "train/checkpoint.py", "train/loop.py",
                 "data/bucketing.py", "data/collate.py", "data/dataset.py",
                 "data/prefetch.py", "utils/logging.py", "utils/profiling.py",
-                "cli/train.py", "cli/__init__.py"):
+                "cli/train.py", "cli/__init__.py", "cli/infer.py", "serve.py",
+                "decode/__init__.py", "decode/beam.py", "decode/beam_batched.py",
+                "decode/device_lm.py", "decode/device_word_lm.py",
+                "decode/greedy.py", "decode/hotwords.py", "decode/ngram_lm.py",
+                "decode/streaming.py"):
         path = os.path.join(pkg, mod)
         assert path in scanned, path
         own = [m for m in _imported_modules(os.path.join(REPO, path))

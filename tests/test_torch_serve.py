@@ -1,6 +1,10 @@
 """Greedy decoding and the serving API of the port against the JAX package
-on a tiny bidirectional-GRU model with the same weights: tokens, lengths,
-emission times and transcripts must be equal."""
+on tiny models with the same weights: tokens, lengths, emission times and
+transcripts must be equal, for the default device beam, the greedy
+decoder, LM / hotword fusion through the host beam, an on-device char LM
+and streaming sessions."""
+
+import textwrap
 
 import numpy as np
 import jax.numpy as jnp
@@ -58,7 +62,7 @@ def _recognizers(tmp_path=None):
                          decoder="greedy")
     cfg = pcfg.Config(model=pcfg.ModelConfig.from_dict(d))
     prec = Recognizer(cfg, numpy_params(variables), GraphemeTokenizer.default(72),
-                      device="cpu")
+                      decoder="greedy", device="cpu")
     return jrec, prec, cfg, numpy_params(variables)
 
 
@@ -79,7 +83,8 @@ def test_recognizer_transcripts_match_jax(tmp_path):
     # a converted bundle serves the same text on a machine without flax
     weights.save(str(tmp_path / "bundle"), cfg,
                  weights.state_dict_from_flax(params, cfg.model))
-    again = Recognizer.from_torch_params(str(tmp_path / "bundle"), device="cpu")
+    again = Recognizer.from_torch_params(str(tmp_path / "bundle"), decoder="greedy",
+                                         device="cpu")
     assert again.transcribe_batch(waves) == want
     bf16 = Recognizer.from_flax_params(cfg, params, device="cpu", precision="bf16")
     assert next(bf16.model.parameters()).dtype == torch.bfloat16
@@ -87,15 +92,126 @@ def test_recognizer_transcripts_match_jax(tmp_path):
 
 
 def test_recognizer_refuses_what_is_not_ported():
+    """Every decoder and fusion option of the JAX Recognizer is ported; what
+    is still refused are the contradictory options, with the JAX package's
+    ValueErrors, and the Conformer's streaming state."""
     d = model_dict(n_mels=80, vocab=72)
     _, variables = jax_model(d)
     cfg = pcfg.Config(model=pcfg.ModelConfig.from_dict(d))
     params = numpy_params(variables)
     tok = GraphemeTokenizer.default(72)
-    for kw in (dict(decoder="beam_batched"), dict(lm_path="lm.arpa"),
-               dict(hotwords=["ㄱ"])):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Recognizer(cfg, params, tok, device="cpu", **kw)
+    with pytest.raises(ValueError, match="requires a beam decoder"):
+        Recognizer(cfg, params, tok, device="cpu", decoder="greedy", hotwords=["ㄱ"])
     rec = Recognizer(cfg, params, tok, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    assert (rec.decoder, rec.beam_width, rec.fused) == ("beam_batched", 5, False)
+    with pytest.raises(ValueError, match="unidirectional"):
         rec.stream()
+
+
+# a word bigram and a char trigram over the default vocabulary's graphemes
+WORD_ARPA = textwrap.dedent(r"""
+\data\
+ngram 1=5
+ngram 2=2
+
+\1-grams:
+-1.0    <s>    -0.5
+-1.0    </s>
+-0.8    ㄱㅏ    -0.3
+-1.1    ㄴㅏ    -0.2
+-2.0    <unk>
+
+\2-grams:
+-0.4    <s> ㄱㅏ
+-0.6    ㄱㅏ ㄴㅏ
+
+\end\
+""").strip()
+CHAR_ARPA = textwrap.dedent(r"""
+\data\
+ngram 1=5
+ngram 2=2
+ngram 3=1
+
+\1-grams:
+-1.0    <s>    -0.5
+-1.0    </s>
+-0.4    ㄱ    -0.3
+-0.7    ㅏ    -0.2
+-0.9    |    -0.2
+
+\2-grams:
+-0.2    ㄱ ㅏ    -0.4
+-0.5    ㅏ |
+
+\3-grams:
+-0.1    ㄱ ㅏ |
+
+\end\
+""").strip()
+
+
+@pytest.fixture(scope="module")
+def lm_paths(tmp_path_factory):
+    d = tmp_path_factory.mktemp("serve_lm")
+    (d / "word.arpa").write_text(WORD_ARPA)
+    (d / "char.arpa").write_text(CHAR_ARPA)
+    return str(d / "word.arpa"), str(d / "char.arpa")
+
+
+def _pair(d, seed, **kw):
+    """The JAX and the port Recognizer on the same weights and options."""
+    _, variables = jax_model(d, seed=seed)
+    jrec = JaxRecognizer(jcfg.Config(model=jcfg.ModelConfig.from_dict(d)),
+                         variables["params"], JaxTokenizer.default(72), **kw)
+    prec = Recognizer(pcfg.Config(model=pcfg.ModelConfig.from_dict(d)),
+                      numpy_params(variables), GraphemeTokenizer.default(72),
+                      device="cpu", **kw)
+    return jrec, prec
+
+
+@pytest.mark.parametrize("kw", [{}, dict(beam_width=3, max_output_len=64)])
+def test_recognizer_default_beam_matches_jax(kw):
+    """Recognizer(cfg, params, tok) decodes with the device beam at
+    cfg.inference.beam_width in both packages."""
+    jrec, prec = _pair(model_dict(n_mels=80, vocab=72, layers=2), 5, **kw)
+    assert prec.decoder == jrec.decoder == "beam_batched"
+    assert prec.beam_width == jrec.beam_width
+    waves = _waves()
+    want = jrec.transcribe_batch(waves)
+    assert any(want)
+    assert prec.transcribe_batch(waves) == want
+
+
+@pytest.mark.parametrize("fusion", ["lm", "hotwords", "device_lm"])
+def test_recognizer_fusion_routes_match_jax(lm_paths, fusion):
+    """LM / hotwords route through the host A/B beam, a device char LM
+    through the device beam: the texts equal the JAX Recognizer's."""
+    kw = {"lm": dict(lm_path=lm_paths[0], lm_weight=0.8),
+          "hotwords": dict(hotwords=["ㄱㅏ"], hotword_weight=3.0),
+          "device_lm": dict(device_lm_path=lm_paths[1], device_lm_weight=1.0)}[fusion]
+    jrec, prec = _pair(model_dict(n_mels=80, vocab=72, layers=1), 5, beam_width=3,
+                       **kw)
+    assert prec.fused == jrec.fused == (fusion != "device_lm")
+    waves = _waves()[:2]
+    want = jrec.transcribe_batch(waves)
+    assert any(want)
+    assert prec.transcribe_batch(waves) == want
+
+
+@pytest.mark.parametrize("decoder, fusion", [("greedy", None), ("beam_batched", None),
+                                             ("beam", "lm")])
+def test_recognizer_stream_matches_jax(lm_paths, decoder, fusion):
+    d = model_dict(rnn_type="lstm", layers=2, bidirectional=False, n_mels=80,
+                   vocab=72)
+    kw = dict(lm_path=lm_paths[0], hotwords=["ㄴㅏ"]) if fusion else {}
+    jrec, prec = _pair(d, 8, decoder=decoder, beam_width=3, **kw)
+    wav = _waves()[0]
+    texts = []
+    for rec in (jrec, prec):
+        session = rec.stream(chunk_frames=16)
+        for s in range(0, len(wav), 1600):
+            session.feed(wav[s:s + 1600])
+        session.flush()
+        texts.append(rec.tokenizer.decode(session.tokens, group_tokens=False))
+    assert texts[1] == texts[0] and texts[0]
