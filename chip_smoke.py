@@ -45,9 +45,9 @@ Phases (each raises, and the script exits non-zero, on failure):
    and fp32.  The GRU kernel's launch count is set to 0 before and read
    after; every GRU scan must have gone through the kernel (one launch per
    layer and direction).  Label-looping greedy decode against the frame
-   scan on the bf16 batch of 8 (equal tokens).  Then the encoder is run
-   again with the plain GRU on the card, and outputs and greedy tokens are
-   compared.
+   scan on the first 2 s of the bf16 batch of 8 (equal tokens).  Then the
+   encoder is run again with the plain GRU on the card, and outputs and
+   greedy tokens are compared.
 4. The main paths, each with every launch count set to 0 before each timed
    step and read after it, against the count the design gives
    (``step_launches``):
@@ -82,22 +82,52 @@ Phases (each raises, and the script exits non-zero, on failure):
    b. the same with an order-3 char LM table on the card, built from an
       ARPA file the script writes over the graphemes: weight 0 gives the
       no-LM tokens;
-   c. the host A/B beam with that LM and two hotwords on 2 waves of up to
-      2 s, fp32 (16 K1 launches per wave), kernels against the plain GRU;
+   c. the host A/B beam with that LM and two hotwords on 2 waves of 0.5
+      and 0.375 s, fp32 (16 K1 launches per wave), kernels against the
+      plain GRU;
    d. streaming on ``bench_streaming.py``'s model (6-layer unidirectional
       LSTM encoder, H=1024) at full width: K3 against its plain version at
       one chunk's shape (T=64, B=1) with a carried h0 / c0, full and
       ragged; bf16 sessions, 100 ms feeds, chunk_frames 64, greedy and
       beam 4, 6 K3 launches per chunk, RTF and p50 first-token latency as
-      ``bench_streaming.py`` defines them; streaming greedy tokens against
-      offline greedy in fp32;
+      ``bench_streaming.py`` defines them (median of 3 utterances, not its
+      5); streaming greedy tokens against offline greedy in fp32;
    e. the inference CLI on phase 5's checkpoint (``--decoder
       beam_batched``, then ``beam``) and ``--stream`` on a checkpoint of
       (d)'s model (phase 5's encoder is bidirectional).
-7. One fp32 step at full width (B=8: the plain backward scans are Python
+7. Many streams at once and a corpus (``phase_sessions``, ``phase_server``,
+   ``phase_evaluate``, ``phase_import``), each run's launches checked:
+   a. continuous batching (``decode/session_batch``) on (6d)'s model with
+      ``experiments/bench_session_scale.py``'s traffic: 8 and 64 lanes of
+      5 s (its 8 s cut), 100 ms feeds in lockstep, chunk_frames 16, greedy
+      and beam 4,
+      bf16; 6 K3 launches per tick; at 64 lanes an all-idle tick (K3 with
+      every length 0) that must leave every lane bit-identical, and a
+      profiled window of ticks; tick p50 / p99, aggregate real-time factor,
+      the feed block's p99, the device-busy share; then in fp32 8 batched
+      lanes against 8 independent ``StreamingRecognizer`` sessions on the
+      first 1 s of each wave (K3 at the tick's shape against its plain
+      version, idle rows included, runs with phase 2);
+   b. ``serve_socket.StreamingServer`` on localhost: batch_sessions=8 with
+      8 concurrent ``stream_wav`` clients (finals equal to (a)'s runner),
+      the first-partial latency, a dropped client's slot freed,
+      ``drain()``; per-connection sessions (finals equal to streaming
+      sessions); ``python -m rnntransducer_tpu_torch.serve_socket`` on
+      (6e)'s checkpoint, SIGTERM, exit 0;
+   c. ``eval.evaluate_corpus`` on ``base_config()`` at full width, bf16 and
+      fp32, over 32 seeded WAV files of 1-5.11 s: CER 0 and WER 0 against
+      the Recognizer's own greedy tokens, beam_batched with the oracle
+      n-best, 16 K1 launches per batch, RTF; ``cli.evaluate`` on phase 5's
+      checkpoint with ``--dump``;
+   d. a reference-layout checkpoint of ``base_config()`` (seeded
+      ``torch.nn`` modules, Lightning-style) through
+      ``utils/torch_import.convert_to_checkpoint``: greedy tokens equal to
+      a Recognizer built by hand, joint logits within 1e-4 of the
+      reference module's forward in fp32.
+8. One fp32 step at full width (B=8: the plain backward scans are Python
    loops of small launches), kernels against plain versions (GRU, LSTM and
    the sweep): loss and the grads of named params.
-8. Print one JSON line describing every kernel, then, as the last line,
+9. Print one JSON line describing every kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -112,6 +142,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1584,7 +1615,9 @@ def phase_serving(flax_params, tokenizer, waves):
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
           flush=True)
     phase_profile(recognizers["bf16"], waves)
-    results["label_looping"] = phase_label_looping(recognizers["bf16"], waves)
+    # the first 2 s of each wave: the frame loop's cost grows with the frames
+    results["label_looping"] = phase_label_looping(
+        recognizers["bf16"], [w[:LABEL_LOOP_SAMPLES] for w in waves])
 
     # ---- kernel vs plain GRU through the whole encoder -------------------
     for precision, rec in recognizers.items():
@@ -1801,6 +1834,9 @@ def phase_trainer(flax_params, waves, bare_busy):
     return launches, result
 
 
+LABEL_LOOP_SAMPLES = 32000
+
+
 def phase_label_looping(rec, waves):
     """Label-looping greedy decode against the frame scan on one batch: the
     tokens must be equal; both timed (host clock, synchronised)."""
@@ -1834,14 +1870,18 @@ def phase_label_looping(rec, waves):
 # base_config() in bf16, with and without an on-device char LM, and the host
 # A/B beam with that LM and two hotwords; streaming on bench_streaming.py's
 # model; the inference CLI.
-HOST_BEAM_SAMPLES = (16000, 12000)  # the host beam's 2 waves: 1.0 s and 0.75 s
+# the host beam's 2 waves: 0.5 s and 0.375 s (1.0 s and 0.75 s before,
+# halved for the script's time limit)
+HOST_BEAM_SAMPLES = (8000, 6000)
 CLI_SAMPLES = 16000                 # the CLI's 2 waves: 1.0 s each
 HOTWORDS = ["ㄱㅏ", "ㄴㅏ"]          # graphemes of the default vocabulary
 DEVICE_LM_WEIGHT = 0.5
 STREAM_CHUNK_FRAMES = 64
 STREAM_FEED_MS = 100
 STREAM_UTT_SEC = 10.0
-STREAM_UTTS = 5        # bench_streaming.py: 5 timed utterances after a warm-up
+# bench_streaming.py times 5 utterances after a warm-up; 3 here, for the
+# script's time limit
+STREAM_UTTS = 3
 STREAM_POLL_EVERY = 5  # beam partials polled every 5 feeds, as bench_streaming.py
 DECODE_DIR = os.path.join(REPO, "build", "decoding")
 
@@ -1941,7 +1981,7 @@ def phase_decoding(flax_params, tokenizer, waves):
     features; fp32 tokens with the kernels against the plain GRU.  (b) The
     same with an order-3 device char LM from a seeded ARPA over the
     graphemes: weight 0 gives the no-LM tokens.  (c) The host A/B beam with
-    that LM (word-level) and two hotwords on 2 waves of up to 2 s, fp32, 16
+    that LM (word-level) and two hotwords on 2 waves of up to 0.5 s, fp32, 16
     K1 launches per wave; kernels against the plain GRU."""
     cfg = base_config()
     os.makedirs(DECODE_DIR, exist_ok=True)
@@ -2219,29 +2259,782 @@ def phase_cli(stream_cfg, stream_sd, waves):
     stream_want["lstm_fwd"] = stream_cfg.model.transnet.num_layers * stream_chunks
     launches = dict.fromkeys(KERNELS, 0)
     result = {}
-    try:
-        for name, ckpt, flags, want in (
-                ("beam_batched", TRAINER_DIR, ["--decoder", "beam_batched"],
-                 _gru_launches(base, len(paths), torch.bfloat16)),
-                ("beam", TRAINER_DIR, ["--decoder", "beam", "--hotwords", *HOTWORDS],
-                 {k: v * len(paths) for k, v in gru_one.items()}),
-                ("stream", stream_dir, ["--stream", "--decoder", "greedy"], stream_want)):
-            lines, ms, got = _counted(infer.main, [
-                "--checkpoint_dir", ckpt, "--wav", *paths, "--precision", "bf16",
-                "--device", DEVICE, *flags])
-            _expect_launches(f"cli {name}", got, want)
-            for k in KERNELS:
-                launches[k] += got[k]
-            if len(lines) != len(paths):
-                raise AssertionError(f"cli {name} printed {lines}")
-            print(f"cli {name}: {ms:.1f} ms (checkpoint load included): {lines}",
-                  flush=True)
-            result[name] = {"ms": ms}
-    finally:
-        shutil.rmtree(TRAINER_DIR, ignore_errors=True)
-        shutil.rmtree(DECODE_DIR, ignore_errors=True)
+    for name, ckpt, flags, want in (
+            ("beam_batched", TRAINER_DIR, ["--decoder", "beam_batched"],
+             _gru_launches(base, len(paths), torch.bfloat16)),
+            ("beam", TRAINER_DIR, ["--decoder", "beam", "--hotwords", *HOTWORDS],
+             {k: v * len(paths) for k, v in gru_one.items()}),
+            ("stream", stream_dir, ["--stream", "--decoder", "greedy"], stream_want)):
+        lines, ms, got = _counted(infer.main, [
+            "--checkpoint_dir", ckpt, "--wav", *paths, "--precision", "bf16",
+            "--device", DEVICE, *flags])
+        _expect_launches(f"cli {name}", got, want)
+        for k in KERNELS:
+            launches[k] += got[k]
+        if len(lines) != len(paths):
+            raise AssertionError(f"cli {name} printed {lines}")
+        print(f"cli {name}: {ms:.1f} ms (checkpoint load included): {lines}",
+              flush=True)
+        result[name] = {"ms": ms}
     torch.cuda.empty_cache()
     return launches, result
+
+
+# ---- phases 8-11: many sessions at once, the server, a corpus, an import ----
+SESSION_LANES = (8, 64)
+SESSION_CHUNK_FRAMES = 16   # experiments/bench_session_scale.py
+SESSION_UTT_SEC = 5.0       # its --utt_sec is 8: cut for the time limit
+SESSION_FEED = 1600         # 100 ms feeds, every lane in lockstep
+SESSION_CMP_SEC = 1.0       # batched vs independent sessions: the first 1 s
+SESSION_IDLE_ROUND = 20     # the 64-lane runs' all-idle tick, mid-stream
+SESSION_PROFILE_ROUNDS = (35, 45)
+SERVER_LANES = 8
+SERVER_PREFIX_SEC = 2.0     # per-connection sessions and first-partial latency
+SERVER_PLAIN_CLIENTS = 4    # per-connection sessions take turns on the card
+EVAL_N, EVAL_BATCH, EVAL_BUCKET = 32, 16, 128
+EVAL_DIR = os.path.join(REPO, "build", "evaluate")
+IMPORT_DIR = os.path.join(REPO, "build", "import")
+IMPORT_LOGIT_TOL = 1e-4     # tests/test_torch_checkpoint_import.py
+
+
+def _session_waves(n, seed, sec):
+    """bench_session_scale.py's lanes: seeded noise at scale 0.3, on the
+    int16 levels a socket client sends."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        w = np.clip(rng.randn(int(16000 * sec)) * 0.3 * 32768.0, -32768, 32767)
+        out.append(w.astype("<i2").astype(np.float32) / 32768.0)
+    return out
+
+
+def phase_lstm_tick(gen):
+    """K3 at a tick's shape (T = chunk_frames 16, B = 64 lanes, H=1024)
+    against its plain version, both dtypes: idle lanes (length 0) beside
+    full and ragged rows, then every lane idle.  An idle row's h_final /
+    c_final must be its h0 / c0 bit for bit.  Times bf16 at the mixed
+    lengths of a busy tick."""
+    T, B, H = SESSION_CHUNK_FRAMES, max(SESSION_LANES), 1024
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xw, w, b, h0, c0, _ = _lstm_inputs(T, B, H, dtype, gen)
+        mixed = torch.randint(0, T + 1, (B,), device=DEVICE, generator=gen)
+        mixed[:3] = torch.tensor([0, T, 1])
+        for name, lengths in (("mixed", mixed), ("idle", torch.zeros_like(mixed))):
+            got = rnn_kernels.lstm_scan(xw, w, b, h0, c0, lengths, False, True)
+            want = rnn_kernels.lstm_scan_reference(xw, w, b, h0, c0, lengths, False, True)
+            torch.cuda.synchronize()
+            errs = [_rel_err(g, r) for g, r in zip(got, want)]
+            idle = lengths == 0
+            kept = (torch.equal(got[2][idle], h0[idle]) and torch.equal(got[3][idle], c0[idle])
+                    and not got[0][:, idle].any())
+            print(f"lstm_fwd tick dtype={str(dtype)[6:]} T={T} B={B} H={H} lengths={name} "
+                  f"({int(idle.sum())} idle rows): rel_err h_all/c_all/h_fin/c_fin="
+                  f"{'/'.join(f'{e:.2e}' for e in errs)} (tol {LSTM_TOL[dtype]:.1e}); idle "
+                  f"rows keep h0 / c0 bit for bit {kept}", flush=True)
+            if not (max(errs) <= LSTM_TOL[dtype] and kept):
+                raise AssertionError(f"K3 at the tick shape, lengths {name}: {errs}, "
+                                     f"idle rows kept {kept}")
+        if dtype is torch.bfloat16:
+            ms = _sync_time(lambda: rnn_kernels.lstm_scan(xw, w, b, h0, c0, mixed), 20)
+            plain = _sync_time(lambda: rnn_kernels.lstm_scan_reference(
+                xw, w, b, h0, c0, mixed), 3)
+            bound, by = lstm_bound_ms(T, B, H, dtype, mixed, False)
+            out = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                   "valid_steps": int(mixed.sum())}
+            print(f"lstm_fwd tick bf16 T={T} B={B} H={H}, {int(mixed.sum())} valid steps: "
+                  f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by})",
+                  flush=True)
+    return out
+
+
+def _state_leaves(runner):
+    """Every tensor of a runner's persistent state (encoder state, carry)."""
+    leaves = [runner._enc_state.h, runner._enc_state.c]
+    for leaf in runner._carry:
+        leaves += list(leaf) if isinstance(leaf, tuple) else [leaf]
+    return [x for x in leaves if x is not None]
+
+
+def _idle_tick_check(runner, what: str) -> None:
+    """One all-idle tick against the live state: every lane's encoder state
+    and carry come back torch.equal (K3 with every length 0)."""
+    before = [x.clone() for x in _state_leaves(runner)]
+    runner._enc_state, runner._carry = runner._step(*runner._idle_inputs())
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(_state_leaves(runner), before))
+    print(f"{what}: all-idle tick leaves every lane bit-identical {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{what}: an all-idle tick changed the state")
+
+
+def _lockstep(runner, waves, idle_round=None, profile_rounds=None, flush=True):
+    """bench_session_scale.py's traffic: every lane gets its next 100 ms
+    (buffer-only feeds), then one drain serves them; a probe thread polls
+    lane 0's partials every 10 ms (the feed block: how long a state-lock
+    operation waits while a tick runs).  Optionally one all-idle tick at
+    ``idle_round`` and a profiled window of rounds (left out of the tick
+    and RTF figures).  At the end every lane flushes (two ticks each: its
+    last full chunk, then its final partial one), or, without ``flush``,
+    its partials are read and its slot freed.  Returns the lanes' tokens
+    and the figures."""
+    ticks = [0]
+    drain = runner.drain
+
+    def counted_drain(*args, **kwargs):
+        n = drain(*args, **kwargs)
+        ticks[0] += n
+        return n
+
+    runner.drain = counted_drain
+    sessions = [runner.open(normalize="none") for _ in waves]
+    got = [[] for _ in waves]
+    tick_ms, poll_ms, round_s = [], [], []
+    stop = threading.Event()
+
+    def probe():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            sessions[0].tokens
+            poll_ms.append((time.perf_counter() - t0) * 1e3)
+            time.sleep(0.01)
+
+    prober = threading.Thread(target=probe, daemon=True)
+    prober.start()
+    busy = None
+    n_rounds = -(-max(len(w) for w in waves) // SESSION_FEED)
+    try:
+        for r in range(n_rounds):
+            if idle_round == r:
+                _idle_tick_check(runner, f"{runner.decoder} {len(waves)} lanes")
+            profiling = profile_rounds is not None and profile_rounds[0] <= r < profile_rounds[1]
+            if profile_rounds is not None and r == profile_rounds[0]:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                prof_t0 = time.perf_counter()
+            t0 = time.perf_counter()
+            for i, s in enumerate(sessions):
+                piece = waves[i][r * SESSION_FEED:(r + 1) * SESSION_FEED]
+                if len(piece):
+                    got[i] += s.feed(piece, drain=False)
+            t1 = time.perf_counter()
+            n = runner.drain()  # ends in the partials' device-to-host copy
+            t2 = time.perf_counter()
+            if not profiling:
+                round_s.append(t2 - t0)
+                if n:
+                    tick_ms.append((t2 - t1) * 1e3 / n)
+            if profile_rounds is not None and r == profile_rounds[1] - 1:
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - prof_t0) * 1e3
+                prof.__exit__(None, None, None)
+                device_ms = _device_busy_ms(prof)
+                busy = device_ms / wall_ms if device_ms else None
+                print(f"{runner.decoder} {len(waves)} lanes, profiled rounds "
+                      f"{profile_rounds} (profiler on): wall {wall_ms:.1f} ms, device "
+                      f"busy {device_ms:.1f} ms "
+                      f"({'not measured' if busy is None else f'{100 * busy:.1f}%'})",
+                      flush=True)
+    finally:
+        stop.set()
+        prober.join(timeout=5)
+    times = []
+    for i, s in enumerate(sessions):
+        if not flush:
+            got[i] = s.tokens
+            s.abort()
+            continue
+        fin = s.flush()
+        got[i] = fin if runner.decoder == "beam" else got[i] + fin
+        if runner.decoder == "greedy":
+            times.append(s.timestamps)
+    tick_ms.sort()
+    poll_ms.sort()
+    audio_s = len(waves) * SESSION_FEED / 16000 * len(round_s)
+    return {"tokens": got, "times": times, "ticks": ticks[0],
+            "tick_ms_p50": tick_ms[len(tick_ms) // 2],
+            "tick_ms_p99": tick_ms[int(len(tick_ms) * 0.99)],
+            "aggregate_rtf": audio_s / sum(round_s),
+            "poll_block_ms_p99": poll_ms[int(len(poll_ms) * 0.99)] if poll_ms else 0.0,
+            "device_busy_share": busy}
+
+
+def _near_tie(model, wave, decoder, frames, max_symbols):
+    """(frame, margin) of the smallest decision margin an independent fp32
+    session met in encoder frames ``frames`` (a range): greedy, the top-2
+    gap of the joint's logits; beam, the gap between the K-th and the
+    (K+1)-th candidate of a top-K selection."""
+    from rnntransducer_tpu_torch.decode import beam_batched
+    from rnntransducer_tpu_torch.decode.streaming import StreamingRecognizer
+    seen = []
+    top_k, joint_step = beam_batched._top_k, model.joint_step
+    if decoder == "beam":
+        def recording(pool, k):
+            out = top_k(pool, k)
+            seen.append(torch.sort(pool[0], descending=True).values[k - 1:k + 1])
+            return out
+        beam_batched._top_k = recording
+    else:
+        def recording(enc_t, dec_u):
+            logits = joint_step(enc_t, dec_u)
+            seen.append(torch.topk(logits[0].float(), 2).values)
+            return logits
+        model.joint_step = recording
+    try:
+        rec = StreamingRecognizer(model, streaming_config().data.audio,
+                                  chunk_frames=SESSION_CHUNK_FRAMES, normalize="none",
+                                  decoder=decoder, beam_width=4, max_output_len=512)
+        for s in range(0, len(wave), SESSION_FEED):
+            rec.feed(wave[s:s + SESSION_FEED])
+        rec.flush()
+    finally:
+        beam_batched._top_k = top_k
+        if decoder == "greedy":
+            del model.joint_step
+    pairs = torch.stack(seen).float().cpu().numpy()
+    # NEG-filled candidates tie exactly, and the stable sort orders them by
+    # index whatever the arithmetic: only real candidates count
+    gaps = np.where(pairs[:, 0] > -1e29, pairs[:, 0] - pairs[:, 1], np.inf)
+    frame_of = np.arange(len(gaps)) // max_symbols
+    window = np.isin(frame_of, np.asarray(list(frames)))
+    i = int(np.argmin(np.where(window, gaps, np.inf)))
+    return int(frame_of[i]), float(gaps[i])
+
+
+def phase_sessions(stream_sd, shared):
+    """Continuous batching (``decode/session_batch.BatchedStreamingRunner``)
+    on bench_streaming.py's model at full width with
+    experiments/bench_session_scale.py's traffic: 8 and 64 lanes of 5 s,
+    100 ms feeds in lockstep, chunk_frames 16, greedy and beam 4, bf16;
+    warmup, 6 K3 launches per tick, at 64 lanes an all-idle tick that must
+    leave the state bit-identical and a profiled window of ticks; then, in
+    fp32, 8 batched lanes against 8 independent StreamingRecognizers on the
+    first 1 s of each wave (tokens equal, or different only after a
+    decision whose margin is below ENCODER_TOL['fp32'])."""
+    from rnntransducer_tpu_torch.decode.session_batch import BatchedStreamingRunner
+    from rnntransducer_tpu_torch.decode.streaming import StreamingRecognizer
+    cfg = streaming_config()
+    tn, audio = cfg.model.transnet, cfg.data.audio
+    T, H = SESSION_CHUNK_FRAMES, tn.hidden_size
+    max_symbols = cfg.train.greedy_max_symbols
+    waves = _session_waves(max(SESSION_LANES), SEED + 21, SESSION_UTT_SEC)
+    shared["session_waves"] = waves
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {}
+
+    def runner_of(model, lanes, decoder):
+        return BatchedStreamingRunner(model, audio, max_sessions=lanes, chunk_frames=T,
+                                      max_symbols=max_symbols, max_output_len=512,
+                                      decoder=decoder, beam_width=4)
+
+    model = build_model(cfg, DEVICE, state_dict=stream_sd).to(torch.bfloat16)
+    for lanes in SESSION_LANES:
+        per_tick = tn.num_layers * scan_launches("lstm", T, H, lanes, torch.bfloat16,
+                                                 device=DEVICE)[0]
+        if per_tick != tn.num_layers:
+            raise AssertionError(f"K3 at the tick's shape takes {per_tick} launches per "
+                                 f"tick, not {tn.num_layers}")
+        for decoder in ("greedy", "beam"):
+            runner = runner_of(model, lanes, decoder)
+            _zero_counts()
+            t0 = time.perf_counter()
+            runner.warmup()
+            warm_s = time.perf_counter() - t0
+            big = lanes == max(SESSION_LANES)
+            # the wide runs read their partials at the end instead of
+            # flushing lane by lane (128 ticks that measure nothing new)
+            stats = _lockstep(runner, waves[:lanes],
+                              idle_round=SESSION_IDLE_ROUND if big else None,
+                              profile_rounds=SESSION_PROFILE_ROUNDS if big else None,
+                              flush=not big)
+            torch.cuda.synchronize()
+            got = _counts()
+            want = dict.fromkeys(KERNELS, 0)
+            # the warmup's tick, the traffic's ticks and the all-idle tick
+            want["lstm_fwd"] = per_tick * (1 + stats["ticks"] + int(big))
+            what = f"sessions {decoder} bf16 {lanes} lanes ({stats['ticks']} ticks)"
+            _expect_launches(what, got, want)
+            for k in KERNELS:
+                launches[k] += got[k]
+            tokens = stats.pop("tokens")
+            stats.pop("times")
+            print(f"{what}: warmup {warm_s:.2f} s; tick p50 {stats['tick_ms_p50']:.1f} ms, "
+                  f"p99 {stats['tick_ms_p99']:.1f} ms; aggregate RTF "
+                  f"{stats['aggregate_rtf']:.2f} audio s per wall s; feed block p99 "
+                  f"{stats['poll_block_ms_p99']:.2f} ms; tokens per lane "
+                  f"{[len(t) for t in tokens[:8]]}", flush=True)
+            if not all(tokens):
+                raise AssertionError(f"{what}: a lane decoded no token")
+            if lanes == SERVER_LANES and decoder == "greedy":
+                shared["runner_tokens"] = tokens
+            result[f"{decoder}_{lanes}"] = dict(stats, warmup_s=warm_s)
+            del runner
+    del model
+    torch.cuda.empty_cache()
+
+    # batched lanes against independent sessions, fp32 (TF32 off)
+    model32 = build_model(cfg, DEVICE, state_dict=stream_sd)
+    short = [w[:int(16000 * SESSION_CMP_SEC)] for w in waves[:SERVER_LANES]]
+    frame_sec = audio.window_stride_sec
+    for decoder in ("greedy", "beam"):
+        _zero_counts()
+        batched = _lockstep(runner_of(model32, len(short), decoder), short)
+        independent = []
+        for w in short:
+            rec = StreamingRecognizer(model32, audio, chunk_frames=T, normalize="none",
+                                      decoder=decoder, beam_width=4, max_output_len=512)
+            fed = []
+            for s in range(0, len(w), SESSION_FEED):
+                fed += rec.feed(w[s:s + SESSION_FEED])
+            fin = rec.flush()
+            independent.append((fin if decoder == "beam" else fed + fin,
+                                rec.timestamps if decoder == "greedy" else None))
+        got = _counts()
+        for k in KERNELS:
+            launches[k] += got[k]
+        ties = []
+        for i, (b_toks, (i_toks, i_times)) in enumerate(zip(batched["tokens"], independent)):
+            if b_toks == i_toks:
+                continue
+            j = next((j for j, (x, y) in enumerate(zip(b_toks, i_toks)) if x != y),
+                     min(len(b_toks), len(i_toks)))
+            if decoder == "greedy":
+                # the decision that split them lies between the last common
+                # token's frame and the first differing token's
+                b_times = batched["times"][i]
+                lo = round(i_times[j - 1] / frame_sec) if j else 0
+                ends = [round(t[j] / frame_sec) for t in (i_times, b_times) if j < len(t)]
+                frames = range(lo, (min(ends) if ends else len(short[i]) // 160) + 1)
+            else:
+                frames = range(len(short[i]) // 160 + 1)
+            frame, margin = _near_tie(model32, short[i], decoder, frames, max_symbols)
+            print(f"sessions {decoder} fp32: lane {i} differs from its independent session "
+                  f"at token {j}; smallest decision margin {margin:.3e} at frame {frame} "
+                  f"(tolerance {ENCODER_TOL['fp32']:.0e})", flush=True)
+            if not margin < ENCODER_TOL["fp32"]:
+                raise AssertionError(f"sessions {decoder} fp32: lane {i} differs from its "
+                                     "independent session with no near-tie")
+            ties.append({"lane": i, "token": j, "frame": frame, "margin": margin})
+        print(f"sessions {decoder} fp32, {len(short)} lanes of {SESSION_CMP_SEC:.0f} s: "
+              f"tokens equal to independent sessions on "
+              f"{len(short) - len(ties)} of {len(short)} lanes; near-ties {ties}; tokens "
+              f"per lane {[len(t) for t in batched['tokens']]}", flush=True)
+        result[f"{decoder}_vs_independent_fp32"] = {"near_ties": ties}
+    del model32
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def _timed_stream(port, wave):
+    """The socket protocol as ``serve_socket.stream_wav`` speaks it, timed:
+    (seconds from the connect to the first partial with text, the final).
+    The client sends its next chunk when the reply comes, so no audio
+    pacing is in the time."""
+    import socket
+    import struct
+    pcm16 = np.clip(wave * 32768.0, -32768, 32767).astype("<i2")
+    first = None
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port)) as s:
+        f = s.makefile("rb")
+        for i in range(0, len(pcm16), SESSION_FEED):
+            chunk = pcm16[i:i + SESSION_FEED].tobytes()
+            s.sendall(struct.pack("<i", len(chunk)) + chunk)
+            if json.loads(f.readline()).get("partial") and first is None:
+                first = time.perf_counter() - t0
+        s.sendall(struct.pack("<i", 0))
+        return first, json.loads(f.readline())
+
+
+def _clients(fn, args_list):
+    """``fn(*args)`` for every entry on threads started together."""
+    out = [None] * len(args_list)
+    errors = []
+
+    def run(i):
+        try:
+            out[i] = fn(*args_list[i])
+        except Exception as e:  # surfaced below
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(args_list))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"clients failed: {errors}")
+    return out
+
+
+def phase_server(stream_cfg, stream_sd, shared):
+    """``serve_socket.StreamingServer`` on localhost on bench_streaming.py's
+    model, bf16, greedy: batch_sessions=8 with 8 concurrent clients
+    (``stream_wav``) on phase 8's waves, each final equal to the runner's
+    tokens for the same pieces; the first-partial latency of 8 concurrent
+    clients on the first 2 s; a dropped client frees its slot; drain().
+    Then per-connection sessions (batch_sessions=0): 4 concurrent clients
+    on the first 2 s, each final equal to a StreamingRecognizer fed the
+    same pieces.  Then
+    ``python -m rnntransducer_tpu_torch.serve_socket`` on phase 6e's
+    checkpoint of this model: one wave, SIGTERM, exit 0 after draining."""
+    import signal
+    import socket
+    import struct
+    from rnntransducer_tpu_torch.serve_socket import StreamingServer, stream_wav
+    waves = shared["session_waves"][:SERVER_LANES]
+    want = shared["runner_tokens"]
+    tokenizer = GraphemeTokenizer.default(stream_cfg.model.jointnet.num_classes)
+    rec = Recognizer(stream_cfg, stream_sd, tokenizer, decoder="greedy",
+                     precision="bf16", device=DEVICE)
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {}
+    per_chunk = stream_cfg.model.transnet.num_layers
+
+    def count(what, got, multiple_of):
+        print(f"{what}: launches {json.dumps(got)}", flush=True)
+        if not (got["lstm_fwd"] > 0 and got["lstm_fwd"] % multiple_of == 0
+                and all(v == 0 for k, v in got.items() if k != "lstm_fwd")):
+            raise AssertionError(f"{what}: launches {got}")
+        for k in KERNELS:
+            launches[k] += got[k]
+
+    _zero_counts()
+    server = StreamingServer(rec, port=0, chunk_frames=SESSION_CHUNK_FRAMES,
+                             batch_sessions=SERVER_LANES).start()
+    try:
+        t0 = time.perf_counter()
+        finals = _clients(stream_wav, [("127.0.0.1", server.port, w) for w in waves])
+        batched_s = time.perf_counter() - t0
+        equal = [f["tokens"] == t for (_, f), t in zip(finals, want)]
+        print(f"server batch_sessions={SERVER_LANES}: {len(waves)} concurrent clients of "
+              f"{SESSION_UTT_SEC:.0f} s in {batched_s:.1f} s; finals equal to the runner's "
+              f"{equal}", flush=True)
+        if not all(equal):
+            raise AssertionError("server finals differ from the runner's")
+        prefix = int(16000 * SERVER_PREFIX_SEC)
+        timed = _clients(_timed_stream, [(server.port, w[:prefix]) for w in waves])
+        firsts = sorted(t for t, _ in timed if t is not None)
+        p50 = firsts[len(firsts) // 2] if firsts else None
+        print(f"server first partial with text, {len(waves)} concurrent clients: p50 "
+              f"{'not measured (no text)' if p50 is None else f'{p50 * 1e3:.1f} ms'} "
+              f"({[round(t * 1e3, 1) for t in firsts]})", flush=True)
+        with socket.create_connection(("127.0.0.1", server.port)) as s:
+            chunk = np.zeros(SESSION_FEED, "<i2").tobytes()
+            s.sendall(struct.pack("<i", len(chunk)) + chunk)
+            s.makefile("rb").readline()  # one partial, then vanish
+        deadline = time.time() + 30
+        while time.time() < deadline and server._conns_done < server._conns_started:
+            time.sleep(0.02)
+        freed = len(server._runner._free) == SERVER_LANES
+        print(f"server: a dropped client's slot is free again {freed}", flush=True)
+        if not freed:
+            raise AssertionError("a dropped client kept its slot")
+    finally:
+        drained = server.drain(timeout=60)
+    print(f"server drain() {drained}", flush=True)
+    if not drained:
+        raise AssertionError("server drain() timed out")
+    torch.cuda.synchronize()
+    count(f"server batch_sessions={SERVER_LANES}", _counts(), per_chunk)
+    result["batched"] = {"s": batched_s, "first_partial_p50_s": p50,
+                         "first_partial_s": firsts}
+
+    short = [w[:prefix] for w in waves[:SERVER_PLAIN_CLIENTS]]
+    _zero_counts()
+    with StreamingServer(rec, port=0, chunk_frames=SESSION_CHUNK_FRAMES) as server:
+        t0 = time.perf_counter()
+        finals = _clients(stream_wav, [("127.0.0.1", server.port, w) for w in short])
+        plain_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    count("server batch_sessions=0", _counts(), per_chunk)
+    direct = []
+    for w in short:
+        session = rec.stream(chunk_frames=SESSION_CHUNK_FRAMES)
+        fed = []
+        for s in range(0, len(w), SESSION_FEED):
+            fed += session.feed(w[s:s + SESSION_FEED])
+        direct.append(fed + session.flush())
+    equal = [f["tokens"] == d for (_, f), d in zip(finals, direct)]
+    print(f"server batch_sessions=0: {len(short)} concurrent clients of "
+          f"{SERVER_PREFIX_SEC:.0f} s in {plain_s:.1f} s; finals equal to "
+          f"StreamingRecognizer sessions {equal}", flush=True)
+    if not all(equal):
+        raise AssertionError("per-connection finals differ from streaming sessions")
+    result["per_connection"] = {"s": plain_s}
+
+    stream_dir = os.path.join(DECODE_DIR, "stream_ckpt")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rnntransducer_tpu_torch.serve_socket", "--checkpoint_dir",
+         stream_dir, "--port", "0", "--precision", "bf16", "--batch_sessions", "2",
+         "--chunk_frames", str(SESSION_CHUNK_FRAMES), "--device", DEVICE],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        if "streaming on" not in line:
+            raise AssertionError(f"serve_socket did not start: {line}")
+        port = int(line.split(":")[1].split()[0])
+        _, final = stream_wav("127.0.0.1", port, short[0])
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"serve_socket CLI: final of {len(final['tokens'])} tokens, SIGTERM -> exit "
+          f"{proc.returncode}, {out.strip().splitlines()[-1] if out.strip() else ''}",
+          flush=True)
+    if proc.returncode != 0 or "drained: all sessions finished" not in out:
+        raise AssertionError(f"serve_socket CLI: exit {proc.returncode}: {err[-2000:]}")
+    del rec
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def _eval_waves(tokenizer):
+    """32 seeded speech-band waves of 1-5.11 s written as WAV files with a
+    TSV manifest under build/evaluate, read back (int16 levels).  Returns
+    (waves, manifest path)."""
+    from rnntransducer_tpu_torch.utils.audio_io import read_wav, write_wav
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    rng = np.random.RandomState(SEED + 31)
+    lengths = rng.randint(16000, N_SAMPLES + 1, size=EVAL_N)
+    lengths[0] = N_SAMPLES
+    manifest = os.path.join(EVAL_DIR, "eval.tsv")
+    waves = []
+    with open(manifest, "w", encoding="utf-8") as f:
+        for i, w in enumerate(_waves(EVAL_N, lengths=lengths, seed=SEED + 31)):
+            path = os.path.join(EVAL_DIR, f"utt{i:02d}.wav")
+            write_wav(path, w)
+            waves.append(read_wav(path))
+            f.write(f"{path}\t가나다 라마\n")
+    return waves, manifest
+
+
+def _eval_batches(waves, hop):
+    """evaluate_corpus's batches: (indices, padded sample count) of each,
+    length-sorted, EVAL_BATCH waves padded to a multiple of EVAL_BUCKET
+    frames."""
+    frames = np.asarray([(len(w) + hop - 1) // hop for w in waves])
+    order = np.argsort(frames, kind="stable")
+    out = []
+    for lo in range(0, len(order), EVAL_BATCH):
+        idxs = order[lo:lo + EVAL_BATCH]
+        out.append((idxs, -(-int(frames[idxs].max()) // EVAL_BUCKET) * EVAL_BUCKET * hop))
+    return out
+
+
+def _reference_tokens(rec, waves, n_samples):
+    """The Recognizer's greedy tokens for ``waves`` zero-padded to
+    ``n_samples`` (its frontend, its model, the greedy frame scan)."""
+    batch = np.zeros((len(waves), n_samples), np.float32)
+    lengths = np.zeros((len(waves),), np.int64)
+    for r, w in enumerate(waves):
+        batch[r, :len(w)] = w
+        lengths[r] = len(w)
+    with torch.inference_mode():
+        feats, feat_lengths = rec.frontend(torch.from_numpy(batch).to(DEVICE),
+                                           torch.from_numpy(lengths).to(DEVICE))
+        toks, lens = greedy_mod.greedy_decode(
+            rec.model, feats, feat_lengths, blank_id=rec.tokenizer.blank_token_id,
+            max_symbols=rec.cfg.train.greedy_max_symbols,
+            max_output_len=rec.max_output_len)
+    return [toks[i, :lens[i]].tolist() for i in range(len(waves))]
+
+
+def phase_evaluate(flax_params, tokenizer):
+    """Corpus evaluation (``eval.evaluate_corpus``) on base_config() at full
+    width, bf16 and fp32, over 32 seeded waves of 1-5.11 s read from WAV
+    files: references from the port's own greedy Recognizer on the same
+    waves in evaluate_corpus's batches, so greedy scores CER 0 and WER 0
+    exactly, in input order; beam_batched with the oracle n-best (oracle CER
+    <= top-1 CER), bf16; 16 K1 launches per batch; RTF per decoder.  Then
+    ``python -m rnntransducer_tpu_torch.cli.evaluate`` on phase 5's
+    checkpoint with --dump."""
+    from rnntransducer_tpu_torch.cli import evaluate as eval_cli
+    from rnntransducer_tpu_torch.eval import evaluate_corpus
+    cfg = base_config()
+    audio = cfg.data.audio
+    waves, manifest = _eval_waves(tokenizer)
+    batches = _eval_batches(waves, audio.hop_length)
+    audio_s = sum(len(w) for w in waves) / audio.sample_rate
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {"audio_s": audio_s}
+
+    def run(what, fn, *args, dtype, **kwargs):
+        out, ms, got = _counted(fn, *args, **kwargs)
+        want = {k: v * len(batches) for k, v in _gru_launches(cfg, EVAL_BATCH, dtype).items()}
+        _expect_launches(f"{what} ({len(batches)} batches)", got, want)
+        for k in KERNELS:
+            launches[k] += got[k]
+        return out, ms
+
+    for precision, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        rec = Recognizer(cfg, flax_params, tokenizer, decoder="greedy",
+                         precision=precision, device=DEVICE)
+        refs = [None] * len(waves)
+        # evaluate_corpus's batches and padding: the same rows in the same
+        # shapes, so the bf16 run gives the same tokens too
+        for idxs, n_samples in batches:
+            for i, toks in zip(idxs, _reference_tokens(rec, [waves[i] for i in idxs],
+                                                       n_samples)):
+                refs[int(i)] = np.asarray(toks, np.int32)
+        items = [{"wav": w, "labels": r} for w, r in zip(waves, refs)]
+        kw = dict(batch_size=EVAL_BATCH, frame_bucket=EVAL_BUCKET,
+                  max_symbols=cfg.train.greedy_max_symbols,
+                  max_output_len=rec.max_output_len)
+        res, ms = run(f"evaluate greedy {precision}", evaluate_corpus, rec.model,
+                      tokenizer, audio, items, decoder="greedy", dtype=dtype, **kw)
+        in_order = all(r["id"] == str(i) and r["ref"] == r["hyp"]
+                       and abs(r["audio_sec"] - len(w) / audio.sample_rate) < 0.011
+                       for i, (r, w) in enumerate(zip(res.per_utt, waves)))
+        print(f"evaluate greedy {precision}: CER {res.cer} WER {res.wer} against the "
+              f"Recognizer's own greedy tokens, records in input order {in_order}; "
+              f"{ms:.1f} ms, RTF {res.rtf:.4f} ({audio_s:.1f} s of audio, "
+              f"{sum(len(r) for r in refs)} reference tokens)", flush=True)
+        if not (res.cer == 0.0 and res.wer == 0.0 and in_order):
+            raise AssertionError(f"evaluate greedy {precision}: CER {res.cer} WER "
+                                 f"{res.wer}, in order {in_order}")
+        result[f"greedy_{precision}"] = {"rtf": res.rtf, "ms": ms}
+        if precision == "bf16":
+            res, ms = run("evaluate beam_batched bf16", evaluate_corpus, rec.model,
+                          tokenizer, audio, items, decoder="beam_batched",
+                          beam_width=cfg.inference.beam_width, oracle_nbest=True,
+                          dtype=dtype, **kw)
+            print(f"evaluate beam_batched (width {cfg.inference.beam_width}) bf16: CER "
+                  f"{res.cer:.4f} oracle CER {res.oracle_cer:.4f}; {ms:.1f} ms, RTF "
+                  f"{res.rtf:.4f}", flush=True)
+            if not res.oracle_cer <= res.cer:
+                raise AssertionError("the oracle CER exceeds the top-1 CER")
+            result["beam_batched_bf16"] = {"rtf": res.rtf, "ms": ms, "cer": res.cer,
+                                           "oracle_cer": res.oracle_cer}
+        del rec
+        torch.cuda.empty_cache()
+
+    dump = os.path.join(EVAL_DIR, "per_utt.jsonl")
+    summary, ms = run("cli evaluate bf16", eval_cli.main, [
+        "--checkpoint_dir", TRAINER_DIR, "--manifest", manifest, "--dump", dump,
+        "--precision", "bf16", "--batch_size", str(EVAL_BATCH), "--max_output_len", "512",
+        "--device", DEVICE], dtype=torch.bfloat16)
+    with open(dump, encoding="utf-8") as f:
+        records = [json.loads(line) for line in f]
+    print(f"cli evaluate on phase 5's checkpoint: {ms:.1f} ms (checkpoint load "
+          f"included); {json.dumps(summary, ensure_ascii=False)}; {len(records)} "
+          f"records dumped", flush=True)
+    if summary["n_utts"] != EVAL_N or len(records) != EVAL_N:
+        raise AssertionError(f"cli evaluate: {summary}, {len(records)} records")
+    result["cli"] = {"ms": ms, "rtf": summary["rtf"]}
+    return launches, result
+
+
+class _ReferenceRNNT(torch.nn.Module):
+    """The original PyTorch-Lightning model's module tree and state_dict
+    names (encoder.rnn / out_proj, decoder.embedding / rnn / out_proj, fc),
+    built from torch.nn modules: the yardstick checkpoint the import reads,
+    never on the port's path."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        tn, pn, jn = cfg.model.transnet, cfg.model.prednet, cfg.model.jointnet
+        rnn = {"gru": torch.nn.GRU, "lstm": torch.nn.LSTM}
+        self.encoder = torch.nn.Module()
+        self.encoder.rnn = rnn[tn.rnn_type.lower()](
+            tn.input_size, tn.hidden_size, num_layers=tn.num_layers, batch_first=True,
+            bidirectional=tn.bidirectional)
+        self.encoder.out_proj = torch.nn.Linear(
+            (2 if tn.bidirectional else 1) * tn.hidden_size, tn.output_size)
+        self.decoder = torch.nn.Module()
+        self.decoder.embedding = torch.nn.Embedding(pn.embedding_size, pn.hidden_size,
+                                                    padding_idx=0)
+        self.decoder.rnn = rnn[pn.rnn_type.lower()](pn.hidden_size, pn.hidden_size,
+                                                    num_layers=pn.num_layers,
+                                                    batch_first=True)
+        self.decoder.out_proj = torch.nn.Linear(pn.hidden_size, pn.output_size)
+        self.fc = torch.nn.Linear(tn.output_size + pn.output_size, jn.num_classes)
+
+    def forward(self, feats, lengths, text_in):
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            feats, lengths.cpu(), batch_first=True, enforce_sorted=False)
+        enc, _ = self.encoder.rnn(packed)
+        enc, _ = torch.nn.utils.rnn.pad_packed_sequence(enc, batch_first=True,
+                                                        total_length=feats.shape[1])
+        enc = self.encoder.out_proj(enc)
+        dec, _ = self.decoder.rnn(self.decoder.embedding(text_in))
+        dec = self.decoder.out_proj(dec)
+        T, U = enc.shape[1], dec.shape[1]
+        x = torch.cat([enc[:, :, None].expand(-1, -1, U, -1),
+                       dec[:, None].expand(-1, T, -1, -1)], dim=-1)
+        return self.fc(torch.nn.functional.gelu(x, approximate="tanh"))
+
+
+def phase_import(tokenizer):
+    """A reference-layout checkpoint of base_config() at full width (seeded
+    torch.nn.GRU / LSTM / Linear / Embedding, a Lightning-style
+    {"state_dict": ...} file) converted by
+    ``utils.torch_import.convert_to_checkpoint``: Recognizer.from_checkpoint
+    gives the greedy tokens of a Recognizer built from the same weights by
+    hand (16 K1 launches each), and the port's joint logits match the
+    reference module's forward (cuDNN, fp32, TF32 off) within 1e-4."""
+    from rnntransducer_tpu_torch.utils.torch_import import (convert_to_checkpoint,
+                                                            load_torch_checkpoint)
+    cfg = base_config()
+    os.makedirs(IMPORT_DIR, exist_ok=True)
+    torch.manual_seed(SEED + 41)
+    ref = _ReferenceRNNT(cfg)
+    path = os.path.join(IMPORT_DIR, "reference.ckpt")
+    torch.save({"state_dict": {f"jointnet.{k}": v for k, v in ref.state_dict().items()},
+                "epoch": 0}, path)
+    ckpt = os.path.join(IMPORT_DIR, "ckpt")
+    t0 = time.perf_counter()
+    convert_to_checkpoint(path, cfg, ckpt, device=DEVICE)
+    convert_s = time.perf_counter() - t0
+    launches = dict.fromkeys(KERNELS, 0)
+    waves = [w[:32000] for w in _waves(4, seed=SEED + 43)]
+    want = _gru_launches(cfg, len(waves), torch.float32)
+    toks = {}
+    for name, make in (("from_checkpoint", lambda: Recognizer.from_checkpoint(
+                            ckpt, decoder="greedy", device=DEVICE)),
+                       ("by hand", lambda: Recognizer(
+                           cfg, load_torch_checkpoint(path, cfg.model), tokenizer,
+                           decoder="greedy", device=DEVICE))):
+        rec = make()
+        toks[name], ms, got = _counted(_greedy_tokens, rec, waves)
+        _expect_launches(f"import greedy fp32, Recognizer {name}", got, want)
+        for k in KERNELS:
+            launches[k] += got[k]
+    equal = toks["from_checkpoint"] == toks["by hand"]
+    print(f"import: converted in {convert_s:.1f} s; greedy tokens of the converted "
+          f"checkpoint equal those of the weights loaded by hand {equal} (tokens per "
+          f"wave {[len(t) for t in toks['by hand']]})", flush=True)
+    if not equal or not all(toks["by hand"]):
+        raise AssertionError("the converted checkpoint decodes differently")
+    ref = ref.to(DEVICE).eval()
+    rng = np.random.RandomState(SEED + 44)
+    text_in = torch.from_numpy(np.concatenate(
+        [np.zeros((2, 1), np.int64), rng.randint(1, 72, (2, 10))], axis=1)).to(DEVICE)
+    with torch.inference_mode():
+        feats, lengths = rec._features(waves[:2])
+        want_logits = ref(feats, lengths, text_in)
+        _zero_counts()
+        got_logits = rec.model(feats, lengths, text_in,
+                               torch.full((2,), text_in.shape[1], device=DEVICE))
+        torch.cuda.synchronize()
+        got = _counts()
+    for k in KERNELS:
+        launches[k] += got[k]
+    err = max((got_logits[b, :n] - want_logits[b, :n]).abs().max().item()
+              for b, n in enumerate(lengths.tolist()))
+    print(f"import: joint logits {tuple(got_logits.shape)} against the reference "
+          f"module's forward, fp32: max abs err {err:.3e} (tol {IMPORT_LOGIT_TOL:.0e}); "
+          f"launches {json.dumps(got)}", flush=True)
+    if not err <= IMPORT_LOGIT_TOL:
+        raise AssertionError(f"imported logits differ from the reference's by {err}")
+    del ref, rec
+    shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, {"convert_s": convert_s, "logit_max_abs_err": err}
 
 
 def _timed(name, fn, *args):
@@ -2278,6 +3071,7 @@ def main() -> int:
     bwd_err, bwd_times = _timed("gru_bwd", phase_gru_bwd, gen)
     _timed("lstm_limits", phase_lstm_limits, gen)
     lstm_fwd_err, lstm_bwd_err, lstm_times = _timed("lstm", phase_lstm, gen)
+    print("lstm_tick " + json.dumps(_timed("lstm_tick", phase_lstm_tick, gen)), flush=True)
     print("cudnn_layers " + json.dumps(_timed("cudnn_layers", phase_cudnn_layers, gen)),
           flush=True)
     _timed("step_chunked", phase_step_chunked, gen)
@@ -2302,18 +3096,28 @@ def main() -> int:
     # ---- the main paths: each sets the counts to 0 before every step -------
     launches = dict.fromkeys(KERNELS, 0)
     bare_busy = {}
-    for name, run in (("training", lambda: phase_training(flax_params)),
-                      ("raw_pcm", lambda: phase_raw_pcm(flax_params)),
-                      ("tiny", lambda: phase_tiny(tokenizer, waves)),
-                      ("trainer", lambda: phase_trainer(flax_params, waves,
-                                                        bare_busy.get("training"))),
-                      ("decoding", lambda: phase_decoding(flax_params, tokenizer, waves)),
-                      ("streaming", lambda: phase_streaming(stream_sd)),
-                      ("cli", lambda: phase_cli(stream_cfg, stream_sd, waves))):
-        got, result = _timed(name, run)
-        bare_busy[name] = result.get("device_busy_share")
-        launches = {k: launches[k] + got[k] for k in KERNELS}
-        print(f"{name} " + json.dumps(result), flush=True)
+    shared = {}  # phase 8's waves and runner tokens, for phase 9
+    try:
+        for name, run in (
+                ("training", lambda: phase_training(flax_params)),
+                ("raw_pcm", lambda: phase_raw_pcm(flax_params)),
+                ("tiny", lambda: phase_tiny(tokenizer, waves)),
+                ("trainer", lambda: phase_trainer(flax_params, waves,
+                                                  bare_busy.get("training"))),
+                ("decoding", lambda: phase_decoding(flax_params, tokenizer, waves)),
+                ("streaming", lambda: phase_streaming(stream_sd)),
+                ("cli", lambda: phase_cli(stream_cfg, stream_sd, waves)),
+                ("sessions", lambda: phase_sessions(stream_sd, shared)),
+                ("server", lambda: phase_server(stream_cfg, stream_sd, shared)),
+                ("evaluate", lambda: phase_evaluate(flax_params, tokenizer)),
+                ("import", lambda: phase_import(tokenizer))):
+            got, result = _timed(name, run)
+            bare_busy[name] = result.get("device_busy_share")
+            launches = {k: launches[k] + got[k] for k in KERNELS}
+            print(f"{name} " + json.dumps(result, ensure_ascii=False), flush=True)
+    finally:
+        for d in (TRAINER_DIR, DECODE_DIR, EVAL_DIR, IMPORT_DIR):
+            shutil.rmtree(d, ignore_errors=True)
     vs_plain = _timed("step_vs_plain", phase_step_vs_plain, flax_params)
     print("step_vs_plain " + json.dumps(vs_plain), flush=True)
 

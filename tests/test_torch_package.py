@@ -47,8 +47,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_scan_covers_the_training_loop_and_cli():
     """The modules of the training loop, the data feed, the decoders, the
-    train and inference CLIs are among those scanned, and each imports the
-    port's own copies."""
+    train and inference CLIs, session serving, corpus evaluation and the
+    reference-checkpoint import are among those scanned, and each imports
+    the port's own copies."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     pkg = "rnntransducer_tpu_torch"
     for mod in ("train/metrics.py", "train/checkpoint.py", "train/loop.py",
@@ -58,7 +59,8 @@ def test_scan_covers_the_training_loop_and_cli():
                 "decode/__init__.py", "decode/beam.py", "decode/beam_batched.py",
                 "decode/device_lm.py", "decode/device_word_lm.py",
                 "decode/greedy.py", "decode/hotwords.py", "decode/ngram_lm.py",
-                "decode/streaming.py"):
+                "decode/streaming.py", "decode/session_batch.py", "serve_socket.py",
+                "eval.py", "cli/evaluate.py", "utils/torch_import.py"):
         path = os.path.join(pkg, mod)
         assert path in scanned, path
         own = [m for m in _imported_modules(os.path.join(REPO, path))
@@ -67,7 +69,17 @@ def test_scan_covers_the_training_loop_and_cli():
     assert not os.path.exists(os.path.join(REPO, "train_torch.py"))
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Without CUDA every entry point raises unless asked for the CPU: the
+    model and the Recognizer, and through them the batched runner, the
+    socket server and corpus evaluation (each runs on its model's device);
+    the serving and evaluation CLIs and the checkpoint conversion."""
+    from rnntransducer_tpu_torch import serve_socket
+    from rnntransducer_tpu_torch.cli import evaluate
+    from rnntransducer_tpu_torch.train.checkpoint import CheckpointManager
+    from rnntransducer_tpu_torch.train.state import TrainState
+    from rnntransducer_tpu_torch.utils import torch_import
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_config()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -76,6 +88,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Recognizer(cfg, params, GraphemeTokenizer.default(72))
     assert next(build_model(cfg, "cpu").parameters()).device.type == "cpu"
+    ckpt = str(tmp_path / "ckpt")
+    mgr = CheckpointManager(ckpt)
+    mgr.save(1, TrainState.create(cfg, "cpu"), config=cfg)
+    mgr.close()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_socket.main(["--checkpoint_dir", ckpt, "--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate.main(["--checkpoint_dir", ckpt, "--manifest", "unused.tsv"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_import.convert_to_checkpoint("unread.ckpt", cfg, str(tmp_path / "out"))
 
 
 def _gru_args(device="cpu"):
