@@ -124,11 +124,32 @@ Phases (each raises, and the script exits non-zero, on failure):
       ``utils/torch_import.convert_to_checkpoint``: greedy tokens equal to
       a Recognizer built by hand, joint logits within 1e-4 of the
       reference module's forward in fp32.
-8. One fp32 step at full width (B=8: the plain backward scans are Python
+8. The Conformer (``phase_conformer``), seeded random weights through the
+   flax-layout bridge, each main-path run's launches checked:
+   a. Conformer-L (``experiments/perf_conformer.py:40,79-99``: 16 blocks,
+      d=512, 8 heads, kernel 15, 4x stacking, full context, base_config's
+      prediction network and joint): bf16 ``train_step`` at B=64, T=512
+      (128 after stacking), U=48 on features (2 K3, 4 K4, 1 K5 per step;
+      the encoder has no kernel): step time, utt/s, MFU, a profile (K3 /
+      K4 / K5 against the rest); one step on int16 raw PCM (plus 1 K6);
+      one AdamW, one adafactor and one lion step;
+   b. one fp32 step at 4 blocks, B=8, kernels against plain versions;
+   c. the offline Recognizer (greedy, the device beam) on a batch of 8
+      waves in bf16 (no launches); in fp32 the padded batch's encoder rows
+      against each wave alone;
+   d. the streaming Conformer (``bench_streaming.py:40-50``: the same
+      blocks, attention_chunk 16, 4 left chunks, stride 4): in fp32 chunk
+      by chunk against the offline masked forward, streaming greedy against
+      offline greedy, 8 staggered lanes of the batched runner (lanes idle
+      mid-stream) against independent sessions, an all-idle tick at 64
+      lanes; in bf16 ``StreamingRecognizer`` RTF and first-token latency
+      (greedy, beam 4, 64-frame chunks, 100 ms feeds) and ticks of the
+      batched runner at 8 and 64 lanes, each under its chunk's 640 ms.
+9. One fp32 step at full width (B=8: the plain backward scans are Python
    loops of small launches), kernels against plain versions (GRU, LSTM and
    the sweep): loss and the grads of named params.
-9. Print one JSON line describing every kernel, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+10. Print one JSON line describing every kernel, then, as the last line,
+    ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
 """
@@ -1318,15 +1339,17 @@ def scan_launches(rnn_type: str, steps: int, hidden: int = 1024,
 
 
 def step_launches(cfg, T: int, U: int, raw_pcm: bool = False, device=None) -> dict:
-    """Kernel launches of one train_step: every directional scan of the
+    """Kernel launches of one train_step: every directional scan of an RNN
     encoder (T steps) and of the prediction network (U+1 steps) takes
-    ``scan_launches`` in its cell type's kernels (neither config here
-    reduces time); the loss one sweep; a raw-PCM batch one log-mel."""
+    ``scan_launches`` in its cell type's kernels (no RNN config here
+    reduces time; a Conformer encoder launches none); the loss one sweep; a
+    raw-PCM batch one log-mel."""
     tn, pn = cfg.model.transnet, cfg.model.prednet
     want = dict.fromkeys(KERNELS, 0)
-    for net, scans, steps in (
-            (tn, tn.num_layers * (2 if tn.bidirectional else 1), T),
-            (pn, pn.num_layers, U + 1)):
+    nets = [(pn, pn.num_layers, U + 1)]
+    if tn.arch == "rnn":  # the Conformer encoder reaches no kernel
+        nets.append((tn, tn.num_layers * (2 if tn.bidirectional else 1), T))
+    for net, scans, steps in nets:
         fwd, bwd = scan_launches(net.rnn_type, steps, net.hidden_size, device=device)
         want[f"{net.rnn_type.lower()}_fwd"] += scans * fwd
         want[f"{net.rnn_type.lower()}_bwd"] += scans * bwd
@@ -1355,8 +1378,9 @@ def _plain_kernels():
          rnnt_kernels.sweep) = saved
 
 
-def phase_profile_step(state, batch):
-    """Device busy share and device time by kernel over one training step."""
+def phase_profile_step(state, batch, rows_out=None):
+    """Device busy share and device time by kernel over one training step
+    (``rows_out``, a list, receives (device us, calls, kernel name) rows)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1368,6 +1392,8 @@ def phase_profile_step(state, batch):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(r[0] for r in rows) / 1e3
+    if rows_out is not None:
+        rows_out.extend(rows)
     if device_ms == 0.0:
         print("train profile: the profiler saw no device time (not measured)",
               flush=True)
@@ -2118,6 +2144,54 @@ def _stream_waves(n, seed):
             for _ in range(n)]
 
 
+def _stream_rtf(label, model, audio, T, decoder, want, launches, chunks):
+    """bf16 ``StreamingRecognizer`` sessions over ``STREAM_UTTS`` + 1
+    utterances of ``STREAM_UTT_SEC`` (the first a warm-up), 100 ms feeds,
+    chunk_frames ``T``, as bench_streaming.py defines its figures: RTF (the
+    compute of feed / poll / flush over the audio's length, median) and p50
+    first-token latency.  Each utterance's launches must equal ``want``
+    (added into ``launches``)."""
+    from rnntransducer_tpu_torch.decode.streaming import StreamingRecognizer
+    feed = audio.sample_rate * STREAM_FEED_MS // 1000
+    rtfs, first = [], []
+    for u, wav in enumerate(_stream_waves(STREAM_UTTS + 1, SEED + 11)):
+        _zero_counts()
+        rec = StreamingRecognizer(model, audio, chunk_frames=T, normalize="none",
+                                  decoder=decoder, beam_width=4)
+        t0 = time.perf_counter()
+        tft, compute = None, 0.0
+        for ci, s in enumerate(range(0, len(wav), feed)):
+            c0 = time.perf_counter()
+            toks = rec.feed(wav[s:s + feed])
+            if decoder == "beam" and ci % STREAM_POLL_EVERY == STREAM_POLL_EVERY - 1:
+                toks = rec.tokens
+            compute += time.perf_counter() - c0
+            if toks and tft is None:
+                tft = time.perf_counter() - t0
+        c0 = time.perf_counter()
+        rec.flush()
+        torch.cuda.synchronize()
+        compute += time.perf_counter() - c0
+        got = _counts()
+        _expect_launches(f"{label} {decoder} bf16 utterance {u} ({chunks})", got, want)
+        for k in KERNELS:
+            launches[k] += got[k]
+        if u == 0:
+            continue  # warm-up
+        rtfs.append(compute / STREAM_UTT_SEC)
+        if tft is not None:
+            first.append(tft)
+    rtf = float(np.median(rtfs))
+    p50 = float(np.median(first)) if first else None
+    print(f"{label} {decoder}{' width 4' if decoder == 'beam' else ''} bf16, "
+          f"{STREAM_FEED_MS} ms feeds, chunk_frames {T}: RTF {rtf:.4f} (median of "
+          f"{rtfs}); p50 first-token latency "
+          f"{'not measured (no token)' if p50 is None else f'{p50 * 1e3:.1f} ms'}; "
+          f"last utterance {len(rec.tokens)} tokens", flush=True)
+    return {"rtf": rtf, "rtf_each": rtfs, "first_token_p50_s": p50,
+            "first_token_s": first}
+
+
 def phase_streaming(stream_sd):
     """Streaming on bench_streaming.py's model at full width.  K3 against its
     plain version at one chunk's shape (T=64, B=1, H=1024) with a carried
@@ -2171,44 +2245,8 @@ def phase_streaming(stream_sd):
     launches = dict.fromkeys(KERNELS, 0)
     result = {"k3_chunk": {f"{d} valid={n}": v for (d, n), v in k3.items()}}
     for decoder in ("greedy", "beam"):
-        rtfs, first = [], []
-        for u, wav in enumerate(_stream_waves(STREAM_UTTS + 1, SEED + 11)):
-            _zero_counts()
-            rec = StreamingRecognizer(model, audio, chunk_frames=T, normalize="none",
-                                      decoder=decoder, beam_width=4)
-            t0 = time.perf_counter()
-            tft, compute = None, 0.0
-            for ci, s in enumerate(range(0, len(wav), feed)):
-                c0 = time.perf_counter()
-                toks = rec.feed(wav[s:s + feed])
-                if decoder == "beam" and ci % STREAM_POLL_EVERY == STREAM_POLL_EVERY - 1:
-                    toks = rec.tokens
-                compute += time.perf_counter() - c0
-                if toks and tft is None:
-                    tft = time.perf_counter() - t0
-            c0 = time.perf_counter()
-            rec.flush()
-            torch.cuda.synchronize()
-            compute += time.perf_counter() - c0
-            got = _counts()
-            _expect_launches(f"streaming {decoder} bf16 utterance {u} ({n_chunks} "
-                             f"chunks)", got, want)
-            for k in KERNELS:
-                launches[k] += got[k]
-            if u == 0:
-                continue  # warm-up
-            rtfs.append(compute / STREAM_UTT_SEC)
-            if tft is not None:
-                first.append(tft)
-        rtf = float(np.median(rtfs))
-        p50 = float(np.median(first)) if first else None
-        print(f"streaming {decoder}{' width 4' if decoder == 'beam' else ''} bf16, "
-              f"{STREAM_FEED_MS} ms feeds, chunk_frames {T}: RTF {rtf:.4f} (median of "
-              f"{rtfs}); p50 first-token latency "
-              f"{'not measured (no token)' if p50 is None else f'{p50 * 1e3:.1f} ms'}; "
-              f"last utterance {len(rec.tokens)} tokens", flush=True)
-        result[decoder] = {"rtf": rtf, "rtf_each": rtfs, "first_token_p50_s": p50,
-                           "first_token_s": first}
+        result[decoder] = _stream_rtf("streaming", model, audio, T, decoder, want,
+                                      launches, f"{n_chunks} chunks")
     # streaming greedy against offline greedy, fp32
     model32 = build_model(cfg, DEVICE, state_dict=stream_sd)
     wav = _stream_waves(1, SEED + 12)[0]
@@ -2461,7 +2499,8 @@ def _lockstep(runner, waves, idle_round=None, profile_rounds=None, flush=True):
             "device_busy_share": busy}
 
 
-def _near_tie(model, wave, decoder, frames, max_symbols):
+def _near_tie(model, wave, decoder, frames, max_symbols,
+              chunk_frames=SESSION_CHUNK_FRAMES, audio=None):
     """(frame, margin) of the smallest decision margin an independent fp32
     session met in encoder frames ``frames`` (a range): greedy, the top-2
     gap of the joint's logits; beam, the gap between the K-th and the
@@ -2483,8 +2522,8 @@ def _near_tie(model, wave, decoder, frames, max_symbols):
             return logits
         model.joint_step = recording
     try:
-        rec = StreamingRecognizer(model, streaming_config().data.audio,
-                                  chunk_frames=SESSION_CHUNK_FRAMES, normalize="none",
+        rec = StreamingRecognizer(model, audio or streaming_config().data.audio,
+                                  chunk_frames=chunk_frames, normalize="none",
                                   decoder=decoder, beam_width=4, max_output_len=512)
         for s in range(0, len(wave), SESSION_FEED):
             rec.feed(wave[s:s + SESSION_FEED])
@@ -2501,6 +2540,41 @@ def _near_tie(model, wave, decoder, frames, max_symbols):
     window = np.isin(frame_of, np.asarray(list(frames)))
     i = int(np.argmin(np.where(window, gaps, np.inf)))
     return int(frame_of[i]), float(gaps[i])
+
+
+def _margin_rule(model, what, decoder, waves, batched_tokens, batched_times,
+                 independent, max_symbols, chunk_frames, audio, frame_sec):
+    """Batched lanes against independent fp32 sessions ``independent``
+    ((tokens, greedy timestamps or None) per lane): a lane may differ only
+    after a decision whose margin (``_near_tie``) is below
+    ENCODER_TOL['fp32'], and each such lane is printed.  ``frame_sec`` is an
+    encoder frame's duration.  Returns the near-ties."""
+    ties = []
+    hop = int(round(frame_sec * audio.sample_rate))
+    for i, (b_toks, (i_toks, i_times)) in enumerate(zip(batched_tokens, independent)):
+        if b_toks == i_toks:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(b_toks, i_toks)) if x != y),
+                 min(len(b_toks), len(i_toks)))
+        if decoder == "greedy":
+            # the decision that split them lies between the last common
+            # token's frame and the first differing token's
+            b_times = batched_times[i]
+            lo = round(i_times[j - 1] / frame_sec) if j else 0
+            ends = [round(t[j] / frame_sec) for t in (i_times, b_times) if j < len(t)]
+            frames = range(lo, (min(ends) if ends else len(waves[i]) // hop) + 1)
+        else:
+            frames = range(len(waves[i]) // hop + 1)
+        frame, margin = _near_tie(model, waves[i], decoder, frames, max_symbols,
+                                  chunk_frames, audio)
+        print(f"{what}: lane {i} differs from its independent session at token {j}; "
+              f"smallest decision margin {margin:.3e} at frame {frame} (tolerance "
+              f"{ENCODER_TOL['fp32']:.0e})", flush=True)
+        if not margin < ENCODER_TOL["fp32"]:
+            raise AssertionError(f"{what}: lane {i} differs from its independent "
+                                 "session with no near-tie")
+        ties.append({"lane": i, "token": j, "frame": frame, "margin": margin})
+    return ties
 
 
 def phase_sessions(stream_sd, shared):
@@ -2594,29 +2668,9 @@ def phase_sessions(stream_sd, shared):
         got = _counts()
         for k in KERNELS:
             launches[k] += got[k]
-        ties = []
-        for i, (b_toks, (i_toks, i_times)) in enumerate(zip(batched["tokens"], independent)):
-            if b_toks == i_toks:
-                continue
-            j = next((j for j, (x, y) in enumerate(zip(b_toks, i_toks)) if x != y),
-                     min(len(b_toks), len(i_toks)))
-            if decoder == "greedy":
-                # the decision that split them lies between the last common
-                # token's frame and the first differing token's
-                b_times = batched["times"][i]
-                lo = round(i_times[j - 1] / frame_sec) if j else 0
-                ends = [round(t[j] / frame_sec) for t in (i_times, b_times) if j < len(t)]
-                frames = range(lo, (min(ends) if ends else len(short[i]) // 160) + 1)
-            else:
-                frames = range(len(short[i]) // 160 + 1)
-            frame, margin = _near_tie(model32, short[i], decoder, frames, max_symbols)
-            print(f"sessions {decoder} fp32: lane {i} differs from its independent session "
-                  f"at token {j}; smallest decision margin {margin:.3e} at frame {frame} "
-                  f"(tolerance {ENCODER_TOL['fp32']:.0e})", flush=True)
-            if not margin < ENCODER_TOL["fp32"]:
-                raise AssertionError(f"sessions {decoder} fp32: lane {i} differs from its "
-                                     "independent session with no near-tie")
-            ties.append({"lane": i, "token": j, "frame": frame, "margin": margin})
+        ties = _margin_rule(model32, f"sessions {decoder} fp32", decoder, short,
+                            batched["tokens"], batched["times"], independent,
+                            max_symbols, T, audio, frame_sec)
         print(f"sessions {decoder} fp32, {len(short)} lanes of {SESSION_CMP_SEC:.0f} s: "
               f"tokens equal to independent sessions on "
               f"{len(short) - len(ties)} of {len(short)} lanes; near-ties {ties}; tokens "
@@ -2672,7 +2726,7 @@ def _clients(fn, args_list):
 def phase_server(stream_cfg, stream_sd, shared):
     """``serve_socket.StreamingServer`` on localhost on bench_streaming.py's
     model, bf16, greedy: batch_sessions=8 with 8 concurrent clients
-    (``stream_wav``) on phase 8's waves, each final equal to the runner's
+    (``stream_wav``) on phase 7a's waves, each final equal to the runner's
     tokens for the same pieces; the first-partial latency of 8 concurrent
     clients on the first 2 s; a dropped client frees its slot; drain().
     Then per-connection sessions (batch_sessions=0): 4 concurrent clients
@@ -3037,6 +3091,416 @@ def phase_import(tokenizer):
     return launches, {"convert_s": convert_s, "logit_max_abs_err": err}
 
 
+# ---- the Conformer (phase 8) --------------------------------------------
+CONFORMER_STREAM_FRAMES = 64   # bench_streaming.py --conformer: one 100 ms
+                               # feed's chunk of 64 frames = one attention chunk
+CONFORMER_PLAIN_LAYERS = 4     # the fp32 kernels-vs-plain step: depth cut, B=8
+CONFORMER_GRAD_PARAMS = ("encoder.in_proj.weight", "encoder.blocks.0.attn.q_proj.weight",
+                         "encoder.blocks.1.conv.conv.weight", "prednet.rnn.fwd.0.w_hh",
+                         "prednet.rnn.fwd.1.w_hh", "joint.fc.weight")
+# chunk by chunk against the offline masked forward: tests/test_conformer.py:253-254
+CONFORMER_STREAM_ATOL, CONFORMER_STREAM_RTOL = 2e-5, 1e-4
+CONFORMER_STREAM_CHUNKS = 10   # the chunk-by-chunk check: 640 frames, 6.4 s
+CONFORMER_CMP_SEC = 3.0        # staggered lanes vs independent sessions, fp32
+CONFORMER_IDLE_ROUND = 20      # the 64-lane all-idle tick, mid-stream
+
+
+def conformer_l_config():
+    """Conformer-L offline (experiments/perf_conformer.py:40,79-99):
+    ``base_config()`` with a 16-block Conformer encoder, d_model 512, 8
+    heads, ff x4, conv kernel 15, 4x frame stacking at the input, full
+    context; its 2-layer LSTM prediction network and concat joint, V=72."""
+    cfg = base_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, transnet=dataclasses.replace(
+            cfg.model.transnet, arch="conformer", hidden_size=512, num_layers=16,
+            attention_heads=8, ff_multiplier=4, conv_kernel_size=15,
+            time_reduction_stride=4, time_reduction_layer=0)))
+
+
+def streaming_conformer_config():
+    """The streaming Conformer of bench_streaming.py:40-50: its model with
+    the encoder replaced by the same blocks (16, d=512, 8 heads, ff x4,
+    kernel 15) made chunked-causal: attention_chunk 16, left 4 chunks, 4x
+    frame stacking."""
+    cfg = streaming_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, transnet=dataclasses.replace(
+            cfg.model.transnet, arch="conformer", hidden_size=512, num_layers=16,
+            attention_heads=8, ff_multiplier=4, conv_kernel_size=15,
+            bidirectional=False, attention_chunk=16, attention_left_chunks=4,
+            time_reduction_stride=4, time_reduction_layer=0)))
+
+
+def conformer_step_flops(cfg, batch: int, t_frames: int, u_labels: int) -> float:
+    """Matmul FLOPs of one Conformer training step (fwd + bwd = 3x forward
+    GEMMs): the port's copy of experiments/perf_conformer.py:44-65, with
+    bench.py's prediction-net and joint terms at the reduced frame rate."""
+    tn, pn, jn = cfg.model.transnet, cfg.model.prednet, cfg.model.jointnet
+    d, ff = tn.hidden_size, tn.ff_multiplier
+    tp = t_frames // tn.time_reduction_stride
+    fwd = 2 * batch * tp * (tn.input_size * tn.time_reduction_stride) * d
+    per_block = (2 * (2 * 2 * batch * tp * d * ff * d)   # two macaron FFNs
+                 + 4 * 2 * batch * tp * d * d            # q / k / v / out
+                 + 2 * 2 * batch * tp * tp * d           # scores + values
+                 + 2 * batch * tp * d * 2 * d            # conv pointwise-in (GLU)
+                 + 2 * batch * tp * d * d)               # conv pointwise-out
+    fwd += tn.num_layers * per_block
+    fwd += 2 * batch * tp * d * tn.output_size
+    Hp, u1 = pn.hidden_size, u_labels + 1
+    fwd += pn.num_layers * 2 * batch * u1 * 4 * Hp * (Hp + Hp)
+    fwd += 2 * batch * u1 * Hp * pn.output_size
+    fwd += 2 * batch * tp * tn.output_size * jn.num_classes
+    fwd += 2 * batch * u1 * pn.output_size * jn.num_classes
+    return 3.0 * fwd
+
+
+def _kernel_share(rows, *names) -> float:
+    """Device ms of the profiled kernels whose names contain any of ``names``."""
+    return sum(us for us, _, key in rows if any(n in key for n in names)) / 1e3
+
+
+def _conformer_step(cfg, flax_params, results, launches):
+    """(a) The Conformer-L bf16 train_step at B=64, T=512 (128 after
+    stacking), U=48 on features, timed, with a profile; one raw-PCM step;
+    one AdamW, one adafactor and one lion step."""
+    cfg, state = _bf16_train_state(cfg, flax_params)
+    B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
+    batch = _train_batch(cfg, B, T, U, seed=SEED + 31)
+    want = step_launches(cfg, T, U, device=DEVICE)
+    print(f"conformer expected launches per step {json.dumps(want)}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, got, _ = _run_steps("conformer", state, batch, want, WARMUP_STEPS,
+                                 TIMED_STEPS, "encoder.blocks.0.attn.q_proj.weight")
+    launches.update({k: launches[k] + got[k] for k in KERNELS})
+    ms = float(np.mean(step_ms))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    mfu = conformer_step_flops(cfg, B, T, U) / (ms / 1e3) / PEAK_BF16_FLOPS
+    rows = []
+    busy = phase_profile_step(state, batch, rows)
+    shares = None
+    if rows:
+        total = sum(r[0] for r in rows) / 1e3
+        shares = {"device_ms": total,
+                  "k3_lstm_fwd_ms": _kernel_share(rows, "lstm_fwd"),
+                  "k4_lstm_bwd_ms": _kernel_share(rows, "lstm_bwd", "gates_gemm"),
+                  "k5_rnnt_sweep_ms": _kernel_share(rows, "rnnt_sweep")}
+        shares["rest_ms"] = total - sum(v for k, v in shares.items() if k != "device_ms")
+        print("conformer profile: " + ", ".join(f"{k} {v:.2f}" for k, v in shares.items()),
+              flush=True)
+    results["step"] = {
+        "step_ms": ms, "step_ms_each": step_ms, "utt_per_s": B / (ms / 1e3), "mfu": mfu,
+        "params": n_params, "launches_per_step": want, "device_busy_share": busy,
+        "profile_ms": shares, "top_kernels": [(us / 1e3, n, key[:90]) for us, n, key in
+                                              sorted(rows, reverse=True)[:15]],
+        "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    print(f"conformer-L bf16 B={B} T={T} (T'={T // 4}) U={U}, {n_params / 1e6:.1f} M "
+          f"params: step {ms:.1f} ms, {B / (ms / 1e3):.2f} utt/s, MFU {mfu:.4f} (of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s)", flush=True)
+
+    wav, lengths = _pcm(B, seed=SEED + 32)
+    q, scale = quantize_pcm(wav, lengths)
+    text = {k: v for k, v in batch.items() if k not in ("feats", "feat_lengths")}
+    pcm = {"wav": torch.from_numpy(q).to(DEVICE),
+           "wav_scale": torch.from_numpy(scale).to(DEVICE),
+           "wav_lengths": torch.from_numpy(lengths).to(DEVICE), **text}
+    want_pcm = step_launches(cfg, T, U, raw_pcm=True, device=DEVICE)
+    pcm_ms, got, _ = _run_steps("conformer raw-PCM", state, pcm, want_pcm, 1, 1,
+                                "encoder.out_proj.weight")
+    launches.update({k: launches[k] + got[k] for k in KERNELS})
+    results["raw_pcm_step_ms"] = pcm_ms[0]
+    sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    for kind in ("adamw", "adafactor", "lion"):
+        ocfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                  optimizer=kind))
+        ostate = TrainState.create(ocfg, DEVICE, state_dict=sd, seed=SEED)
+        o_ms, got, metrics = _run_steps(f"conformer {kind}", ostate, batch, want, 0, 1,
+                                        "encoder.blocks.0.ff1.dense0.weight")
+        launches.update({k: launches[k] + got[k] for k in KERNELS})
+        results[f"{kind}_step"] = {"ms": o_ms[0], "loss": metrics["loss"].item()}
+        del ostate
+        torch.cuda.empty_cache()
+
+
+def _conformer_vs_plain(cfg, flax_params):
+    """(b) One fp32 loss + grads of the Conformer at 4 blocks, B=8, with the
+    kernels (K3, K4, K5) and with their plain versions; deterministic.
+    Comparison only: its launches are not the main path's."""
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, transnet=dataclasses.replace(cfg.model.transnet,
+                                                num_layers=CONFORMER_PLAIN_LAYERS)),
+        train=TrainConfig(precision="fp32"))
+    tree = dict(flax_params, encoder={k: v for k, v in flax_params["encoder"].items()
+                                      if not k.startswith("block_")
+                                      or int(k[6:]) < CONFORMER_PLAIN_LAYERS})
+    model = build_model(cfg, DEVICE, state_dict_from_flax(tree, cfg.model), trainable=True)
+    params = dict(model.named_parameters())
+    feat_lengths, target_lengths = PLAIN_STEP_LENGTHS
+    batch = _train_batch(cfg, len(feat_lengths), T_FRAMES, TRAIN_U, seed=SEED + 33)
+    batch["feat_lengths"] = torch.tensor(feat_lengths, device=DEVICE)
+    batch["target_lengths"] = torch.tensor(target_lengths, device=DEVICE)
+
+    def run():
+        loss = loss_fn(model, cfg, params, batch, None, deterministic=True)
+        grads = torch.autograd.grad(loss, [params[n] for n in CONFORMER_GRAD_PARAMS])
+        torch.cuda.synchronize()
+        return loss.item(), grads
+
+    loss_k, grads_k = run()
+    with _plain_kernels():
+        loss_p, grads_p = run()
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs = {n: _rel_err(g, r) for n, g, r in zip(CONFORMER_GRAD_PARAMS, grads_k, grads_p)}
+    print(f"conformer fp32 step ({CONFORMER_PLAIN_LAYERS} blocks) B={len(feat_lengths)} "
+          f"kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.2e}, tol "
+          f"{STEP_LOSS_TOL:.0e}); grad rel err "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (tol {STEP_GRAD_TOL:.0e})", flush=True)
+    if not (loss_err <= STEP_LOSS_TOL and max(errs.values()) <= STEP_GRAD_TOL):
+        raise AssertionError("the fp32 Conformer step with kernels disagrees with the "
+                             "plain one")
+    del model, params
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "grad_rel_err": errs}
+
+
+def _conformer_offline(cfg, flax_params, tokenizer, waves, launches):
+    """(c) The offline Recognizer on Conformer-L: a batch of 8 waves, bf16,
+    greedy and the device beam (width 5): transcripts, times, launches
+    (none: the encoder has no kernel, the decoders step the prediction
+    network with the plain cell).  Then, in fp32, the padded batch's
+    encoder rows against each wave encoded alone (the masking contract)."""
+    from rnntransducer_tpu_torch.frontend.melspec import LogMelFrontend
+    out = {}
+    none = dict.fromkeys(KERNELS, 0)
+    for decoder in ("greedy", "beam_batched"):
+        rec = Recognizer(cfg, flax_params, tokenizer, decoder=decoder, precision="bf16",
+                         device=DEVICE)
+        rec.transcribe(waves[0][:16000])  # warm-up
+        texts, ms, got = _counted(rec.transcribe_batch, waves)
+        _expect_launches(f"conformer Recognizer {decoder} bf16 batch of {len(waves)}",
+                         got, none)
+        if not all(isinstance(x, str) for x in texts):
+            raise AssertionError(f"conformer Recognizer {decoder}: {texts}")
+        print(f"conformer Recognizer {decoder} bf16 transcribe_batch of {len(waves)}: "
+              f"{ms:.1f} ms; {[len(x) for x in texts]} characters", flush=True)
+        out[f"{decoder}_batch{len(waves)}_ms"] = ms
+        del rec
+    model = build_model(cfg, DEVICE, state_dict_from_flax(flax_params, cfg.model))
+    lens = [len(w) for w in waves]
+    pad = np.zeros((len(waves), max(lens)), np.float32)
+    for i, w in enumerate(waves):
+        pad[i, :len(w)] = w
+    frontend = LogMelFrontend(cfg.data.audio)
+    err = 0.0
+    with torch.inference_mode():
+        feats, flen = frontend(torch.from_numpy(pad).to(DEVICE),
+                               torch.tensor(lens, device=DEVICE))
+        enc, _ = model.encode(feats, flen)
+        elen = cfg.model.transnet.output_lengths(flen)
+        for i in range(len(waves)):
+            n = int(flen[i])
+            solo, _ = model.encode(feats[i:i + 1, :n], flen[i:i + 1])
+            err = max(err, _rel_err(enc[i, :int(elen[i])], solo[0]))
+    print(f"conformer fp32 padded batch of {len(waves)} vs each wave alone: encoder rel "
+          f"err {err:.2e} (tol {ENCODER_TOL['fp32']:.0e})", flush=True)
+    if not err <= ENCODER_TOL["fp32"]:
+        raise AssertionError("the Conformer's padded batch differs from its waves alone")
+    out["padded_vs_alone_rel_err"] = err
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _staggered(runner, waves):
+    """Lane i opens at round i; every open lane gets its next 100 ms each
+    round, fed with a drain, so each tick serves the lanes whose chunk is
+    full and the others idle mid-stream.  Returns (tokens, greedy
+    timestamps, ticks where a live lane idled beside a busy one)."""
+    idled = [0]
+    step = runner._step
+
+    def recording(feats, n_valid):
+        live = sorted(runner._live)
+        nv = n_valid[live]
+        idled[0] += int(bool((nv == 0).any() and (nv > 0).any()))
+        return step(feats, n_valid)
+
+    runner._step = recording
+    sessions, got, pos, r = [], [[] for _ in waves], [0] * len(waves), 0
+    while any(p < len(w) for p, w in zip(pos, waves)):
+        if r < len(waves):
+            sessions.append(runner.open(normalize="none"))
+        for i, sess in enumerate(sessions):
+            if pos[i] < len(waves[i]):
+                got[i] += sess.feed(waves[i][pos[i]:pos[i] + SESSION_FEED])
+                pos[i] += SESSION_FEED
+        r += 1
+    times = []
+    for i, sess in enumerate(sessions):
+        got[i] += sess.flush()
+        times.append(sess.timestamps)
+    runner._step = step
+    return got, times, idled[0]
+
+
+def _conformer_streaming(cfg, sd, launches):
+    """(d) The streaming Conformer at full width.  fp32 (TF32 off): chunk by
+    chunk against the offline masked forward; streaming greedy against
+    offline greedy; 8 staggered lanes against 8 independent sessions; an
+    all-idle tick at 64 lanes.  bf16: StreamingRecognizer RTF and
+    first-token latency, greedy and beam 4; ticks of the batched runner at
+    8 and 64 lanes (another all-idle tick at 64).  No kernel on any of these
+    paths."""
+    from rnntransducer_tpu_torch.decode.session_batch import BatchedStreamingRunner
+    from rnntransducer_tpu_torch.decode.streaming import (StreamingRecognizer,
+                                                          _zero_encoder_state)
+    from rnntransducer_tpu_torch.frontend.melspec import LogMelFrontend
+    tn, audio = cfg.model.transnet, cfg.data.audio
+    T = CONFORMER_STREAM_FRAMES
+    max_symbols = cfg.train.greedy_max_symbols
+    frame_sec = tn.time_reduction_stride * audio.window_stride_sec
+    none = dict.fromkeys(KERNELS, 0)
+    out = {}
+    model32 = build_model(cfg, DEVICE, state_dict=sd)
+
+    # chunk by chunk against the offline masked forward (a ragged batch of 2)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 34)
+    n = CONFORMER_STREAM_CHUNKS * T
+    feats = torch.randn(2, n, tn.input_size, device=DEVICE, generator=gen)
+    flen = torch.tensor([n, n - T - 37], device=DEVICE)
+    with torch.inference_mode():
+        offline, _ = model32.encode(feats, flen)
+        state = _zero_encoder_state(model32, 2)
+        chunks = []
+        for c0 in range(0, n, T):
+            enc, state = model32.encode(feats[:, c0:c0 + T], (flen - c0).clamp(0, T), state)
+            chunks.append(enc)
+        stream = torch.cat(chunks, dim=1)
+    diff = (stream - offline).abs()
+    bound = CONFORMER_STREAM_ATOL + CONFORMER_STREAM_RTOL * offline.abs()
+    worst = (diff / bound).max().item()
+    print(f"streaming conformer fp32 chunk by chunk ({CONFORMER_STREAM_CHUNKS} chunks of {T} "
+          f"frames, rows {flen.tolist()}) vs the offline masked forward: max abs diff "
+          f"{diff.max().item():.2e}, worst / (atol {CONFORMER_STREAM_ATOL:.0e} + rtol "
+          f"{CONFORMER_STREAM_RTOL:.0e} |x|) = {worst:.3f}", flush=True)
+    if not worst <= 1.0:
+        raise AssertionError("the streaming Conformer's chunks differ from its offline "
+                             "masked forward")
+    out["chunk_vs_offline_max_abs"] = diff.max().item()
+
+    # streaming greedy against offline greedy
+    wav = _stream_waves(1, SEED + 35)[0]
+    with torch.inference_mode():
+        f, fl = LogMelFrontend(audio)(torch.from_numpy(wav[None]).to(DEVICE))
+        toks, lens = greedy_mod.greedy_decode(model32, f, fl, max_symbols=max_symbols,
+                                              max_output_len=512)
+    offline_toks = toks[0, :lens[0]].tolist()
+    rec = StreamingRecognizer(model32, audio, chunk_frames=T, normalize="none",
+                              max_symbols=max_symbols)
+    streamed = []
+    for s0 in range(0, len(wav), SESSION_FEED):
+        streamed += rec.feed(wav[s0:s0 + SESSION_FEED])
+    streamed += rec.flush()
+    print(f"streaming conformer greedy vs offline greedy, fp32, {STREAM_UTT_SEC:.0f} s: "
+          f"tokens equal {streamed == offline_toks} ({len(offline_toks)} tokens)",
+          flush=True)
+    if streamed != offline_toks or not offline_toks:
+        raise AssertionError("streaming Conformer greedy differs from offline greedy "
+                             "(or emitted nothing)")
+
+    def runner_of(model, lanes, decoder):
+        return BatchedStreamingRunner(model, audio, max_sessions=lanes, chunk_frames=T,
+                                      max_symbols=max_symbols, max_output_len=512,
+                                      decoder=decoder, beam_width=4)
+
+    # 8 staggered lanes against independent sessions, greedy
+    short = _session_waves(SERVER_LANES, SEED + 36, CONFORMER_CMP_SEC)
+    got, times, idled = _staggered(runner_of(model32, len(short), "greedy"), short)
+    independent = []
+    for w in short:
+        rec = StreamingRecognizer(model32, audio, chunk_frames=T, normalize="none",
+                                  max_symbols=max_symbols, max_output_len=512)
+        fed = []
+        for s0 in range(0, len(w), SESSION_FEED):
+            fed += rec.feed(w[s0:s0 + SESSION_FEED])
+        independent.append((fed + rec.flush(), rec.timestamps))
+    ties = _margin_rule(model32, "conformer sessions greedy fp32 staggered", "greedy",
+                        short, got, times, independent, max_symbols, T, audio, frame_sec)
+    print(f"conformer sessions greedy fp32, {len(short)} staggered lanes of "
+          f"{CONFORMER_CMP_SEC:.0f} s ({idled} ticks with a live lane idle): tokens equal "
+          f"to independent sessions on {len(short) - len(ties)} of {len(short)} lanes; "
+          f"near-ties {ties}; tokens per lane {[len(x) for x in got]}", flush=True)
+    if not idled:
+        raise AssertionError("the staggered traffic idled no live lane")
+    out["staggered_fp32"] = {"idle_ticks": idled, "near_ties": ties}
+    # an all-idle tick at 64 live lanes, two chunks into their streams
+    lanes = max(SESSION_LANES)
+    _lockstep(runner_of(model32, lanes, "greedy"),
+              _session_waves(lanes, SEED + 39, 3 * T * 10 / 1000),
+              idle_round=2 * T * 10 // 100 + 1, flush=False)
+    del model32
+    torch.cuda.empty_cache()
+
+    # bf16: sessions and ticks
+    model = build_model(cfg, DEVICE, state_dict=sd).to(torch.bfloat16)
+    for decoder in ("greedy", "beam"):
+        out[decoder] = _stream_rtf("streaming conformer", model, audio, T, decoder, none,
+                                   launches, f"chunks of {T} frames")
+    waves = _session_waves(max(SESSION_LANES), SEED + 37, SESSION_UTT_SEC)
+    for lanes in SESSION_LANES:
+        for decoder in ("greedy", "beam"):
+            runner = runner_of(model, lanes, decoder)
+            runner.warmup()
+            big = lanes == max(SESSION_LANES)
+            _zero_counts()
+            stats = _lockstep(runner, waves[:lanes],
+                              idle_round=CONFORMER_IDLE_ROUND if big else None,
+                              flush=not big)
+            torch.cuda.synchronize()
+            what = f"conformer sessions {decoder} bf16 {lanes} lanes ({stats['ticks']} ticks)"
+            _expect_launches(what, _counts(), none)
+            tokens = stats.pop("tokens")
+            stats.pop("times")
+            print(f"{what}: tick p50 {stats['tick_ms_p50']:.1f} ms, p99 "
+                  f"{stats['tick_ms_p99']:.1f} ms (a chunk is {T * 10} ms of audio); "
+                  f"aggregate RTF {stats['aggregate_rtf']:.2f} audio s per wall s; feed "
+                  f"block p99 {stats['poll_block_ms_p99']:.2f} ms; tokens per lane "
+                  f"{[len(x) for x in tokens[:8]]}", flush=True)
+            if not all(tokens):
+                raise AssertionError(f"{what}: a lane decoded no token")
+            if not stats["tick_ms_p99"] < T * 10:
+                raise AssertionError(f"{what}: a tick takes longer than its chunk's audio")
+            out[f"{decoder}_{lanes}"] = stats
+            del runner
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_conformer(tokenizer, waves):
+    """Phase 8: the Conformer at full width (conformer_l_config,
+    streaming_conformer_config) with seeded random weights through the
+    flax-layout bridge: (a) training steps, (b) fp32 kernels vs plain,
+    (c) the offline Recognizer, (d) the streaming Conformer.  Returns the
+    main paths' launches (a, c, d) and the figures."""
+    cfg = conformer_l_config()
+    flax_params = random_flax_params(cfg.model, torch.Generator().manual_seed(SEED + 30))
+    launches = dict.fromkeys(KERNELS, 0)
+    results = {}
+    _conformer_step(cfg, flax_params, results, launches)
+    results["vs_plain_fp32"] = _conformer_vs_plain(cfg, flax_params)
+    results["offline"] = _conformer_offline(cfg, flax_params, tokenizer, waves, launches)
+    scfg = streaming_conformer_config()
+    sd = state_dict_from_flax(random_flax_params(
+        scfg.model, torch.Generator().manual_seed(SEED + 38)), scfg.model)
+    results["streaming"] = _conformer_streaming(scfg, sd, launches)
+    return launches, results
+
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its wall time printed (where the script's time goes)."""
     t0 = time.perf_counter()
@@ -3096,7 +3560,7 @@ def main() -> int:
     # ---- the main paths: each sets the counts to 0 before every step -------
     launches = dict.fromkeys(KERNELS, 0)
     bare_busy = {}
-    shared = {}  # phase 8's waves and runner tokens, for phase 9
+    shared = {}  # phase 7a's waves and runner tokens, for phase 7b
     try:
         for name, run in (
                 ("training", lambda: phase_training(flax_params)),
@@ -3110,7 +3574,8 @@ def main() -> int:
                 ("sessions", lambda: phase_sessions(stream_sd, shared)),
                 ("server", lambda: phase_server(stream_cfg, stream_sd, shared)),
                 ("evaluate", lambda: phase_evaluate(flax_params, tokenizer)),
-                ("import", lambda: phase_import(tokenizer))):
+                ("import", lambda: phase_import(tokenizer)),
+                ("conformer", lambda: phase_conformer(tokenizer, waves))):
             got, result = _timed(name, run)
             bare_busy[name] = result.get("device_busy_share")
             launches = {k: launches[k] + got[k] for k in KERNELS}

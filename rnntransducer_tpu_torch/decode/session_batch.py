@@ -13,8 +13,9 @@ onto one (max_sessions, chunk_frames) tick:
   are one kernel launch each, whatever the width), and fetches every
   lane's tokens with a single device-to-host copy;
 * sessions with nothing pending ride along as no-ops: their ``n_valid`` is
-  0, the masked encoder scan keeps a length-0 row's h and c, and the
-  decoders' ``t < enc_lengths`` gates keep its carry, bit for bit.
+  0, the masked encoder scan keeps a length-0 row's h and c (the streaming
+  Conformer's cache is kept by a per-lane select, ``_batched_encode``), and
+  the decoders' ``t < enc_lengths`` gates keep its carry, bit for bit.
 
 Per-session results equal an independent ``StreamingRecognizer`` fed the
 same audio in the same pieces.  Both streaming decoders are supported:
@@ -62,7 +63,8 @@ from rnntransducer_tpu_torch.decode.greedy import (GreedyCarry, _device,
                                                    greedy_decode_frames,
                                                    init_greedy_carry)
 from rnntransducer_tpu_torch.decode.streaming import (StreamingFrontend,
-                                                      _zero_encoder_state)
+                                                      _zero_encoder_state,
+                                                      check_chunk_frames)
 from rnntransducer_tpu_torch.models.cells import RNNState
 from rnntransducer_tpu_torch.models.transducer import RNNTransducer
 from rnntransducer_tpu_torch.utils.precision import (decode_dtype,
@@ -73,8 +75,21 @@ from rnntransducer_tpu_torch.utils.precision import (decode_dtype,
 @torch.inference_mode()
 def _batched_encode(model: RNNTransducer, feats, n_valid, enc_state):
     """The encoder over every lane: feats (S, chunk, mels), n_valid (S,)
-    frames valid per lane (0 = idle).  Returns (enc, new_state)."""
-    return model.encode(match_param_dtype(model, feats), n_valid, enc_state)
+    frames valid per lane (0 = idle).  Returns (enc, new_state); an idle
+    lane's state comes back bit for bit.
+
+    The recurrent encoder keeps a length-0 row's carry by itself.  The
+    streaming Conformer does not: its cache always slides by one chunk and
+    rebuilds the conv tail from the chunk (the JAX module alike), so an
+    idle lane would lose a chunk of attention history and its conv tail.
+    Its h and c are selected per lane by ``n_valid > 0`` here, which keeps
+    ``ConformerEncoder`` identical to the JAX module."""
+    enc, new_state = model.encode(match_param_dtype(model, feats), n_valid, enc_state)
+    if model.cfg.transnet.arch == "conformer":
+        live = (n_valid > 0)[None, None, :, None]           # lane axis 2
+        new_state = RNNState(torch.where(live, new_state.h, enc_state.h),
+                             torch.where(live, new_state.c, enc_state.c))
+    return enc, new_state
 
 
 @torch.inference_mode()
@@ -108,8 +123,9 @@ def _put(x: Optional[torch.Tensor], index, value, dim: int = 0):
 
 
 def _reset_enc_slot(enc_state: RNNState, slot: int) -> RNNState:
-    """The encoder state with lane ``slot`` zeroed (lane axis 2); h and c
-    come back as tensors of their own."""
+    """The encoder state with lane ``slot`` zeroed (lane axis 2), each of h
+    and c from its own slice (the Conformer's differ in shape); they come
+    back as tensors of their own."""
     return RNNState(_put(enc_state.h, slot, 0, 2), _put(enc_state.c, slot, 0, 2))
 
 
@@ -314,11 +330,7 @@ class BatchedStreamingRunner:
         if tn.bidirectional:
             raise ValueError("streaming requires a unidirectional encoder")
         stride = tn.time_reduction_stride
-        if stride > 1 and chunk_frames % stride:
-            raise ValueError(
-                f"chunk_frames ({chunk_frames}) must be a multiple of "
-                f"time_reduction_stride ({stride}) so reduced groups align "
-                "across chunks")
+        check_chunk_frames(tn, chunk_frames)
         if decoder not in ("greedy", "beam"):
             raise ValueError(f"unknown decoder: {decoder}")
         self.fused = lm is not None or bool(hotwords)
@@ -482,15 +494,16 @@ class BatchedStreamingRunner:
 
     def warmup(self) -> None:
         """Everything the first client would otherwise wait for, before
-        serving traffic: build the encoder's recurrent kernel, then run one
+        serving traffic: build the encoder's recurrent kernel (an RNN
+        encoder's), then run one
         all-idle tick (every ``n_valid`` = 0), one slot reset and one
         partials fetch against the live state, discarding their results.
         An all-idle tick changes no lane (asserted by tests), the reset
         builds new tensors, and the live state is left as it was."""
-        if self.device.type == "cuda":
+        tn = self.model.cfg.transnet
+        if self.device.type == "cuda" and tn.arch == "rnn":
             from rnntransducer_tpu_torch.ops import build
-            rnn_type = self.model.cfg.transnet.rnn_type.lower()
-            build.build_all([f"{rnn_type}_fwd"])
+            build.build_all([f"{tn.rnn_type.lower()}_fwd"])
         with self._tick_lock:
             feats, n_valid = self._idle_inputs()
             if self.fused:

@@ -8,7 +8,9 @@ a chunked log-mel frontend, a unidirectional encoder carrying its
   ``flush()``);
 * ``StreamingRecognizer``: feeds audio through the frontend, the encoder
   (one chunk of ``chunk_frames`` feature frames at a time, the final
-  partial chunk padded and masked by its valid length) and one of four
+  partial chunk padded and masked by its valid length; a unidirectional
+  RNN or the chunked-causal Conformer, whose chunk is exactly one
+  attention chunk) and one of four
   decoders: the greedy carry, the device beam carry, the device beam with
   a char LM table, or the host A/B beam with n-gram LM and hotword fusion.
 
@@ -135,15 +137,35 @@ class StreamingFrontend:
 
 def _zero_encoder_state(model: RNNTransducer, batch: int = 1) -> RNNState:
     """The encoder's zero state on the model's device, in the params' dtype
-    (the state carried between chunks keeps that dtype)."""
+    (the state carried between chunks keeps that dtype).  The Conformer's
+    is its block cache: h (L, left*C, B, d+1), the attention window with a
+    validity flag channel, and c (L, K-1, B, d), the conv tail, two tensors
+    of their own.  An LSTM encoder gets one tensor as h and c."""
     cfg = model.cfg.transnet
-    if cfg.arch != "rnn":
-        raise NotImplementedError(
-            f"streaming encoder arch {cfg.arch!r} is not ported yet; only 'rnn'")
+    dtype, device = param_dtype(model), _device(model)
+    if cfg.arch == "conformer":
+        return model.encoder.zero_state(batch, dtype, device)
     d = 2 if cfg.bidirectional else 1
     h = torch.zeros((cfg.num_layers, d, batch, cfg.hidden_size),
-                    dtype=param_dtype(model), device=_device(model))
+                    dtype=dtype, device=device)
     return RNNState(h, h if cfg.rnn_type.lower() == "lstm" else None)
+
+
+def check_chunk_frames(cfg, chunk_frames: int) -> None:
+    """The streaming surfaces' chunk checks: reduced groups align across
+    chunks, and a streaming Conformer takes exactly one attention chunk per
+    call."""
+    stride = cfg.time_reduction_stride
+    if stride > 1 and chunk_frames % stride:
+        raise ValueError(
+            f"chunk_frames ({chunk_frames}) must be a multiple of "
+            f"time_reduction_stride ({stride}) so reduced groups align "
+            "across chunks")
+    if cfg.arch == "conformer" and chunk_frames != cfg.attention_chunk * stride:
+        raise ValueError(
+            f"the streaming Conformer consumes exactly one attention chunk "
+            f"per step: chunk_frames must be attention_chunk*stride = "
+            f"{cfg.attention_chunk * stride}, got {chunk_frames}")
 
 
 @torch.inference_mode()
@@ -188,12 +210,7 @@ class StreamingRecognizer:
             raise ValueError(
                 "streaming requires a unidirectional encoder "
                 "(transnet.bidirectional=false)")
-        stride = tn.time_reduction_stride
-        if stride > 1 and chunk_frames % stride:
-            raise ValueError(
-                f"chunk_frames ({chunk_frames}) must be a multiple of "
-                f"time_reduction_stride ({stride}) so reduced groups align "
-                "across chunks")
+        check_chunk_frames(tn, chunk_frames)
         if decoder not in ("greedy", "beam"):
             raise ValueError(f"unknown streaming decoder: {decoder}")
         fused = lm is not None or bool(hotwords)

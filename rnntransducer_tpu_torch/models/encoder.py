@@ -39,8 +39,9 @@ class AudioEncoder(nn.Module):
     def __init__(self, cfg: TransNetConfig):
         super().__init__()
         if cfg.arch != "rnn":
-            raise NotImplementedError(
-                f"encoder arch {cfg.arch!r} is not ported yet; only 'rnn'")
+            raise ValueError(
+                f"AudioEncoder is the RNN encoder; arch {cfg.arch!r} is "
+                "models.conformer.ConformerEncoder")
         self.cfg = cfg
         stride = cfg.time_reduction_stride
         k = cfg.time_reduction_layer if stride > 1 else 0

@@ -10,6 +10,7 @@ from torch import nn
 
 from rnntransducer_tpu_torch.config import Config, ModelConfig
 from rnntransducer_tpu_torch.models.cells import RNNState
+from rnntransducer_tpu_torch.models.conformer import ConformerEncoder
 from rnntransducer_tpu_torch.models.encoder import AudioEncoder
 from rnntransducer_tpu_torch.models.joint import JointNetwork
 from rnntransducer_tpu_torch.models.prednet import PredictionNet
@@ -20,7 +21,8 @@ class RNNTransducer(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.encoder = AudioEncoder(cfg.transnet)
+        self.encoder = (ConformerEncoder(cfg.transnet) if cfg.transnet.arch == "conformer"
+                        else AudioEncoder(cfg.transnet))
         self.prednet = PredictionNet(cfg.prednet)
         self.joint = JointNetwork(cfg.jointnet, cfg.transnet.output_size,
                                   cfg.prednet.output_size)

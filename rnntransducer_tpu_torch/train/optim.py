@@ -13,14 +13,20 @@ and bias corrections, eps 1e-8 added outside the square root, and decoupled
 decay of every param by lr * weight_decay (torch decays before the Adam
 step, optax adds wd * p to the update: the same p - lr (u + wd p)).
 ``torch.optim.SGD(momentum=0.9)`` is ``optax.sgd(momentum=0.9)``: both start
-the trace at the first gradient.  adafactor and lion are not ported yet.
+the trace at the first gradient.  ``Adafactor`` and ``Lion`` are written
+here with optax's semantics as the JAX package configures them
+(``optax.adafactor(min_dim_size_to_factor=128,
+multiply_by_parameter_scale=False, weight_decay_rate=wd or None)``,
+``optax.lion(b1=0.9, b2=0.99, weight_decay=wd)``); ``torch.optim.Adafactor``
+has other defaults and another weight decay.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Sequence
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -97,6 +103,110 @@ def make_schedule(cfg) -> Schedule:
                      "(onecycle | cosine | linear | constant)")
 
 
+def factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims`` at ``min_dim_size_to_factor=128``: the
+    (second largest, largest) axis of a tensor of two or more dims whose
+    second largest dim is at least 128, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor`` as the JAX package builds it, per param and step:
+
+    1. ``scale_by_factored_rms`` (decay 1 - t^-0.8 at update t = 1, 2, ...,
+       eps 1e-30 added to g^2): a tensor whose two largest dims are both >=
+       128 keeps row and column means of g^2 and scales g by
+       (v_row / mean(v_row))^-1/2 (v_col)^-1/2; any other keeps the full
+       second moment v and scales g by v^-1/2;
+    2. ``clip_by_block_rms(1.0)``: the update over max(1, rms(update));
+    3. times the learning rate;
+    4. plus ``weight_decay`` * p, after the lr scaling (the decay is not
+       multiplied by the lr);
+    5. subtracted from p.
+
+    Row and column factoring is symmetric, so a param stored transposed
+    (torch's (out, in) against flax's (in, out)) gets the same update."""
+
+    DECAY_RATE, EPS, CLIPPING_THRESHOLD = 0.8, 1e-30, 1.0
+
+    def __init__(self, params, lr: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(p, p.grad, group)
+
+    def _update(self, p, g, group):
+        state = self.state[p]
+        dims = factored_dims(p.shape)
+        if not state:
+            state["step"] = 0
+            if dims is None:
+                state["v"] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                state["v_row"] = torch.zeros_like(p.sum(dim=d0))
+                state["v_col"] = torch.zeros_like(p.sum(dim=d1))
+        t = np.float32(state["step"] + 1)
+        decay = float(np.float32(1.0) - t ** np.float32(-self.DECAY_RATE))
+        keep = float(np.float32(1.0) - np.float32(decay))
+        grad_sqr = g * g + self.EPS
+        if dims is None:
+            v = state["v"].mul_(decay).add_(grad_sqr * keep)
+            u = g * v.pow(-0.5)
+        else:
+            d1, d0 = dims
+            v_row = state["v_row"].mul_(decay).add_(grad_sqr.mean(dim=d0) * keep)
+            v_col = state["v_col"].mul_(decay).add_(grad_sqr.mean(dim=d1) * keep)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+            u = g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+        rms = torch.sqrt(torch.mean(u * u))
+        u = u / torch.clamp(rms / self.CLIPPING_THRESHOLD, min=1.0)
+        u = group["lr"] * u
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        p.sub_(u)
+        state["step"] += 1
+
+
+class Lion(torch.optim.Optimizer):
+    """``optax.lion``: update = sign((1 - b1) g + b1 m), then m = b2 m +
+    (1 - b2) g; the decayed weights are added before the lr scaling:
+    p -= lr (update + weight_decay p)."""
+
+    B1, B2 = 0.9, 0.99
+
+    def __init__(self, params, lr: float = 0.0, weight_decay: float = 1e-3):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        b1, b2 = self.B1, self.B2
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(p)
+                m = state["exp_avg"]
+                u = torch.sign((1.0 - b1) * g + b1 * m)
+                m.copy_((1.0 - b2) * g + b2 * m)
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.sub_(group["lr"] * u)
+
+
 def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
     """The optimizer of ``cfg.optimizer`` over ``params``; its lr is set from
     the schedule before every step (see module docstring)."""
@@ -106,9 +216,12 @@ def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Opt
                                  weight_decay=cfg.weight_decay)
     if kind == "sgd":
         return torch.optim.SGD(params, lr=0.0, momentum=0.9)
-    if kind in ("adafactor", "lion"):
-        raise NotImplementedError(f"optimizer {kind!r} is not ported yet "
-                                  "(adamw | sgd)")
+    if kind == "adafactor":
+        # factored second moment: optimizer memory ~ row + column sums;
+        # tensors with a dim below 128 stay unfactored
+        return Adafactor(params, weight_decay=cfg.weight_decay or 0.0)
+    if kind == "lion":
+        return Lion(params, weight_decay=cfg.weight_decay)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
                      "(adamw | adafactor | lion | sgd)")
 

@@ -11,6 +11,13 @@ the port's ``state_dict``.  Layouts:
   bridge unstacks them.
 * flax ``Dense.kernel`` is (in, out); ``nn.Linear.weight`` is (out, in).
 * The embedding table is (V, H) in both.
+* The Conformer (``arch="conformer"``): flax ``block_{i}/...`` maps to
+  ``blocks.{i}...``; ``LayerNorm`` ``scale`` to ``weight``; the compact
+  ``FeedForward``'s ``LayerNorm_0`` / ``Dense_0`` / ``Dense_1`` to ``norm``
+  / ``dense0`` / ``dense1``; the depthwise conv kernel keeps its (K, 1, D).
+  With ``scan_blocks=True`` flax keeps the blocks under ``blocks`` with a
+  leading L axis, or with ``scan_block_group=G`` under ``blocks/g{j}``
+  with a leading L/G axis (global block s*G + j); the bridge unstacks them.
 
 Every shape is checked against the port's model for ``model_cfg`` and every
 flax leaf must be used: a mismatch raises.  ``save``/``load`` keep a
@@ -61,12 +68,63 @@ def _encoder_stacks(model_cfg: ModelConfig) -> Dict[str, int]:
     return {"rnn": t.num_layers}
 
 
+def _norm_entries(flax: Tuple[str, ...], port: str) -> Iterator[Entry]:
+    yield flax + ("scale",), f"{port}.weight", None, False
+    yield flax + ("bias",), f"{port}.bias", None, False
+
+
+def _conformer_block_entries(i: int) -> Iterator[Tuple[Tuple[str, ...], str, bool]]:
+    """(path inside the block, port key, transpose?) of block ``i``."""
+    port = f"encoder.blocks.{i}"
+    for ff in ("ff1", "ff2"):
+        yield (ff, "LayerNorm_0", "scale"), f"{port}.{ff}.norm.weight", False
+        yield (ff, "LayerNorm_0", "bias"), f"{port}.{ff}.norm.bias", False
+        for n in ("0", "1"):
+            yield (ff, f"Dense_{n}", "kernel"), f"{port}.{ff}.dense{n}.weight", True
+            yield (ff, f"Dense_{n}", "bias"), f"{port}.{ff}.dense{n}.bias", False
+    groups = (("attn", ("norm",), ("q_proj", "k_proj", "v_proj", "out")),
+              ("conv", ("norm", "post_norm"), ("pre", "post")))
+    for mod, norms, denses in groups:
+        for n in norms:
+            for path, key, _, tr in _norm_entries((mod, n), f"{port}.{mod}.{n}"):
+                yield path, key, tr
+        for n in denses:
+            for path, key, _, tr in _dense_entries((mod, n), f"{port}.{mod}.{n}"):
+                yield path, key, tr
+    yield ("conv", "conv", "kernel"), f"{port}.conv.conv.weight", False
+    yield ("conv", "conv", "bias"), f"{port}.conv.conv.bias", False
+    for path, key, _, tr in _norm_entries(("final_norm",), f"{port}.final_norm"):
+        yield path, key, tr
+
+
+def _conformer_entries(t) -> Iterator[Entry]:
+    """The Conformer encoder's parameters in the layout ``t.scan_blocks`` /
+    ``t.scan_block_group`` give the flax tree."""
+    yield from _dense_entries(("encoder", "in_proj"), "encoder.in_proj")
+    G = max(1, t.scan_block_group)
+    if t.scan_blocks and t.num_layers % G:
+        raise ValueError(f"num_layers={t.num_layers} not divisible by "
+                         f"scan_block_group={G}")
+    for i in range(t.num_layers):
+        if not t.scan_blocks:
+            prefix, index = ("encoder", f"block_{i}"), None
+        elif G == 1:
+            prefix, index = ("encoder", "blocks"), i
+        else:
+            prefix, index = ("encoder", "blocks", f"g{i % G}"), i // G
+        for path, key, tr in _conformer_block_entries(i):
+            yield prefix + path, key, index, tr
+
+
 def flax_layout(model_cfg: ModelConfig) -> Iterator[Entry]:
     """Every parameter of the model as (flax path, port key, index, transpose)."""
     t, p, j = model_cfg.transnet, model_cfg.prednet, model_cfg.jointnet
-    for name, layers in _encoder_stacks(model_cfg).items():
-        yield from _stack_entries(("encoder", name), f"encoder.{name}", layers,
-                                  t.bidirectional, t.scan_layers)
+    if t.arch == "conformer":
+        yield from _conformer_entries(t)
+    else:
+        for name, layers in _encoder_stacks(model_cfg).items():
+            yield from _stack_entries(("encoder", name), f"encoder.{name}", layers,
+                                      t.bidirectional, t.scan_layers)
     yield from _dense_entries(("encoder", "out_proj"), "encoder.out_proj")
     yield ("prednet", "embedding", "embedding"), "prednet.embedding.weight", None, False
     if p.rnn_type.lower() != "stateless":
@@ -139,14 +197,26 @@ def state_dict_from_flax(params: Mapping, model_cfg: ModelConfig
 def random_flax_params(model_cfg: ModelConfig, generator: torch.Generator) -> Dict:
     """Random weights in the JAX package's flax layout (nested dicts of
     float32 numpy arrays), drawn from ``generator``: RNN tensors uniform in
-    +-1/sqrt(H), dense kernels and biases uniform in +-1/sqrt(fan_in), the
-    embedding standard normal."""
+    +-1/sqrt(H), dense and depthwise conv kernels and biases uniform in
+    +-1/sqrt(fan_in), the embedding standard normal, LayerNorm scales 1 and
+    offsets 0."""
     expected = _expected_shapes(model_cfg)
+    layout = list(flax_layout(model_cfg))
+    stacked: Dict[Tuple[str, ...], int] = {}
+    for path, _, index, _ in layout:
+        if index is not None:
+            stacked[path] = max(stacked.get(path, 0), index + 1)
     tree: Dict = {}
-    for path, key, index, transpose in flax_layout(model_cfg):
+    for path, key, index, transpose in layout:
         shape = expected[key]
         if key.endswith("embedding.weight"):
             value = torch.randn(shape, generator=generator)
+        elif "norm" in path[-2].lower():  # LayerNorm: flax's init
+            value = (torch.ones if path[-1] == "scale" else torch.zeros)(shape)
+        elif key.endswith("conv.conv.weight") or key.endswith("conv.conv.bias"):
+            # depthwise kernel (K, 1, D): fan-in K
+            scale = 1.0 / float(expected[key.rsplit(".", 1)[0] + ".weight"][0]) ** 0.5
+            value = (torch.rand(shape, generator=generator) * 2.0 - 1.0) * scale
         else:
             if ".w_" in key or ".b_" in key:
                 fan = expected[key.rsplit(".", 1)[0] + ".w_hh"][0]
@@ -163,10 +233,8 @@ def random_flax_params(model_cfg: ModelConfig, generator: torch.Generator) -> Di
         if index is None:
             node[path[-1]] = arr
         else:
-            layers = _encoder_stacks(model_cfg)[path[1]]
-            stacked = node.setdefault(
-                path[-1], np.zeros((layers - 1,) + arr.shape, np.float32))
-            stacked[index] = arr
+            node.setdefault(path[-1], np.zeros((stacked[path],) + arr.shape,
+                                               np.float32))[index] = arr
     return tree
 
 

@@ -5,6 +5,7 @@ inputs are made with numpy from a seed."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 
@@ -39,6 +40,20 @@ def model_dict(rnn_type="gru", layers=2, hidden=16, out=12, n_mels=8,
                         num_layers=pred_layers, rnn_type=pred_type, dropout=0.0),
         "jointnet": dict(num_classes=vocab, combine=combine, hidden_size=10),
     }
+
+
+def conformer_dict(stride=1, chunk=0, left=2, layers=2, d=64, heads=4, kernel=7,
+                   dropout=0.0):
+    """The Conformer of ``tests/test_conformer.py``: ``_cfg`` (chunk=0,
+    full context, bidirectional) or ``_scfg`` (chunk > 0, chunked-causal),
+    on ``tiny_config()``'s prediction network and joint, as a config dict."""
+    m = dataclasses.asdict(jcfg.tiny_config().model)
+    m["transnet"].update(
+        arch="conformer", hidden_size=d, output_size=48, num_layers=layers,
+        attention_heads=heads, conv_kernel_size=kernel,
+        time_reduction_stride=stride, dropout=dropout, bidirectional=chunk == 0,
+        attention_chunk=chunk, attention_left_chunks=left)
+    return m
 
 
 @functools.lru_cache(maxsize=None)

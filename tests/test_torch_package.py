@@ -47,9 +47,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_scan_covers_the_training_loop_and_cli():
     """The modules of the training loop, the data feed, the decoders, the
-    train and inference CLIs, session serving, corpus evaluation and the
-    reference-checkpoint import are among those scanned, and each imports
-    the port's own copies."""
+    train and inference CLIs, session serving, corpus evaluation, the
+    reference-checkpoint import, the Conformer and the optimizers are among
+    those scanned, and each imports the port's own copies."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     pkg = "rnntransducer_tpu_torch"
     for mod in ("train/metrics.py", "train/checkpoint.py", "train/loop.py",
@@ -60,7 +60,8 @@ def test_scan_covers_the_training_loop_and_cli():
                 "decode/device_lm.py", "decode/device_word_lm.py",
                 "decode/greedy.py", "decode/hotwords.py", "decode/ngram_lm.py",
                 "decode/streaming.py", "decode/session_batch.py", "serve_socket.py",
-                "eval.py", "cli/evaluate.py", "utils/torch_import.py"):
+                "eval.py", "cli/evaluate.py", "utils/torch_import.py",
+                "models/conformer.py", "models/transducer.py", "train/optim.py"):
         path = os.path.join(pkg, mod)
         assert path in scanned, path
         own = [m for m in _imported_modules(os.path.join(REPO, path))
@@ -98,6 +99,21 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         evaluate.main(["--checkpoint_dir", ckpt, "--manifest", "unused.tsv"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         torch_import.convert_to_checkpoint("unread.ckpt", cfg, str(tmp_path / "out"))
+    # a Conformer config lands on CUDA by default too
+    import dataclasses
+    conf = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, transnet=dataclasses.replace(
+            cfg.model.transnet, arch="conformer", hidden_size=32, attention_heads=4,
+            num_layers=1, bidirectional=False, attention_chunk=4)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TrainState.create(conf)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Recognizer(conf, random_flax_params(conf.model, torch.Generator().manual_seed(0)),
+                   GraphemeTokenizer.default(72))
+    model = build_model(conf, "cpu")
+    assert type(model.encoder).__name__ == "ConformerEncoder"
 
 
 def _gru_args(device="cpu"):
