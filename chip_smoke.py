@@ -3501,6 +3501,343 @@ def phase_conformer(tokenizer, waves):
 
 
 
+# ---- phase 9: data parallelism (parallel/) ----------------------------------
+# a: one rank over NCCL in this process against the single-device Trainer
+# (twice: its run-to-run spread is the bound), base_config() bf16 raw PCM,
+# global batch 64; b: two worker ranks sharing the card over gloo (NCCL
+# refuses two ranks on one device) against one process at their global
+# batch, base_config() at full width with the encoder cut to 2 layers, fp32.
+PARALLEL_DIR = os.path.join(REPO, "build", "parallel")
+PARALLEL_N, PARALLEL_STEPS = 256, 4
+PARALLEL_RANK_B, PARALLEL_LAYERS, PARALLEL_B_STEPS = 8, 2, 3
+PARALLEL_TOL = 1e-5             # ROADMAP: losses and grads, 1e-5 relative
+PARALLEL_TIMEOUT_S = 300        # a hung worker or barrier fails the phase
+PARALLEL_ALLREDUCE_REPS = 10
+
+
+def _params_of(state) -> dict:
+    return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+
+def _max_param_diff(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def _parallel_trainer_run(cfg, flax_params, want, launches):
+    """``Trainer.fit`` to PARALLEL_STEPS on a raw-PCM synthetic dataset,
+    every step's launches checked against ``want`` and added to
+    ``launches``; returns (final params, logged step_ms, logged losses)."""
+    audio = cfg.data.audio
+    train_ds = SyntheticAudioDataset(
+        PARALLEL_N, audio, vocab_size=cfg.model.jointnet.num_classes, min_sec=1.0,
+        max_sec=N_SAMPLES / audio.sample_rate, min_labels=4, max_labels=48, seed=SEED,
+        as_waveform=True)
+    step_fn = train_loop.train_step
+
+    def counted_step(state, batch):
+        _zero_counts()
+        metrics = step_fn(state, batch)
+        got = _counts()
+        if got != want:
+            raise AssertionError(f"parallel Trainer step {state.step}: launches {got}, "
+                                 f"expected {want}")
+        for k in KERNELS:
+            launches[k] += got[k]
+        return metrics
+
+    shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+    train_loop.train_step = counted_step
+    try:
+        trainer = train_loop.Trainer(cfg, train_ds, device=DEVICE,
+                                     state_dict=state_dict_from_flax(flax_params, cfg.model))
+        state = trainer.fit()
+        if state.step != PARALLEL_STEPS:
+            raise AssertionError(f"the parallel fit ended at step {state.step}")
+        params = _params_of(trainer.state)
+    finally:
+        train_loop.train_step = step_fn
+    logs = [json.loads(line) for line in open(os.path.join(cfg.train.checkpoint_dir,
+                                                           "metrics.jsonl"))]
+    train_logs = [r for r in logs if r.get("split") == "train"]
+    del trainer, state
+    shutil.rmtree(cfg.train.checkpoint_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return params, [r["step_ms"] for r in train_logs], [r["loss"] for r in train_logs]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _allreduce_ms(params) -> tuple:
+    """CUDA-event time of ``parallel.all_reduce_mean`` on float32 grads of
+    every param (the step's one all-reduce), and its bytes."""
+    from rnntransducer_tpu_torch.parallel import all_reduce_mean
+    grads = [torch.randn(p.shape, device=DEVICE) for p in params.values()]
+    all_reduce_mean(grads)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(PARALLEL_ALLREDUCE_REPS):
+        all_reduce_mean(grads)
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / PARALLEL_ALLREDUCE_REPS,
+            sum(g.numel() * 4 for g in grads))
+
+
+def _parallel_nccl(flax_params, launches) -> dict:
+    """Phase 9a: Trainer.fit through a one-rank NCCL process group against
+    the single-device Trainer on the same seed."""
+    from rnntransducer_tpu_torch import parallel
+    base = base_config()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, precision="bf16", per_device_train_batch_size=TRAINER_B,
+        max_steps=PARALLEL_STEPS, log_every_steps=1, seed=SEED,
+        checkpoint_dir=os.path.join(PARALLEL_DIR, "nccl"), wav_transfer_dtype="int16"))
+    want = step_launches(cfg, T_FRAMES, TRAIN_U, raw_pcm=True, device=DEVICE)
+    single_a, ms_a, loss_a = _parallel_trainer_run(cfg, flax_params, want, launches)
+    single_b, ms_b, loss_b = _parallel_trainer_run(cfg, flax_params, want, launches)
+    topology = parallel.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE,
+                                   timeout_s=PARALLEL_TIMEOUT_S)
+    try:
+        if parallel.world_size() != 1 or topology["process_count"] != 1:
+            raise AssertionError(f"process group topology {topology}")
+        grouped, ms_g, loss_g = _parallel_trainer_run(cfg, flax_params, want, launches)
+        ar_ms, ar_bytes = _allreduce_ms(grouped)
+    finally:
+        parallel.shutdown()
+    if parallel.is_initialized():
+        raise AssertionError("the process group outlived the phase")
+    spread, diff = _max_param_diff(single_a, single_b), _max_param_diff(single_a, grouped)
+    del single_a, single_b, grouped
+    torch.cuda.empty_cache()
+    print(f"parallel a: NCCL, 1 rank, bf16 raw PCM, global batch {TRAINER_B}, "
+          f"{PARALLEL_STEPS} steps: max |param diff| single vs single {spread:.3e}, "
+          f"single vs process group {diff:.3e}; logged step_ms single {ms_a} / {ms_b}, "
+          f"process group {ms_g}; losses {loss_a} / {loss_g}; all-reduce of "
+          f"{ar_bytes / 1e6:.1f} MB of float32 grads {ar_ms:.3f} ms", flush=True)
+    if diff > spread:
+        raise AssertionError(f"the process group's params differ from the single "
+                             f"device's by {diff}, more than two single-device runs "
+                             f"({spread})")
+    return {"launches_per_step": want, "max_param_diff_single_vs_single": spread,
+            "max_param_diff_single_vs_group": diff, "step_ms_single": [ms_a, ms_b],
+            "step_ms_group": ms_g, "loss_single": loss_a, "loss_group": loss_g,
+            "allreduce_ms": ar_ms, "allreduce_bytes": ar_bytes}
+
+
+def _parallel_b_config():
+    """base_config() at full width, the encoder cut to 2 layers, fp32, no
+    dropout or SpecAugment (the ranks draw other masks than one process)."""
+    base = base_config()
+    m = base.model
+    return dataclasses.replace(
+        base, model=dataclasses.replace(
+            m, transnet=dataclasses.replace(m.transnet, num_layers=PARALLEL_LAYERS,
+                                            dropout=0.0),
+            prednet=dataclasses.replace(m.prednet, dropout=0.0)),
+        data=dataclasses.replace(base.data, audio=dataclasses.replace(
+            base.data.audio, spec_augment=False)),
+        train=TrainConfig(precision="fp32", accumulate_grad_batches=1, max_steps=1000,
+                          seed=SEED))
+
+
+def _parallel_steps(cfg, sd, batch, want, zero=False):
+    """PARALLEL_B_STEPS train_steps from ``sd``; every step's launches checked.
+    Returns (losses, the first step's grads (all-reduced), final params,
+    moment bytes)."""
+    from rnntransducer_tpu_torch.parallel import moment_bytes
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, shard_optimizer_state=zero))
+    state = TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED)
+    grads = {}
+    step = state.optimizer.step
+
+    def capture():
+        if not grads:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in state.model.named_parameters()})
+        return step()
+
+    state.optimizer.step = capture
+    losses = []
+    for i in range(PARALLEL_B_STEPS):
+        _zero_counts()
+        losses.append(train_step(state, batch)["loss"].item())
+        got = _counts()
+        if got != want:
+            raise AssertionError(f"parallel b step {i}: launches {got}, expected {want}")
+    return losses, grads, _params_of(state), moment_bytes(state.optimizer)
+
+
+def parallel_worker(rank_: int, port: str, out_dir: str) -> int:
+    """One rank of phase 9b, run in a process of its own on cuda:0: the
+    replicated and the ZeRO-1 steps on this rank's rows of the global batch;
+    rank 0 saves the first step's grads and the final params."""
+    from rnntransducer_tpu_torch import parallel
+    build.build_all(KERNELS)
+    parallel.initialize(f"127.0.0.1:{port}", 2, rank_, device=DEVICE, backend="gloo",
+                        timeout_s=PARALLEL_TIMEOUT_S)
+    try:
+        cfg = _parallel_b_config()
+        sd = state_dict_from_flax(random_flax_params(
+            cfg.model, torch.Generator().manual_seed(SEED + 40)), cfg.model)
+        batch = _train_batch(cfg, 2 * PARALLEL_RANK_B, T_FRAMES, TRAIN_U)
+        local = {k: v[rank_::2] for k, v in batch.items()}
+        want = step_launches(cfg, T_FRAMES, TRAIN_U, device=DEVICE)
+        losses, grads, params, rep_bytes = _parallel_steps(cfg, sd, local, want)
+        zlosses, _, zparams, zero_bytes = _parallel_steps(cfg, sd, local, want, zero=True)
+        result = {"rank": rank_, "losses": losses, "zero_losses": zlosses,
+                  "launches_per_step": want, "moment_bytes_replicated": rep_bytes,
+                  "moment_bytes_zero": zero_bytes,
+                  "zero_vs_replicated_max_abs": _max_param_diff(params, zparams),
+                  "zero_vs_replicated_max_rel": max(
+                      (params[k] - zparams[k]).abs().max().item()
+                      / max(params[k].abs().max().item(), 1e-30) for k in params)}
+        if rank_ == 0:
+            torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
+                        "params": {k: v.cpu() for k, v in params.items()}},
+                       os.path.join(out_dir, "rank0.pt"))
+        with open(os.path.join(out_dir, f"rank{rank_}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def _parallel_gloo() -> dict:
+    """Phase 9b: two worker processes share the card over gloo; this process
+    runs their global batch alone meanwhile, then holds their losses, first
+    grads and params against its own."""
+    out_dir = os.path.join(PARALLEL_DIR, "gloo")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    worker = os.path.join(out_dir, "worker.py")
+    with open(worker, "w") as f:
+        f.write(f"import sys\nsys.path.insert(0, {REPO!r})\nimport chip_smoke\n"
+                "sys.exit(chip_smoke.parallel_worker(int(sys.argv[1]), sys.argv[2], "
+                "sys.argv[3]))\n")
+    port = str(_free_port())
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, worker, str(r), port, out_dir],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+             for r in range(2)]
+    try:
+        cfg = _parallel_b_config()
+        sd = state_dict_from_flax(random_flax_params(
+            cfg.model, torch.Generator().manual_seed(SEED + 40)), cfg.model)
+        batch = _train_batch(cfg, 2 * PARALLEL_RANK_B, T_FRAMES, TRAIN_U)
+        want_single = step_launches(cfg, T_FRAMES, TRAIN_U, device=DEVICE)
+        losses, grads, params, rep_bytes = _parallel_steps(cfg, sd, batch, want_single)
+        # the same rows as two microbatches, rank 0's then rank 1's: the
+        # ranks' arithmetic in one process (the kernels at their batch shape)
+        order = torch.cat([torch.arange(0, 2 * PARALLEL_RANK_B, 2),
+                           torch.arange(1, 2 * PARALLEL_RANK_B, 2)]).to(DEVICE)
+        acc_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, accumulate_grad_batches=2))
+        acc_losses, acc_grads, acc_params, _ = _parallel_steps(
+            acc_cfg, sd, {k: v[order] for k, v in batch.items()},
+            {k: 2 * v for k, v in want_single.items()})
+        del sd, batch
+        torch.cuda.empty_cache()
+        deadline = time.time() + PARALLEL_TIMEOUT_S
+        rcs = [p.wait(timeout=max(deadline - time.time(), 1)) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            tail = open(os.path.join(out_dir, f"rank{r}.log")).read()[-4000:]
+            raise AssertionError(f"parallel b: worker rank {r} exited {rc}:\n{tail}")
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json"))) for r in range(2)]
+    saved = torch.load(os.path.join(out_dir, "rank0.pt"))
+    loss_rel = max(abs(g - w) / abs(w) for rk in ranks for g, w in zip(rk["losses"], losses))
+    # relative in each tensor's 2-norm: the ranks sum their halves of the
+    # batch in another order than one process, and an element whose terms
+    # cancel keeps that rounding at its own (small) scale
+    grad_norm_rel = {k: ((saved["grads"][k] - grads[k].cpu()).norm()
+                         / grads[k].cpu().norm().clamp_min(1e-30)).item() for k in grads}
+    grad_elem_rel = {k: ((saved["grads"][k] - grads[k].cpu()).abs().max()
+                         / grads[k].cpu().abs().max().clamp_min(1e-30)).item()
+                     for k in grads}
+    acc_norm_rel = max(((acc_grads[k] - grads[k]).cpu().norm()
+                        / grads[k].cpu().norm().clamp_min(1e-30)).item() for k in grads)
+    grad_rel = max(grad_norm_rel.values())
+    worst = max(grad_elem_rel, key=grad_elem_rel.get)
+    param_rel = max((saved["params"][k] - params[k].cpu()).abs().max().item()
+                    / max(params[k].abs().max().item(), 1e-30) for k in params)
+    vs_acc = {"grads": _max_param_diff(saved["grads"], {k: v.cpu() for k, v in
+                                                        acc_grads.items()}),
+              "params": _max_param_diff(saved["params"], {k: v.cpu() for k, v in
+                                                          acc_params.items()}),
+              "losses": max(abs(g - w) for rk in ranks
+                            for g, w in zip(rk["losses"], acc_losses))}
+    del grads, params, acc_grads, acc_params
+    torch.cuda.empty_cache()
+    print(f"parallel b: 2 gloo ranks on one card x {PARALLEL_RANK_B} rows vs one process "
+          f"x {2 * PARALLEL_RANK_B}, fp32, {PARALLEL_LAYERS}-layer encoder, "
+          f"{PARALLEL_B_STEPS} steps: losses {ranks[0]['losses']} vs {losses} (max rel "
+          f"{loss_rel:.3e}); first step's grads: max over tensors of the 2-norm rel "
+          f"error {grad_rel:.3e} ({max(grad_norm_rel, key=grad_norm_rel.get)}), of "
+          f"the max element error over the tensor's max {grad_elem_rel[worst]:.3e} "
+          f"({worst}); the same process over the same rows as two microbatches of "
+          f"{PARALLEL_RANK_B}: 2-norm rel error {acc_norm_rel:.3e}, and the ranks against "
+          f"it: max abs diff of grads {vs_acc['grads']:.3e}, params "
+          f"{vs_acc['params']:.3e}, losses {vs_acc['losses']:.3e}; final params max "
+          f"rel {param_rel:.3e}; ZeRO-1 vs replicated params max abs "
+          f"{[rk['zero_vs_replicated_max_abs'] for rk in ranks]}; AdamW moment bytes per "
+          f"rank ZeRO {[rk['moment_bytes_zero'] for rk in ranks]} vs replicated "
+          f"{[rk['moment_bytes_replicated'] for rk in ranks]} (one process {rep_bytes}); "
+          f"launches per step per rank {ranks[0]['launches_per_step']}", flush=True)
+    # the losses hold one process at the global batch; the grads and params
+    # equal the same process's microbatches of the ranks' rows to the bit, so
+    # they hold the global batch's as closely as those microbatches do
+    if not (loss_rel <= PARALLEL_TOL and max(vs_acc.values()) == 0.0):
+        raise AssertionError(f"parallel b: the ranks differ from one process: losses "
+                             f"{loss_rel} (tolerance {PARALLEL_TOL}), grads {grad_rel} "
+                             f"(its microbatches {acc_norm_rel}), against the "
+                             f"microbatches {vs_acc}")
+    for rk in ranks:
+        if rk["zero_losses"] != rk["losses"] or rk["zero_vs_replicated_max_abs"] != 0.0:
+            raise AssertionError(f"parallel b: ZeRO-1 differs from replicated on rank "
+                                 f"{rk['rank']}: {rk}")
+        if not 0.45 <= rk["moment_bytes_zero"] / rk["moment_bytes_replicated"] <= 0.55:
+            raise AssertionError(f"parallel b: rank {rk['rank']} holds "
+                                 f"{rk['moment_bytes_zero']} moment bytes under ZeRO-1, "
+                                 f"replicated {rk['moment_bytes_replicated']}")
+    return {"ranks": 2, "rows_per_rank": PARALLEL_RANK_B, "loss_max_rel": loss_rel,
+            "first_grads_norm_rel": grad_rel,
+            "first_grads_elem_rel": grad_elem_rel[worst],
+            "microbatched_grads_norm_rel": acc_norm_rel,
+            "vs_microbatched_max_abs": vs_acc,
+            "final_params_max_rel": param_rel,
+            "losses_ranks": ranks[0]["losses"], "losses_single": losses,
+            "launches_per_step_per_rank": ranks[0]["launches_per_step"],
+            "moment_bytes_zero": [rk["moment_bytes_zero"] for rk in ranks],
+            "moment_bytes_replicated": [rk["moment_bytes_replicated"] for rk in ranks]}
+
+
+def phase_parallel(flax_params):
+    """Phase 9: the data axis on the card: (a) Trainer.fit through a
+    one-rank NCCL process group, (b) two gloo ranks sharing the card, their
+    replicated and ZeRO-1 steps.  Returns (a)'s launches (the process
+    group's run and the single-device runs it is held against) and the
+    figures."""
+    launches = dict.fromkeys(KERNELS, 0)
+    results = {"nccl": _parallel_nccl(flax_params, launches),
+               "gloo": _parallel_gloo()}
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    return launches, results
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its wall time printed (where the script's time goes)."""
     t0 = time.perf_counter()
@@ -3575,13 +3912,14 @@ def main() -> int:
                 ("server", lambda: phase_server(stream_cfg, stream_sd, shared)),
                 ("evaluate", lambda: phase_evaluate(flax_params, tokenizer)),
                 ("import", lambda: phase_import(tokenizer)),
-                ("conformer", lambda: phase_conformer(tokenizer, waves))):
+                ("conformer", lambda: phase_conformer(tokenizer, waves)),
+                ("parallel", lambda: phase_parallel(flax_params))):
             got, result = _timed(name, run)
             bare_busy[name] = result.get("device_busy_share")
             launches = {k: launches[k] + got[k] for k in KERNELS}
             print(f"{name} " + json.dumps(result, ensure_ascii=False), flush=True)
     finally:
-        for d in (TRAINER_DIR, DECODE_DIR, EVAL_DIR, IMPORT_DIR):
+        for d in (TRAINER_DIR, DECODE_DIR, EVAL_DIR, IMPORT_DIR, PARALLEL_DIR):
             shutil.rmtree(d, ignore_errors=True)
     vs_plain = _timed("step_vs_plain", phase_step_vs_plain, flax_params)
     print("step_vs_plain " + json.dumps(vs_plain), flush=True)

@@ -1,5 +1,5 @@
 """Training CLI of the port: the flags and config of the JAX package's
-``train.py``, run by the port's ``Trainer`` on one CUDA device.
+``train.py``, run by the port's ``Trainer``, one process per CUDA device.
 
 Examples:
   # smoke-train on synthetic data on the card
@@ -14,15 +14,27 @@ Examples:
   python -m rnntransducer_tpu_torch.cli.train --config configs/base.json \\
       --pl_data_dir /data/logmel --checkpoint_dir ckpts --max_steps 100000
 
-The mesh, multi-host and Pallas / XLA loss-backend flags of ``train.py``
-are accepted and raise: the port trains on one device, and its loss has
-one backend (the sweep kernel).
+  # data parallel on the 8 cards of a node: torchrun starts one process per
+  # card (each on cuda:<LOCAL_RANK>); the global batch is 8 x the per-device
+  # batch, and the ranks compute what one process computes on it
+  python -m torch.distributed.run --nproc_per_node 8 \\
+      -m rnntransducer_tpu_torch.cli.train --synthetic 4096 --max_steps 100 \\
+      --checkpoint_dir /tmp/ckpt [--shard_optimizer_state]
+
+  # or start each process by hand (2 hosts x 1 card here)
+  python -m rnntransducer_tpu_torch.cli.train --coordinator_address host0:1234 \\
+      --num_processes 2 --process_id 0 ...
+
+The tensor-parallel and Pallas / XLA loss-backend flags of ``train.py`` are
+accepted and raise: the port keeps the whole model on each device, and its
+loss has one backend (the sweep kernel).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from rnntransducer_tpu_torch.config import Config
 
@@ -51,7 +63,7 @@ def parse_args(argv=None):
     p.add_argument("--model_parallel", type=int, default=None,
                    help="tensor parallelism (not ported: raises above 1)")
     p.add_argument("--shard_optimizer_state", action="store_true", default=None,
-                   help="ZeRO-1 moments (not ported: raises)")
+                   help="ZeRO-1: split the AdamW / lion / SGD moments over the ranks")
     p.add_argument("--precision", type=str, default=None, choices=["bf16", "fp32"])
     p.add_argument("--optimizer", type=str, default=None,
                    choices=["adamw", "adafactor", "lion", "sgd"],
@@ -79,9 +91,11 @@ def parse_args(argv=None):
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd anomaly detection")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device (default cuda; raises without a card)")
+                   help="torch device (default cuda:<LOCAL_RANK>, or cuda; raises "
+                        "without a card)")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-host (not ported: raises)")
+                   help="host:port of rank 0's rendezvous (multi-process; torchrun's "
+                        "environment is read without it)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     return p.parse_args(argv)
@@ -103,10 +117,6 @@ def build_config(args) -> Config:
 
 
 def _check_flags(args) -> None:
-    if args.coordinator_address or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(
-            "multi-host training is not ported: the port trains in one process "
-            "on one device (its parallel/ package is a later slice)")
     if args.loss_backend != "auto":
         raise NotImplementedError(
             f"--loss_backend {args.loss_backend}: the port's RNN-T loss has one "
@@ -122,14 +132,31 @@ def main(argv=None):
     cfg = build_config(args)
     _check_flags(args)
 
+    from rnntransducer_tpu_torch import parallel
+    from rnntransducer_tpu_torch.train.loop import check_single_device
+    from rnntransducer_tpu_torch.utils.device import resolve_device
+
+    check_single_device(cfg)
+    device = args.device
+    if device is None and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{os.environ['LOCAL_RANK']}"
+    device = resolve_device(device)
+    topology = parallel.initialize(args.coordinator_address, args.num_processes,
+                                   args.process_id, device=device)
+    try:
+        return _run(args, cfg, device, topology)
+    finally:
+        parallel.shutdown()
+
+
+def _run(args, cfg, device, topology):
     import torch
 
     from rnntransducer_tpu_torch.data.dataset import (ArrowAudioDataset,
                                                       SyntheticAudioDataset)
     from rnntransducer_tpu_torch.train.loop import Trainer
-    from rnntransducer_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    lead = topology["process_index"] == 0
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     if args.synthetic:
@@ -160,10 +187,13 @@ def main(argv=None):
                     print(f"[eval] no shards for '{split}', skipping")
         results = trainer.test(tests)
         for name, r in results.items():
-            print(f"{name}: loss={r['loss']:.4f} wer={r['wer']:.4f} cer={r['cer']:.4f}")
+            if lead:
+                print(f"{name}: loss={r['loss']:.4f} wer={r['wer']:.4f} "
+                      f"cer={r['cer']:.4f}")
         return results
     state = trainer.fit(resume=args.resume)
-    print(f"done at step {int(state.step)}; checkpoints in {cfg.train.checkpoint_dir}")
+    print(f"rank {topology['process_index']} of {topology['process_count']}: done at "
+          f"step {int(state.step)}; checkpoints in {cfg.train.checkpoint_dir}")
     return state
 
 

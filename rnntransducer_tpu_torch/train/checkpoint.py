@@ -10,6 +10,14 @@ written by atomic replace.  Retention keeps {top k by the monitored metric}
 ∪ {the latest} ∪ {the step just saved}, so pure top-k pruning can never
 delete the training progress a resume needs.  One restore serves both
 resume (into a live TrainState) and decoding (:func:`load_decode_params`).
+
+Across the ranks of a process group every rank calls ``save`` at the same
+steps: the state is gathered there into the single-device layout (a
+ZeRO-sharded optimizer's moments, every rank's mask generator), only rank
+0 writes, keeps the ledger and prunes, and the ranks meet when the write is
+done, agreeing on whether it succeeded.  ``restore`` reads the same file on
+every rank, which takes its own slices and its own generator, so a
+checkpoint moves between widths.
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from rnntransducer_tpu_torch.config import Config
-from rnntransducer_tpu_torch.train.state import TrainState
+from rnntransducer_tpu_torch.parallel.distributed import (host_all_gather,
+                                                          host_all_reduce, rank)
+from rnntransducer_tpu_torch.train.state import TrainState, rank_seed
 
 _STATE_FILE = "state.pt"
 
@@ -41,14 +51,17 @@ def _to_host(obj):
 
 
 def state_payload(state: TrainState) -> dict:
-    """Everything a resume needs, on the host."""
+    """Everything a resume needs, on the host, in the single-device layout;
+    'generator' lists every rank's mask generator state, in rank order.  A
+    collective across a process group: every rank calls it."""
     return _to_host({
         "params": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "step": int(state.step),
         "updates": int(state.updates),
         "ema": state.ema,
-        "generator": state.generator.get_state(),
+        "generator": host_all_gather(state.generator.get_state()),
+        "noise_generator": state.noise_generator.get_state(),
         "config": state.cfg.to_dict(),
     })
 
@@ -58,7 +71,8 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.monitor = monitor
         self.save_top_k = save_top_k
-        # (step, metrics, writer thread) of a save still being written
+        # (step, metrics, writer thread) of a save still being written; no
+        # thread on the ranks that do not write
         self._pending: List[Tuple[int, dict, threading.Thread]] = []
         self._error: Optional[BaseException] = None
 
@@ -124,12 +138,17 @@ class CheckpointManager:
         after the file is in place, so it never names a step that is not on
         disk."""
         self.wait()  # at most one save in flight
+        payload = state_payload(state)
+        if rank() != 0:
+            self._pending.append((int(step), metrics or {}, None))
+            if wait:
+                self.wait()
+            return
         os.makedirs(self.directory, exist_ok=True)
         if config is not None:
             cfg_path = os.path.join(self.directory, "config.json")
             if not os.path.exists(cfg_path):
                 config.to_json(cfg_path)
-        payload = state_payload(state)
 
         def write():
             try:
@@ -145,10 +164,25 @@ class CheckpointManager:
 
     def wait(self):
         """Block until a save in flight is on disk, then write its ledger
-        entry and prune.  No-op when nothing is pending."""
+        entry and prune (rank 0), and meet the other ranks.  No-op when
+        nothing is pending."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
+        err = None
+        if rank() == 0:
+            try:
+                self._finish(pending)
+            except BaseException as e:  # raised below, after the ranks meet
+                err = e
+        # the barrier: every rank learns whether rank 0's write succeeded
+        if host_all_reduce([float(err is not None)], "max")[0] and err is None:
+            err = RuntimeError(f"rank 0 failed to write the checkpoint of step "
+                               f"{pending[-1][0]} in {self.directory}")
+        if err is not None:
+            raise err
+
+    def _finish(self, pending) -> None:
         for _, _, thread in pending:
             thread.join()
         if self._error is not None:
@@ -177,7 +211,9 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Load ``step`` (default the latest) into ``state`` in place: params,
-        optimizer state, step and update counts, EMA shadow, generator."""
+        optimizer state (this rank's slices of a sharded one), step and
+        update counts, EMA shadow, generators.  A rank the checkpoint saved
+        no mask generator for (a run resumed on more ranks) seeds its own."""
         dev = next(state.model.parameters()).device
         payload = self.load(step, map_location=dev)
         state.model.load_state_dict(payload["params"])
@@ -186,7 +222,16 @@ class CheckpointManager:
         state.updates = int(payload["updates"])
         if payload["ema"] is not None:
             state.ema = {k: v.to(dev) for k, v in payload["ema"].items()}
-        state.generator.set_state(payload["generator"].cpu())
+        if "noise_generator" in payload:
+            state.noise_generator.set_state(payload["noise_generator"].cpu())
+        masks = payload["generator"]
+        masks = masks if isinstance(masks, list) else [masks]
+        r = rank()
+        if r < len(masks):
+            state.generator.set_state(masks[r].cpu())
+        else:
+            state.generator.manual_seed(
+                rank_seed(state.noise_generator.initial_seed(), r))
         return state
 
     def best_step(self) -> Optional[int]:

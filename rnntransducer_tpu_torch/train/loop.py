@@ -1,4 +1,5 @@
-"""The trainer (port of ``rnntransducer_tpu/train/loop.py``, without a mesh).
+"""The trainer (port of ``rnntransducer_tpu/train/loop.py``; its mesh is the
+data axis alone).
 
 * epoch loop over length-bucketed batches (``LengthBucketSampler``), rows
   fetched on reader threads ahead of the step (``ordered_readahead``),
@@ -13,8 +14,15 @@
   continues the deterministic data schedule exactly where the run stopped;
 * SIGTERM checkpoints the current step and ends ``fit`` cleanly.
 
-Single process, single device: the JAX package's mesh options (tensor,
-pipeline and sequence parallelism, ZeRO-sharded moments) raise here.
+Data parallel across the ranks of a process group (``parallel/``), one
+device each, as the JAX package's ``data`` mesh axis: every rank walks the
+same global batch sequence and takes its rows ``idxs[rank::world]``; the
+label bucket comes from the global batch, so every rank runs the same
+shapes; ``train_step`` all-reduces the grads once per step; validation
+decodes each rank's rows and sums the counts over the ranks; only rank 0
+writes logs and checkpoints; a SIGTERM on any rank stops every rank at the
+same step.  The JAX package's other mesh axes (tensor, pipeline and
+sequence parallelism) raise here.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from rnntransducer_tpu_torch.data.prefetch import (DevicePrefetcher,
                                                    ordered_readahead, to_device)
 from rnntransducer_tpu_torch.decode.beam_batched import batched_beam_decode
 from rnntransducer_tpu_torch.decode.greedy import greedy_decode
+from rnntransducer_tpu_torch.parallel import distributed
+from rnntransducer_tpu_torch.parallel.mesh import broadcast_state, local_rows
 from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer
 from rnntransducer_tpu_torch.train.checkpoint import CheckpointManager
 from rnntransducer_tpu_torch.train.metrics import error_counts
@@ -45,17 +55,18 @@ from rnntransducer_tpu_torch.utils.profiling import trace
 
 
 def check_single_device(cfg: Config) -> None:
-    """Raise for the JAX package's mesh options, which the port lacks."""
+    """Raise for the JAX package's mesh axes other than ``data``, which the
+    port lacks."""
     t = cfg.train
-    for name, value, off in (("model_parallel", t.model_parallel, 1),
-                             ("pipeline_stages", t.pipeline_stages, 1),
-                             ("sequence_parallel", t.sequence_parallel, 1),
-                             ("shard_optimizer_state", t.shard_optimizer_state, False)):
-        if value != off:
+    for name, value in (("model_parallel", t.model_parallel),
+                        ("pipeline_stages", t.pipeline_stages),
+                        ("sequence_parallel", t.sequence_parallel)):
+        if value != 1:
             raise NotImplementedError(
-                f"train.{name}={value!r}: the port trains on one device; its "
-                "parallel/ package (tensor, pipeline and sequence parallelism, "
-                "sharded optimizer state) is not ported yet")
+                f"train.{name}={value!r}: the port keeps the whole model on one "
+                "device per process; its parallel/ package has the data axis "
+                "(and ZeRO-1 optimizer state), not tensor, pipeline or sequence "
+                "parallelism")
 
 
 class Trainer:
@@ -72,10 +83,15 @@ class Trainer:
             GraphemeTokenizer.from_file(cfg.vocab_path) if cfg.vocab_path
             else GraphemeTokenizer.default(cfg.model.jointnet.num_classes))
         self.device = resolve_device(device)
-        self.logger = MetricsLogger(log_dir or cfg.train.checkpoint_dir)
+        # this process's place on the data axis (0 of 1 without a process group)
+        self.rank, self.world = distributed.rank(), distributed.world_size()
+        lead = self.rank == 0
+        self.logger = MetricsLogger((log_dir or cfg.train.checkpoint_dir) if lead else None,
+                                    stdout=lead)
         self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
                                       save_top_k=cfg.train.save_top_k)
         self.state = TrainState.create(cfg, self.device, state_dict=state_dict)
+        broadcast_state(self.state)
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
         self.profile = None          # the last profiled window's profiler
@@ -93,7 +109,7 @@ class Trainer:
 
     # ------------------------------------------------------------- batching
     def _global_batch(self) -> int:
-        return (self.cfg.train.per_device_train_batch_size
+        return (self.cfg.train.per_device_train_batch_size * self.world
                 * self.cfg.train.accumulate_grad_batches)
 
     def _label_bucket_for(self, max_label_len: int) -> int:
@@ -132,8 +148,12 @@ class Trainer:
     def _host_batches(self, dataset, epoch: int, batch_size: int,
                       shuffle: bool = True, with_counts: bool = False, skip: int = 0):
         """Collated host batches of ``epoch``'s schedule, the first ``skip``
-        left out (the batches a resumed run already trained).  Runs on the
-        prefetch thread: reads nothing of the train state."""
+        left out (the batches a resumed run already trained): this rank's
+        rows of each global batch of ``batch_size``, padded to the label
+        bucket of the global batch's longest label; ``with_counts`` yields
+        the number of this rank's rows that are not wrap-padding beside
+        each.  Runs on the prefetch thread: reads nothing of the train state
+        and makes no collective call."""
         label_lens = (dataset.label_lengths() if hasattr(dataset, "label_lengths")
                       else None)
         sampler = self._sampler(dataset, batch_size, shuffle)
@@ -147,8 +167,14 @@ class Trainer:
                             count=sampler.last_label_dropped,
                             max_labels=self.cfg.data.label_buckets[-1])
         get_batch = getattr(dataset, "get_batch", None)
+        r, world = self.rank, self.world
+        # without label lengths the global batch's longest label is read
+        # from its rows: every rank fetches them all
+        fetch_all = label_lens is None and world > 1
 
         def fetch_thunk(idxs):
+            idxs = idxs if fetch_all else local_rows(idxs, r, world)
+
             def fetch():
                 t0 = time.perf_counter()
                 items = (get_batch(idxs) if get_batch is not None
@@ -165,6 +191,8 @@ class Trainer:
                 max_u = int(max(label_lens[i] for i in idxs))
             else:
                 max_u = max(len(it["labels"]) for it in items)
+            if fetch_all:
+                items = items[r::world]
             label_bucket = self._label_bucket_for(max_u)
             if max_u > label_bucket:
                 raise ValueError(
@@ -186,7 +214,8 @@ class Trainer:
                                 max_labels=label_bucket,
                                 pad_id=self.cfg.data.text.pad_token_id)
             self.feed_s.append(fetch_s + time.perf_counter() - t0)
-            yield (batch, n_valid) if with_counts else batch
+            # global position of local row j: r + j * world
+            yield (batch, len(range(r, n_valid, world))) if with_counts else batch
 
     # ----------------------------------------------------------------- fit
     def fit(self, resume: bool = False) -> TrainState:
@@ -194,6 +223,7 @@ class Trainer:
         if resume and self.ckpt.latest_step() is not None:
             t0 = time.perf_counter()
             self.ckpt.restore(self.state)
+            broadcast_state(self.state)
             self.restore_s.append(time.perf_counter() - t0)
             self.logger.log(self.state.step, event="resumed")
         # the host counts steps: reading the state's step back every step
@@ -205,24 +235,37 @@ class Trainer:
         profiling = False
         last_log_t, last_log_step, last_feed = time.perf_counter(), step, len(self.feed_s)
         self._install_preemption_handler()
-        while step < cfg.train.max_steps and not self._preempted:
+        lead = self.rank == 0
+        # the agreed flag, not self._preempted: a signal may land on one rank
+        # between two agreements, and every rank must take the same branches
+        preempted = False
+        while step < cfg.train.max_steps and not preempted:
+            preempted = self._agree_preempted()
+            if preempted:
+                break
             batches = DevicePrefetcher(
                 self._host_batches(self.train_ds, epoch, self._global_batch(), skip=skip),
                 device=self.device)
             skip = 0  # only the resumed epoch skips
             made_progress = False
             for batch in batches:
-                if step >= cfg.train.max_steps or self._preempted:
+                if step >= cfg.train.max_steps:
                     batches.close()  # release the worker and its queued batches
                     break
+                preempted = self._agree_preempted()
+                if preempted:
+                    batches.close()
+                    break
                 made_progress = True
-                if (self.profile_dir and not profiling
+                if (self.profile_dir and lead and not profiling
                         and self.profile_steps[0] <= step < self.profile_steps[1]):
                     self._sync()
                     self.profile = profile.enter_context(trace(self.profile_dir))
                     profile_t0 = time.perf_counter()
                     profiling = True
-                if cfg.train.watch_every_steps and step % cfg.train.watch_every_steps == 0:
+                if (lead and cfg.train.watch_every_steps
+                        and step % cfg.train.watch_every_steps == 0):
+                    # rank 0's rows: the histograms are logged, never reduced
                     hists = watch_step(self.state, batch)
                     self.logger.log_histograms(step, {
                         g: {n: (c.cpu().numpy(), e.cpu().numpy())
@@ -230,7 +273,7 @@ class Trainer:
                 metrics = train_step(self.state, batch)
                 step += 1
                 self._host_step = step
-                if step % cfg.train.log_every_steps == 0 or step == 1:
+                if lead and (step % cfg.train.log_every_steps == 0 or step == 1):
                     # the loss read syncs the queue; the steps in between ran
                     # without a host sync, so a step's time is the wall time
                     # since the last log over the steps in it
@@ -260,19 +303,19 @@ class Trainer:
                     # the state is copied to the host before save returns;
                     # the file is written while training goes on
                     self._save(step, val, wait=False)
-            if not made_progress and not self._preempted:
+            if not made_progress and not preempted:
                 raise RuntimeError(
                     "training epoch produced no batches: dataset empty or every "
                     "utterance exceeds the largest audio bucket "
                     f"({cfg.data.audio_buckets[-1]} frames)")
             epoch += 1
         profile.close()
-        if self._preempted:
+        if preempted:
             self.logger.log(step, event="preempted", signal=self._preempted)
         # the final save, unless validation just saved this step; on
         # preemption without validation, to beat the kill's grace period
         if self.ckpt.latest_step() != step:
-            val = ({} if self._preempted else
+            val = ({} if preempted else
                    self.validate() if self.val_ds is not None else {})
             self._save(step, val, wait=True)
         self.ckpt.wait()
@@ -309,6 +352,23 @@ class Trainer:
         except (ValueError, OSError):
             pass
 
+    def _agree_preempted(self) -> bool:
+        """Whether any rank has been preempted: the signal numbers
+        all-reduced with MAX on the host, so every rank stops, and saves, at
+        the same step (a rank stopping alone would hang the others in their
+        next all-reduce).  The agreed value is returned, never the local
+        flag, which a signal may set on one rank after its number was
+        sent."""
+        import signal
+
+        if not distributed.is_initialized():
+            return bool(self._preempted)
+        mine = signal.Signals[self._preempted].value if self._preempted else 0
+        agreed = int(distributed.host_all_reduce([mine], "max")[0])
+        if agreed and not self._preempted:
+            self._preempted = signal.Signals(agreed).name
+        return bool(agreed)
+
     def _remove_preemption_handler(self):
         import signal
 
@@ -344,7 +404,8 @@ class Trainer:
         preds, refs = [], []
         n = 0
         for batch, n_valid in self._host_batches(
-                dataset, epoch=0, batch_size=cfg.train.per_device_eval_batch_size,
+                dataset, epoch=0,
+                batch_size=cfg.train.per_device_eval_batch_size * self.world,
                 shuffle=False, with_counts=True):
             dev = to_device(batch, self.device)
             if "feats" not in dev:
@@ -379,7 +440,9 @@ class Trainer:
             n += 1
             if max_batches is not None and n >= max_batches:
                 break
-        we, wt, ce, ct = error_counts(preds, refs)
+        # corpus-level: the sufficient statistics summed over the ranks
+        loss_sum, loss_n, we, wt, ce, ct = distributed.host_all_reduce(
+            [loss_sum, loss_n, *error_counts(preds, refs)]).tolist()
         return {"loss": loss_sum / loss_n if loss_n else float("nan"),
                 "wer": we / max(wt, 1), "cer": ce / max(ct, 1)}
 

@@ -19,6 +19,13 @@ here with optax's semantics as the JAX package configures them
 multiply_by_parameter_scale=False, weight_decay_rate=wd or None)``,
 ``optax.lion(b1=0.9, b2=0.99, weight_decay=wd)``); ``torch.optim.Adafactor``
 has other defaults and another weight decay.
+
+``ShardedOptimizer`` is ZeRO-1 across the ranks of a process group
+(``train.shard_optimizer_state``): each rank keeps its slice of every
+moment that ``parallel.mesh.zero_split_dims`` splits, updates that slice of
+the param with the same optimizer, and the ranks all-gather the params.
+Every update above is elementwise, so the sliced step computes the
+replicated step's values bit for bit.
 """
 
 from __future__ import annotations
@@ -224,6 +231,131 @@ def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Opt
         return Lion(params, weight_decay=cfg.weight_decay)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
                      "(adamw | adafactor | lion | sgd)")
+
+
+class ShardedOptimizer:
+    """ZeRO-1 over the ranks of the process group: ``make(tensors)`` builds
+    the optimizer over this rank's slice of each param whose entry of
+    ``dims`` names a dim (rank r holds the r-th of ``world`` equal slices
+    along it) and over the whole of every other param.  ``step`` reads the
+    grads from the params' ``.grad`` (the full, all-reduced grads), updates
+    the slices and all-gathers the params.  ``state_dict`` gathers the
+    moments into the single-device layout (a collective: every rank calls it
+    in lockstep) and ``load_state_dict`` takes this rank's slices of one, so
+    a checkpoint moves between widths."""
+
+    def __init__(self, make: Callable[[list], torch.optim.Optimizer],
+                 params: Sequence[torch.nn.Parameter], dims: Sequence[Optional[int]]):
+        from rnntransducer_tpu_torch.parallel.distributed import rank, world_size
+
+        r, w = rank(), world_size()
+        self.params = list(params)
+        self.dims = list(dims)
+        self._slices = [None if d is None else (d, r * (p.shape[d] // w), p.shape[d] // w)
+                        for p, d in zip(self.params, self.dims)]
+        self.shards = [p if sl is None else p.detach().narrow(*sl).clone()
+                       for p, sl in zip(self.params, self._slices)]
+        self.inner = make(self.shards)
+        self._split = [i for i, sl in enumerate(self._slices) if sl is not None]
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        """This rank's state, keyed by the tensors it updates."""
+        return self.inner.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        from rnntransducer_tpu_torch.parallel.mesh import all_gather_shards
+
+        for i in self._split:
+            p, s, sl = self.params[i], self.shards[i], self._slices[i]
+            s.copy_(p.narrow(*sl))  # the param may have been loaded or broadcast
+            s.grad = None if p.grad is None else p.grad.narrow(*sl).contiguous()
+        self.inner.step()
+        all_gather_shards([self.params[i] for i in self._split],
+                          [self.shards[i] for i in self._split],
+                          [self.dims[i] for i in self._split])
+
+    @staticmethod
+    def _sliced_keys(st: dict, shape) -> List[str]:
+        """The entries of a param's state shaped like ``shape`` (its moments;
+        not the scalar step count)."""
+        return sorted(k for k, v in st.items()
+                      if isinstance(v, torch.Tensor) and tuple(v.shape) == tuple(shape)
+                      and v.dim() > 0)
+
+    def state_dict(self) -> dict:
+        from rnntransducer_tpu_torch.parallel.mesh import all_gather_shards
+
+        sd = self.inner.state_dict()
+        fulls, shards, dims = [], [], []
+        for i in self._split:
+            if not sd["state"].get(i):
+                continue
+            # a copy: the packed state holds the live per-param dicts
+            st = sd["state"][i] = dict(sd["state"][i])
+            for k in self._sliced_keys(st, self.shards[i].shape):
+                full = torch.empty_like(self.params[i], dtype=st[k].dtype)
+                fulls.append(full)
+                shards.append(st[k])
+                dims.append(self.dims[i])
+                st[k] = full
+        all_gather_shards(fulls, shards, dims)
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        state = {}
+        for i, st in sd["state"].items():
+            st = dict(st)
+            i = int(i)
+            if self._slices[i] is not None:
+                for k in self._sliced_keys(st, self.params[i].shape):
+                    st[k] = st[k].narrow(*self._slices[i]).clone()
+            state[i] = st
+        self.inner.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
+
+
+def make_train_optimizer(cfg, model_cfg, named_params: Sequence[Tuple[str, torch.nn.Parameter]]):
+    """The optimizer of ``cfg`` (a TrainConfig) over ``named_params``:
+    ZeRO-1 sharded when ``cfg.shard_optimizer_state`` and the process group
+    has more than one rank and some moment splits (adafactor's never do);
+    otherwise replicated, as on a one-device JAX mesh."""
+    from rnntransducer_tpu_torch.parallel.distributed import world_size
+    from rnntransducer_tpu_torch.parallel.mesh import zero_split_dims
+
+    names = [n for n, _ in named_params]
+    params = [p for _, p in named_params]
+    world = world_size()
+    if cfg.shard_optimizer_state and world > 1:
+        plan = zero_split_dims(model_cfg, dict(named_params), world,
+                               getattr(cfg, "optimizer", "adamw"))
+        dims = [plan[n] for n in names]
+        if any(d is not None for d in dims):
+            return ShardedOptimizer(lambda ts: make_optimizer(cfg, ts), params, dims)
+    return make_optimizer(cfg, params)
+
+
+def replicated_state_tensors(optimizer) -> List[torch.Tensor]:
+    """The optimizer state tensors every rank holds whole, in param order:
+    all of a replicated optimizer's, and a sharded one's of unsplit params."""
+    if isinstance(optimizer, ShardedOptimizer):
+        keys = [s for s, sl in zip(optimizer.shards, optimizer._slices) if sl is None]
+    else:
+        keys = [p for group in optimizer.param_groups for p in group["params"]]
+    out = []
+    for p in keys:
+        st = optimizer.state.get(p, {})
+        out += [st[k] for k in sorted(st) if isinstance(st[k], torch.Tensor)]
+    return out
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

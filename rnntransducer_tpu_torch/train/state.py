@@ -9,8 +9,15 @@
 * Gradient accumulation over contiguous microbatches, float32 grads.
 * The batch holds precomputed features, or raw PCM (float32, or int16 plus
   a per-utterance scale) that :func:`device_frontend` turns into log-mel
-  features on the device; SpecAugment, weight noise and dropout draw from
-  the state's ``torch.Generator``.
+  features on the device.  SpecAugment and dropout draw from the state's
+  ``generator``, seeded with the seed folded with the rank, so each rank
+  masks its own rows with its own masks; weight noise draws from
+  ``noise_generator``, seeded with the seed alone, so every rank perturbs
+  the replicated params alike, as the JAX package's single draw does.
+* Across the ranks of a process group (``parallel/``) each rank holds its
+  share of the global batch; the summed microbatch grads and the loss are
+  all-reduced once per step, before the global norm, so the clip, the
+  non-finite skip and the EMA see the same values on every rank.
 * The default (factored) joint+loss path never builds the (B, T, U+1, V)
   lattice; ``combine="add"`` takes the fused per-chunk path and
   ``joint_chunk_frames=0`` the full lattice, as in the JAX package.
@@ -29,8 +36,10 @@ from rnntransducer_tpu_torch.frontend.specaugment import spec_augment
 from rnntransducer_tpu_torch.models.transducer import RNNTransducer, build_model
 from rnntransducer_tpu_torch.ops.rnnt_loss import (rnnt_loss, rnnt_loss_factored,
                                                    rnnt_loss_fused)
+from rnntransducer_tpu_torch.parallel.distributed import rank
+from rnntransducer_tpu_torch.parallel.mesh import all_reduce_mean
 from rnntransducer_tpu_torch.train.optim import (clip_by_global_norm, global_norm,
-                                                 make_optimizer, make_schedule)
+                                                 make_schedule, make_train_optimizer)
 from rnntransducer_tpu_torch.utils.device import resolve_device
 from rnntransducer_tpu_torch.utils.precision import train_compute_dtype
 
@@ -52,10 +61,17 @@ def with_params(model: nn.Module, params: Mapping[str, torch.Tensor],
         _Bound(model), {"m." + k: v for k, v in params.items()}, (fn,) + args)
 
 
+def rank_seed(seed: int, rank_: int) -> int:
+    """The mask stream's seed of ``rank_``: ``seed`` itself on rank 0, so a
+    single process draws the masks it always drew."""
+    return (seed + rank_ * 0x9E3779B97F4A7C15) % 2 ** 63
+
+
 class TrainState:
     """step; the model holding the float32 master params; the optimizer and
-    its lr schedule; the generator of SpecAugment / dropout / weight noise;
-    the EMA shadow of the params (``cfg.train.ema_decay > 0``, else None).
+    its lr schedule; the generators of SpecAugment / dropout (per rank) and
+    of weight noise (shared); the EMA shadow of the params
+    (``cfg.train.ema_decay > 0``, else None).
 
     ``updates`` counts the optimizer updates actually applied: a step skipped
     for non-finite grads advances ``step`` but neither ``updates`` nor the
@@ -64,12 +80,14 @@ class TrainState:
 
     def __init__(self, cfg: Config, model: RNNTransducer,
                  optimizer: torch.optim.Optimizer, generator: torch.Generator,
+                 noise_generator: torch.Generator,
                  ema: Optional[Dict[str, torch.Tensor]] = None):
         self.cfg = cfg
         self.model = model
         self.optimizer = optimizer
         self.schedule = make_schedule(cfg.train)
         self.generator = generator
+        self.noise_generator = noise_generator
         self.ema = ema
         self.step = 0
         self.updates = 0
@@ -80,16 +98,20 @@ class TrainState:
                seed: Optional[int] = None) -> "TrainState":
         """A fresh state on ``device`` (default CUDA; raises when CUDA is
         absent and no device is named).  Weights from ``state_dict``, else
-        random from seed 0; the generator is seeded with ``seed``, else
-        ``cfg.train.seed``."""
+        random from seed 0; the generators are seeded from ``seed``, else
+        ``cfg.train.seed`` (the mask stream folded with this process's
+        rank).  The optimizer is ZeRO-1 sharded over the process group's
+        ranks under ``cfg.train.shard_optimizer_state``."""
         device = resolve_device(device)
         model = build_model(cfg, device, state_dict, trainable=True)
-        optimizer = make_optimizer(cfg.train, model.parameters())
-        generator = torch.Generator(device=device).manual_seed(
-            cfg.train.seed if seed is None else seed)
+        optimizer = make_train_optimizer(cfg.train, cfg.model,
+                                         list(model.named_parameters()))
+        seed = cfg.train.seed if seed is None else seed
+        generator = torch.Generator(device=device).manual_seed(rank_seed(seed, rank()))
+        noise_generator = torch.Generator(device=device).manual_seed(seed)
         ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
                if cfg.train.ema_decay > 0 else None)
-        return cls(cfg, model, optimizer, generator, ema)
+        return cls(cfg, model, optimizer, generator, noise_generator, ema)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -116,13 +138,14 @@ def device_frontend(audio_cfg: AudioConfig, wav: torch.Tensor,
 
 def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor],
             batch: Mapping[str, torch.Tensor], generator: Optional[torch.Generator],
-            deterministic: bool, reduction: str = "mean") -> torch.Tensor:
+            deterministic: bool, reduction: str = "mean",
+            noise_generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """RNN-T loss of ``batch`` ('feats' (B, T, M) and 'feat_lengths', or raw
     PCM 'wav' (B, S) with 'wav_lengths' and, for int16, 'wav_scale'; plus
     'text_in' (B, U+1), 'text_lengths', 'targets' (B, U), 'target_lengths')
     under ``params`` (name -> float32 master).  ``deterministic=False``
     applies SpecAugment, weight noise and dropout, drawing from
-    ``generator``."""
+    ``generator`` (weight noise from ``noise_generator`` where given)."""
     dtype = train_compute_dtype(cfg.train.precision)
     audio = cfg.data.audio
     if "feats" in batch:
@@ -141,8 +164,9 @@ def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor
     if not deterministic and std > 0:
         # variational weight noise (Graves 2012): fresh noise on every float
         # param per microbatch; grads are taken at the noisy point
+        noise = generator if noise_generator is None else noise_generator
         p = {k: v + std * torch.randn(v.shape, dtype=v.dtype, device=v.device,
-                                      generator=generator)
+                                      generator=noise)
              if v.is_floating_point() else v for k, v in p.items()}
     gen = None if deterministic else generator
     feats = feats.to(dtype)
@@ -184,9 +208,9 @@ def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
     """One optimizer step over ``cfg.train.accumulate_grad_batches``
-    contiguous microbatches of ``batch``, updating ``state`` in place.
-    Returns {'loss', 'grad_norm' (before clipping), 'nonfinite_grad'} as
-    device tensors."""
+    contiguous microbatches of ``batch`` (this rank's rows of the global
+    batch), updating ``state`` in place.  Returns {'loss' (the global mean),
+    'grad_norm' (before clipping), 'nonfinite_grad'} as device tensors."""
     cfg = state.cfg
     accum = max(cfg.train.accumulate_grad_batches, 1)
     names, masters = zip(*state.model.named_parameters())
@@ -198,13 +222,16 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]
     for i in range(accum):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         loss_i = loss_fn(state.model, cfg, params, part, state.generator,
-                         deterministic=False)
+                         deterministic=False, noise_generator=state.noise_generator)
         g_i = [g.float() for g in torch.autograd.grad(loss_i, masters)]
         grads = g_i if grads is None else [a + b for a, b in zip(grads, g_i)]
         loss = loss + loss_i.detach().float()
     if accum > 1:
         loss = loss / accum
         grads = [g / accum for g in grads]
+    # the one all-reduce of the step (a no-op without a process group)
+    *grads, loss = all_reduce_mean(grads + [loss.reshape(1)])
+    loss = loss[0]
 
     grad_norm = global_norm(grads)
     nonfinite = ~torch.isfinite(grad_norm)

@@ -219,13 +219,16 @@ def test_fit_no_double_save_when_max_steps_hits_val_interval(tmp_path):
 
 
 def test_beam_validation_and_mesh_options_raise(tmp_path):
-    """The mesh options are not ported: they raise instead of running
-    something else.  Beam validation decoding is ported and no longer
-    raises."""
+    """The mesh axes other than data are not ported: they raise instead of
+    running something else.  Beam validation decoding is ported and no
+    longer raises; ZeRO-1 is ported, and in one process it is a no-op (the
+    replicated optimizer), as on a one-device JAX mesh."""
     trainer = Trainer(_cfg(tmp_path, val_decoder="beam"), _ds(2), device="cpu")
     assert trainer.cfg.train.val_decoder == "beam"
-    for kw in (dict(model_parallel=2), dict(shard_optimizer_state=True),
-               dict(pipeline_stages=2), dict(sequence_parallel=2)):
+    zero = Trainer(_cfg(tmp_path, shard_optimizer_state=True), _ds(2), device="cpu")
+    assert type(zero.state.optimizer) is torch.optim.AdamW
+    for kw in (dict(model_parallel=2), dict(pipeline_stages=2),
+               dict(sequence_parallel=2)):
         with pytest.raises(NotImplementedError, match="one device"):
             Trainer(_cfg(tmp_path, **kw), _ds(2), device="cpu")
 
@@ -384,9 +387,9 @@ def test_cli_trains_on_synthetic_data_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags, match", [
     (["--model_parallel", "2"], "one device"),
-    (["--shard_optimizer_state"], "one device"),
+    (["--model_parallel", "2", "--shard_optimizer_state"], "one device"),
     (["--loss_backend", "xla"], "one backend"),
-    (["--coordinator_address", "localhost:1234"], "multi-host"),
+    (["--loss_backend", "pallas"], "one backend"),
     (["--hf_data_dirs", "raw"], "not ported yet"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
