@@ -145,10 +145,31 @@ Phases (each raises, and the script exits non-zero, on failure):
       lanes; in bf16 ``StreamingRecognizer`` RTF and first-token latency
       (greedy, beam 4, 64-frame chunks, 100 ms feeds) and ticks of the
       batched runner at 8 and 64 lanes, each under its chunk's 640 ms.
-9. One fp32 step at full width (B=8: the plain backward scans are Python
-   loops of small launches), kernels against plain versions (GRU, LSTM and
-   the sweep): loss and the grads of named params.
-10. Print one JSON line describing every kernel, then, as the last line,
+9. The data axis (``phase_parallel``): ``Trainer.fit`` through a one-rank
+   NCCL process group against the single device, and two gloo ranks
+   sharing the card, replicated and ZeRO-1.
+10. From a corpus to a trained model (``phase_corpus``), on
+    ``base_config()`` at full width in bf16, every step's launches checked:
+    a corpus of the ``ConfusableWaveformDataset`` testbed (128 train, 16
+    dev, 16 eval_clean utterances; WAVs written with ``write_wav``, each
+    scaled down by its peak where it would clip; transcripts the
+    tokenizer's decode of the labels) through ``cli.prepare_manifest``
+    (ids equal the labels, PCM equals ``read_wav`` of the file), then
+    ``cli.train.main`` in-process with ``--hf_data_dirs``: log-mel shards
+    equal to ``logmel_np`` of the raw rows, ledger and ``_PREPARED``
+    written, 4 steps at global batch 64 (16 K1, 32 K2, 2 K3, 4 K4, 1 K5,
+    0 K6 a step), validation at step 4; a second run with ``--eval_only``
+    prepares nothing (the marker holds) and scores eval_clean; the same
+    corpus through ``save_waveform_dataset`` and ``Trainer.fit`` on
+    ``ArrowWaveformDataset``, 2 steps (plus 1 K6 a step); on one batch of
+    it ``checked_rnnt_loss`` (K5 launched) against the plain loss on CPU
+    copies of the batch, and a label id of V caught.  Host preparation
+    times per 100 utterances and median step times (the steps after the
+    first) are printed beside the card's name and power limit.
+11. One fp32 step at full width (B=8: the plain backward scans are Python
+    loops of small launches), kernels against plain versions (GRU, LSTM and
+    the sweep): loss and the grads of named params.
+12. Print one JSON line describing every kernel, then, as the last line,
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -174,7 +195,13 @@ sys.path.insert(0, REPO)
 
 from rnntransducer_tpu_torch.config import (  # noqa: E402
     TrainConfig, base_config, tiny_config)
-from rnntransducer_tpu_torch.data.dataset import SyntheticAudioDataset  # noqa: E402
+from rnntransducer_tpu_torch.cli import prepare_manifest  # noqa: E402
+from rnntransducer_tpu_torch.cli import train as cli_train  # noqa: E402
+from rnntransducer_tpu_torch.data import dataset as data_mod  # noqa: E402
+from rnntransducer_tpu_torch.data.collate import collate_waveforms  # noqa: E402
+from rnntransducer_tpu_torch.data.dataset import (  # noqa: E402
+    ArrowAudioDataset, ArrowWaveformDataset, ConfusableWaveformDataset,
+    SyntheticAudioDataset, load_shards, logmel_np, read_ledger, save_waveform_dataset)
 from rnntransducer_tpu_torch.decode import greedy as greedy_mod  # noqa: E402
 from rnntransducer_tpu_torch.decode.device_lm import DeviceCharLM  # noqa: E402
 from rnntransducer_tpu_torch.frontend import fused_frontend  # noqa: E402
@@ -187,6 +214,10 @@ from rnntransducer_tpu_torch.train import TrainState, loss_fn, train_step  # noq
 from rnntransducer_tpu_torch.train import loop as train_loop  # noqa: E402
 from rnntransducer_tpu_torch.train.state import (  # noqa: E402
     dequantize_wav, device_frontend)
+from rnntransducer_tpu_torch.ops.rnnt_loss import rnnt_loss  # noqa: E402
+from rnntransducer_tpu_torch.data.prefetch import to_device  # noqa: E402
+from rnntransducer_tpu_torch.utils.audio_io import read_wav, write_wav  # noqa: E402
+from rnntransducer_tpu_torch.utils.debugging import checked_rnnt_loss  # noqa: E402
 from rnntransducer_tpu_torch.utils.weights import (  # noqa: E402
     random_flax_params, state_dict_from_flax)
 
@@ -3838,6 +3869,272 @@ def phase_parallel(flax_params):
     return launches, results
 
 
+CORPUS_DIR = os.path.join(REPO, "build", "corpus")
+CORPUS_SPLITS = (("train", 128), ("dev", 16), ("eval_clean", 16))
+CORPUS_B, CORPUS_EVAL_B = 64, 16
+CORPUS_STEPS, CORPUS_WAVE_STEPS = 4, 2
+CORPUS_LOSS_TOL = 1e-5      # checked_rnnt_loss on the card vs the plain loss on the CPU
+
+
+def _corpus_config(max_steps: int, checkpoint_dir: str):
+    """base_config() at full width, bf16, the flagship's (T=512, U=48)
+    bucket, global batch 64, a validation at step CORPUS_STEPS."""
+    base = base_config()
+    return dataclasses.replace(
+        base, data=dataclasses.replace(base.data, audio_buckets=(T_FRAMES,),
+                                       label_buckets=(TRAIN_U,)),
+        train=dataclasses.replace(
+            base.train, precision="bf16", per_device_train_batch_size=CORPUS_B,
+            per_device_eval_batch_size=CORPUS_EVAL_B, max_steps=max_steps,
+            val_every_steps=CORPUS_STEPS, log_every_steps=1,
+            checkpoint_dir=checkpoint_dir, seed=SEED))
+
+
+def _write_corpus(tokenizer, audio) -> dict:
+    """split -> (TSV path, [(WAV path, labels)]): the confusable testbed's
+    waves as WAV files (scaled down by their peak where ``write_wav``
+    would clip them) and a manifest of the tokenizer's decode of the
+    labels (the testbed draws graphemes below 56, which decode keeps)."""
+    corpus = {}
+    for k, (split, n) in enumerate(CORPUS_SPLITS):
+        tb = ConfusableWaveformDataset(n, audio, seed=SEED + k)
+        wav_dir = os.path.join(CORPUS_DIR, "wavs", split)
+        os.makedirs(wav_dir, exist_ok=True)
+        rows, lines = [], []
+        for i in range(n):
+            wav, labels = tb.waveform(i)
+            path = os.path.join(wav_dir, f"{i}.wav")
+            write_wav(path, wav / max(1.0, float(np.abs(wav).max())),
+                      audio.sample_rate)
+            rows.append((path, labels))
+            lines.append(f"{path}\t{tokenizer.decode(labels.tolist())}\n")
+        tsv = os.path.join(CORPUS_DIR, f"{split}.tsv")
+        with open(tsv, "w", encoding="utf-8") as f:
+            f.writelines(lines)
+        corpus[split] = (tsv, rows)
+    return corpus
+
+
+@contextlib.contextmanager
+def _counted_steps(what: str, want: dict, launches: dict, steps: list):
+    """Every Trainer step in the block with its launches set to 0 before
+    and read after: they must equal ``want``; each step's counts go to
+    ``steps`` and are added to ``launches``."""
+    step_fn = train_loop.train_step
+
+    def counted_step(state, batch):
+        _zero_counts()
+        metrics = step_fn(state, batch)
+        got = _counts()
+        steps.append(got)
+        if got != want:
+            raise AssertionError(f"{what} step {state.step}: launches {got}, "
+                                 f"expected {want}")
+        for k in KERNELS:
+            launches[k] += got[k]
+        return metrics
+
+    train_loop.train_step = counted_step
+    try:
+        yield
+    finally:
+        train_loop.train_step = step_fn
+
+
+def _step_ms(checkpoint_dir: str) -> list:
+    logs = [json.loads(line) for line in open(os.path.join(checkpoint_dir,
+                                                           "metrics.jsonl"))]
+    train = [r for r in logs if r.get("split") == "train"]
+    if not (train and all(np.isfinite(r["loss"]) for r in train)):
+        raise AssertionError(f"corpus train logs: {logs}")
+    return [r["step_ms"] for r in train], [r for r in logs if r.get("split") == "val"]
+
+
+def _check_manifest_shards(raw: str, corpus: dict) -> None:
+    """Every raw shard row: ids equal the testbed's labels, PCM equals
+    read_wav of its file, exactly."""
+    for split, (_, rows) in corpus.items():
+        ds = load_shards([raw], split).with_format("numpy")
+        if len(ds) != len(rows):
+            raise AssertionError(f"{split}: {len(ds)} rows for {len(rows)} WAVs")
+        for i, (path, labels) in enumerate(rows):
+            row = ds[i]
+            if not np.array_equal(row["input_ids"], labels):
+                raise AssertionError(f"{split} row {i}: ids {row['input_ids']} "
+                                     f"for labels {labels}")
+            if not np.array_equal(np.asarray(row["input_values"], np.float32),
+                                  read_wav(path)):
+                raise AssertionError(f"{split} row {i}: PCM differs from {path}")
+
+
+def _check_logmel_shards(raw: str, logmel: str, audio) -> None:
+    """The prepared features equal logmel_np of the raw rows, exactly."""
+    for split, _ in CORPUS_SPLITS:
+        src = load_shards([raw], split).with_format("numpy")
+        got = ArrowAudioDataset([logmel], split)
+        if len(got) != len(src):
+            raise AssertionError(f"{split}: {len(got)} log-mel rows for {len(src)}")
+        for i in range(len(src)):
+            want = logmel_np(np.asarray(src[i]["input_values"], np.float32), audio)
+            item = got[i]
+            if not (np.array_equal(item["feats"], want)
+                    and np.array_equal(item["labels"], src[i]["input_ids"])):
+                raise AssertionError(f"{split} row {i}: the log-mel shard differs")
+
+
+def _checked_loss(trainer, ds, audio) -> dict:
+    """On one batch of the waveform run: checked_rnnt_loss (fp32 logits of
+    the trained params; K5 launched once) against rnnt_loss on CPU copies
+    of the same inputs (the plain sweep, a route independent of the card),
+    and a label id of V caught with the vocabulary hint."""
+    cfg = trainer.cfg
+    V = cfg.model.jointnet.num_classes
+    b = to_device(collate_waveforms(
+        ds.get_batch(range(CORPUS_B)), max_samples=T_FRAMES * audio.hop_length - 1,
+        max_labels=TRAIN_U, pad_id=cfg.data.text.pad_token_id), DEVICE)
+    model = trainer.state.model
+    with torch.no_grad():
+        feats, feat_lengths = device_frontend(audio, dequantize_wav(b), b["wav_lengths"])
+        logits = model(feats, feat_lengths, b["text_in"], b["text_lengths"])
+        enc_lengths = cfg.model.transnet.output_lengths(feat_lengths)
+        args = (logits, b["targets"], enc_lengths, b["target_lengths"])
+        _zero_counts()
+        err, loss = checked_rnnt_loss(*args)
+        k5 = _counts()["rnnt_sweep"]
+        ref = rnnt_loss(*(a.cpu() for a in args)).item()
+        bad = b["targets"].clone()
+        bad[0, 0] = V
+        bad_err, _ = checked_rnnt_loss(logits, bad, enc_lengths, b["target_lengths"])
+    rel = abs(loss.item() - ref) / abs(ref)
+    if err is not None or k5 != 1 or not rel <= CORPUS_LOSS_TOL:
+        raise AssertionError(f"checked_rnnt_loss: {err}, loss {loss.item()} vs the "
+                             f"plain {ref} (rel {rel:.3e}), {k5} K5 launches")
+    try:
+        bad_err.throw()
+        raise AssertionError("a label id of V was not caught")
+    except ValueError as e:
+        if "vocab/tokenizer mismatch?" not in str(e):
+            raise
+    del logits, feats
+    return {"loss": ref, "checked_rel_err": rel, "k5_launches": k5}
+
+
+def phase_corpus(flax_params, smi: str):
+    """Phase 10: from a corpus of WAVs and transcripts to a trained model,
+    through the entry points a user calls (see the module docstring).
+    Returns the counted steps' launches and the figures."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+    tokenizer = GraphemeTokenizer.default(base_config().model.jointnet.num_classes)
+    cfg = _corpus_config(CORPUS_STEPS, os.path.join(CORPUS_DIR, "ckpt"))
+    audio = cfg.data.audio
+    n_utts = sum(n for _, n in CORPUS_SPLITS)
+    corpus = _write_corpus(tokenizer, audio)
+
+    raw, logmel = os.path.join(CORPUS_DIR, "raw"), os.path.join(CORPUS_DIR, "logmel")
+    t0 = time.perf_counter()
+    for split, (tsv, rows) in corpus.items():
+        n = prepare_manifest.main(["--manifest", tsv, "--out", raw, "--split", split,
+                                   "--num_shards", "2" if split == "train" else "1"])
+        if n != len(rows):
+            raise AssertionError(f"prepare_manifest wrote {n} of {len(rows)} rows")
+    manifest_s = time.perf_counter() - t0
+    _check_manifest_shards(raw, corpus)
+
+    cfg_path = os.path.join(CORPUS_DIR, "config.json")
+    cfg.to_json(cfg_path)
+    cli_args = ["--config", cfg_path, "--hf_data_dirs", raw, "--pl_data_dir", logmel,
+                "--num_shards", "2", "--device", DEVICE]
+    prepare_s, prepared = [], []
+    prepare_fn, prepare_split = cli_train.prepare_shards, data_mod.prepare_logmel_dataset
+
+    def timed_prepare(*a, **kw):
+        t = time.perf_counter()
+        prepare_fn(*a, **kw)
+        prepare_s.append(time.perf_counter() - t)
+
+    def recorded_split(*a, **kw):
+        prepared.append(a[2])
+        return prepare_split(*a, **kw)
+
+    want = step_launches(cfg, T_FRAMES, TRAIN_U, device=DEVICE)
+    launches, steps = dict.fromkeys(KERNELS, 0), []
+    cli_train.prepare_shards, data_mod.prepare_logmel_dataset = timed_prepare, recorded_split
+    try:
+        with _counted_steps("corpus log-mel", want, launches, steps):
+            state = cli_train.main(cli_args)
+        if state.step != CORPUS_STEPS or len(steps) != CORPUS_STEPS:
+            raise AssertionError(f"the CLI ended at step {state.step} ({len(steps)} "
+                                 "steps counted)")
+        del state
+        torch.cuda.empty_cache()
+        first = list(prepared)
+        ledger_stamp = os.path.getmtime(os.path.join(logmel, "postprocess_log.json"))
+        results = cli_train.main(cli_args + ["--eval_only"])
+    finally:
+        cli_train.prepare_shards, data_mod.prepare_logmel_dataset = (prepare_fn,
+                                                                     prepare_split)
+    torch.cuda.empty_cache()
+    if first != [s for s, _ in CORPUS_SPLITS] + ["eval_other"] or prepared != first:
+        raise AssertionError(f"splits prepared: {first}, then {prepared[len(first):]}")
+    if (os.path.getmtime(os.path.join(logmel, "postprocess_log.json")) != ledger_stamp
+            or not os.path.exists(os.path.join(logmel, "_PREPARED"))
+            or sorted(read_ledger(logmel)) != sorted(s for s, _ in CORPUS_SPLITS)):
+        raise AssertionError(f"ledger {read_ledger(logmel)}")
+    _check_logmel_shards(raw, logmel, audio)
+    logmel_ms, val = _step_ms(cfg.train.checkpoint_dir)
+    ev = results.get("eval_clean", {})
+    if not (len(val) == 1 and np.isfinite(val[0]["val_loss"]) and set(results) ==
+            {"eval_clean"} and all(np.isfinite(ev.get(k, np.nan))
+                                   for k in ("loss", "wer", "cer"))):
+        raise AssertionError(f"validation {val}, eval_only {results}")
+
+    wave_root = os.path.join(CORPUS_DIR, "wave")
+    train_rows = corpus["train"][1]
+    save_waveform_dataset(({"wav": read_wav(p), "labels": lb} for p, lb in train_rows),
+                          wave_root, "train", audio.hop_length, num_shards=2,
+                          total=len(train_rows))
+    wave_ds = ArrowWaveformDataset([wave_root], "train", audio)
+    wave_cfg = _corpus_config(CORPUS_WAVE_STEPS, os.path.join(CORPUS_DIR, "wave_ckpt"))
+    want_wave = step_launches(wave_cfg, T_FRAMES, TRAIN_U, raw_pcm=True, device=DEVICE)
+    wave_steps = []
+    with _counted_steps("corpus waveform", want_wave, launches, wave_steps):
+        trainer = train_loop.Trainer(wave_cfg, wave_ds, device=DEVICE,
+                                     state_dict=state_dict_from_flax(flax_params,
+                                                                     wave_cfg.model))
+        state = trainer.fit()
+    if state.step != CORPUS_WAVE_STEPS or len(wave_steps) != CORPUS_WAVE_STEPS:
+        raise AssertionError(f"the waveform fit ended at step {state.step}")
+    wave_ms, _ = _step_ms(wave_cfg.train.checkpoint_dir)
+    checked = _checked_loss(trainer, wave_ds, audio)
+    del trainer, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(CORPUS_DIR, ignore_errors=True)
+
+    wall_s = time.perf_counter() - t_phase
+    result = {
+        "utterances": dict(CORPUS_SPLITS), "launches_per_step": want,
+        "launches_per_step_waveform": want_wave,
+        "manifest_s_per_100_utts": 100 * manifest_s / n_utts,
+        "logmel_prepare_s_per_100_utts": 100 * prepare_s[0] / n_utts,
+        "logmel_step_ms": logmel_ms,
+        "logmel_step_ms_median": float(np.median(logmel_ms[1:])),
+        "waveform_step_ms": wave_ms,
+        "waveform_step_ms_median": float(np.median(wave_ms[1:])),
+        "val": {k: val[0][k] for k in ("val_loss", "val_wer", "val_cer")},
+        "eval_clean": ev, "checked_loss": checked, "wall_s": wall_s}
+    print(f"corpus ({smi}): host preparation per 100 utterances: manifest "
+          f"{result['manifest_s_per_100_utts']:.3f} s, log-mel "
+          f"{result['logmel_prepare_s_per_100_utts']:.3f} s", flush=True)
+    print(f"corpus ({smi}): median of the steps after the first (the first warms "
+          f"up): from log-mel shards {result['logmel_step_ms_median']:.1f} ms (all "
+          f"steps {logmel_ms}), from waveform shards "
+          f"{result['waveform_step_ms_median']:.1f} ms (all steps {wave_ms})",
+          flush=True)
+    print(f"corpus ({smi}): phase wall time {wall_s:.1f} s", flush=True)
+    return launches, result
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its wall time printed (where the script's time goes)."""
     t0 = time.perf_counter()
@@ -3913,13 +4210,15 @@ def main() -> int:
                 ("evaluate", lambda: phase_evaluate(flax_params, tokenizer)),
                 ("import", lambda: phase_import(tokenizer)),
                 ("conformer", lambda: phase_conformer(tokenizer, waves)),
-                ("parallel", lambda: phase_parallel(flax_params))):
+                ("parallel", lambda: phase_parallel(flax_params)),
+                ("corpus", lambda: phase_corpus(flax_params, smi))):
             got, result = _timed(name, run)
             bare_busy[name] = result.get("device_busy_share")
             launches = {k: launches[k] + got[k] for k in KERNELS}
             print(f"{name} " + json.dumps(result, ensure_ascii=False), flush=True)
     finally:
-        for d in (TRAINER_DIR, DECODE_DIR, EVAL_DIR, IMPORT_DIR, PARALLEL_DIR):
+        for d in (TRAINER_DIR, DECODE_DIR, EVAL_DIR, IMPORT_DIR, PARALLEL_DIR,
+                  CORPUS_DIR):
             shutil.rmtree(d, ignore_errors=True)
     vs_plain = _timed("step_vs_plain", phase_step_vs_plain, flax_params)
     print("step_vs_plain " + json.dumps(vs_plain), flush=True)

@@ -10,7 +10,14 @@ Examples:
   python -m rnntransducer_tpu_torch.cli.train --synthetic 16 --max_steps 2 \\
       --device cpu --checkpoint_dir /tmp/ckpt
 
-  # train on preprocessed log-mel Arrow shards (needs ``datasets``)
+  # from a corpus: raw shards (cli.prepare_manifest), prepared into log-mel
+  # shards under --pl_data_dir on the host the first time (process 0 alone;
+  # the others wait for its _PREPARED marker), then trained on the card
+  python -m rnntransducer_tpu_torch.cli.train --config configs/base.json \\
+      --hf_data_dirs /data/raw --pl_data_dir /data/logmel --num_shards 20 \\
+      --checkpoint_dir ckpts --max_steps 100000
+
+  # train on log-mel Arrow shards prepared before (needs ``datasets``)
   python -m rnntransducer_tpu_torch.cli.train --config configs/base.json \\
       --pl_data_dir /data/logmel --checkpoint_dir ckpts --max_steps 100000
 
@@ -35,8 +42,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import time
 
 from rnntransducer_tpu_torch.config import Config
+
+SPLITS = ("train", "dev", "eval_clean", "eval_other")
+PREPARE_POLL_S = 10         # how often a waiting process looks for _PREPARED
+PREPARE_LOG_EVERY_S = 600   # and how often it says that it still waits
 
 
 def parse_args(argv=None):
@@ -46,11 +58,14 @@ def parse_args(argv=None):
                    help="JSON config (the JAX package's schema)")
     p.add_argument("--vocab_path", type=str, default=None)
     p.add_argument("--hf_data_dirs", type=str, nargs="*", default=None,
-                   help="raw shards to preprocess (not ported yet: raises)")
+                   help="raw PCM shard roots to prepare into log-mel shards "
+                        "under --pl_data_dir (once: the _PREPARED marker)")
     p.add_argument("--pl_data_dir", type=str, default=None,
                    help="preprocessed log-mel shard root")
-    p.add_argument("--num_shards", type=int, default=20)
-    p.add_argument("--num_proc", type=int, default=None)
+    p.add_argument("--num_shards", type=int, default=20,
+                   help="log-mel shards of the train split (1 for the others)")
+    p.add_argument("--num_proc", type=int, default=None,
+                   help="host processes of the log-mel preparation")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic utterances instead of real data")
     p.add_argument("--learning_rate", type=float, default=None)
@@ -89,7 +104,8 @@ def parse_args(argv=None):
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-15 here")
     p.add_argument("--debug_nans", action="store_true",
-                   help="torch.autograd anomaly detection")
+                   help="fail at the first non-finite value: autograd anomaly "
+                        "detection and forward hooks (utils.debugging.debug_nans)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda:<LOCAL_RANK>, or cuda; raises "
                         "without a card)")
@@ -121,10 +137,6 @@ def _check_flags(args) -> None:
         raise NotImplementedError(
             f"--loss_backend {args.loss_backend}: the port's RNN-T loss has one "
             "backend, its sweep kernel (the plain version on the CPU)")
-    if args.hf_data_dirs:
-        raise NotImplementedError(
-            "--hf_data_dirs: dataset preparation is not ported yet; prepare the "
-            "log-mel shards with the JAX package's train.py and pass --pl_data_dir")
 
 
 def main(argv=None):
@@ -134,6 +146,7 @@ def main(argv=None):
 
     from rnntransducer_tpu_torch import parallel
     from rnntransducer_tpu_torch.train.loop import check_single_device
+    from rnntransducer_tpu_torch.utils.debugging import debug_nans
     from rnntransducer_tpu_torch.utils.device import resolve_device
 
     check_single_device(cfg)
@@ -143,22 +156,61 @@ def main(argv=None):
     device = resolve_device(device)
     topology = parallel.initialize(args.coordinator_address, args.num_processes,
                                    args.process_id, device=device)
+    if args.debug_nans:
+        debug_nans(True)
     try:
         return _run(args, cfg, device, topology)
     finally:
+        if args.debug_nans:
+            debug_nans(False)
         parallel.shutdown()
 
 
-def _run(args, cfg, device, topology):
-    import torch
+def prepare_shards(args, cfg, process_index: int) -> None:
+    """Prepare ``--hf_data_dirs``' raw shards into log-mel shards under
+    ``--pl_data_dir``, every split it has (train in ``--num_shards``
+    shards, the others in 1), once: process 0 prepares and then writes the
+    all-splits ``_PREPARED`` marker; every other process polls for the
+    marker.  The wait is a poll and not a collective, because preparing a
+    large corpus takes hours, past any process-group timeout.  The marker
+    covers every split, so no process starts loading the dev shards while
+    process 0 still writes them."""
+    from rnntransducer_tpu_torch.data.dataset import prepare_logmel_dataset
 
+    done_marker = os.path.join(args.pl_data_dir, "_PREPARED")
+    if process_index == 0:
+        if os.path.exists(done_marker):
+            return
+        for split in SPLITS:
+            try:
+                prepare_logmel_dataset(
+                    args.hf_data_dirs, args.pl_data_dir, split, cfg.data.audio,
+                    num_shards=args.num_shards if split == "train" else 1,
+                    num_proc=args.num_proc or 1)
+            except FileNotFoundError:
+                print(f"[prepare] no source for split '{split}', skipping")
+        os.makedirs(args.pl_data_dir, exist_ok=True)
+        with open(done_marker, "w") as f:
+            f.write("ok\n")
+        return
+    waited = 0
+    if not os.path.exists(done_marker):
+        print(f"[prepare] process {process_index} waits on process 0 for "
+              f"{done_marker}", flush=True)
+    while not os.path.exists(done_marker):
+        time.sleep(PREPARE_POLL_S)
+        waited += PREPARE_POLL_S
+        if waited % PREPARE_LOG_EVERY_S == 0:  # a crashed process 0 shows here
+            print(f"[prepare] waiting on process 0 ({waited // 60} min): "
+                  f"{done_marker}", flush=True)
+
+
+def _run(args, cfg, device, topology):
     from rnntransducer_tpu_torch.data.dataset import (ArrowAudioDataset,
                                                       SyntheticAudioDataset)
     from rnntransducer_tpu_torch.train.loop import Trainer
 
     lead = topology["process_index"] == 0
-    if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
     if args.synthetic:
         train_ds = SyntheticAudioDataset(
             args.synthetic, cfg.data.audio,
@@ -169,6 +221,8 @@ def _run(args, cfg, device, topology):
     else:
         if not args.pl_data_dir:
             raise SystemExit("--pl_data_dir (or --synthetic N) required")
+        if args.hf_data_dirs:
+            prepare_shards(args, cfg, topology["process_index"])
         train_ds = ArrowAudioDataset([args.pl_data_dir], "train")
         val_ds = ArrowAudioDataset([args.pl_data_dir], "dev")
 

@@ -48,8 +48,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_scan_covers_the_training_loop_and_cli():
     """The modules of the training loop, the data feed, the decoders, the
     train and inference CLIs, session serving, corpus evaluation, the
-    reference-checkpoint import, the Conformer, the optimizers and the data
-    axis are among those scanned, and each imports the port's own copies."""
+    reference-checkpoint import, the Conformer, the optimizers, the data
+    axis, the manifest and tokenizer tools and the debugging tools are among
+    those scanned, and each imports the port's own copies."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     pkg = "rnntransducer_tpu_torch"
     for mod in ("train/metrics.py", "train/checkpoint.py", "train/loop.py",
@@ -62,7 +63,9 @@ def test_scan_covers_the_training_loop_and_cli():
                 "decode/streaming.py", "decode/session_batch.py", "serve_socket.py",
                 "eval.py", "cli/evaluate.py", "utils/torch_import.py",
                 "models/conformer.py", "models/transducer.py", "train/optim.py",
-                "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py"):
+                "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+                "cli/prepare_manifest.py", "cli/train_tokenizer.py",
+                "utils/debugging.py"):
         path = os.path.join(pkg, mod)
         assert path in scanned, path
         own = [m for m in _imported_modules(os.path.join(REPO, path))

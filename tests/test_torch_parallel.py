@@ -4,8 +4,9 @@ against the JAX Trainer on a one-device mesh from the same flax weights.
 
 One module fixture runs every multi-process job once, all at the same time:
 two worker ranks (a script written under the fixture's directory, which
-imports no JAX) through a sequence of runs, the train CLI under torchrun,
-and the CLI with explicit flags with one rank sent SIGTERM.  The tests read
+imports no JAX) through a sequence of runs, the train CLI under torchrun
+(on synthetic data, and on raw shards that rank 0 prepares), and the CLI
+with explicit flags with one rank sent SIGTERM.  The tests read
 what the jobs wrote.  Dropout, weight noise and SpecAugment are off in the
 parity runs; tolerances are 1e-5 relative for losses (tests/
 test_torch_trainer.py)."""
@@ -236,6 +237,20 @@ def _cli_cfg(root):
     return path
 
 
+def _raw_corpus(root):
+    """Raw PCM shards for the CLI's ``--hf_data_dirs``: a train split of 8
+    synthetic utterances and a dev split of 3, no eval splits."""
+    from datasets import Dataset
+    for split, n, seed in (("train", 8, 1), ("dev", 3, 2)):
+        ds = SyntheticAudioDataset(n, pcfg.AudioConfig(), seed=seed, as_waveform=True,
+                                   **DATA_KW)
+        items = [ds[i] for i in range(n)]
+        Dataset.from_dict({"input_values": [it["wav"] for it in items],
+                           "input_ids": [it["labels"].tolist() for it in items]}
+                          ).save_to_disk(os.path.join(root, split, "0"))
+    return root
+
+
 def _sigterm_when_training(log_dir, proc, out, deadline):
     """SIGTERM ``proc`` (rank 1) once rank 0 has logged two train steps."""
     path = os.path.join(log_dir, "metrics.jsonl")
@@ -281,6 +296,17 @@ def runs(tmp_path_factory):
          str(_free_port())] + cli[1:] + ["--max_steps", "2", "--checkpoint_dir",
                                          os.path.join(root, "torchrun")],
         os.path.join(root, "torchrun.log"))
+    # the CLI on --hf_data_dirs under torchrun: rank 0 prepares, rank 1 waits
+    procs["prepare"] = _popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--nproc_per_node", "2", "--master_addr", "127.0.0.1", "--master_port",
+         str(_free_port()), "-m", "rnntransducer_tpu_torch.cli.train", "--config",
+         os.path.join(root, "cfg.json"), "--device", "cpu", "--hf_data_dirs",
+         _raw_corpus(os.path.join(root, "raw")), "--pl_data_dir",
+         os.path.join(root, "logmel"), "--num_shards", "2", "--max_steps", "2",
+         "--per_device_train_batch_size", str(B), "--per_device_eval_batch_size",
+         str(B), "--checkpoint_dir", os.path.join(root, "prepare")],
+        os.path.join(root, "prepare.log"))
     term_port = _free_port()
     for r in range(2):
         procs[f"term{r}"] = _popen(
@@ -692,6 +718,31 @@ def test_cli_under_torchrun(runs):
     assert sorted(os.listdir(ckpt)) == ["2", "checkpoint_metrics.json", "config.json",
                                         "metrics.jsonl"]
     assert [r["step"] for r in _logs(ckpt) if r.get("split") == "train"] == [1, 2]
+
+
+def test_cli_under_torchrun_prepares_on_rank_0_only(runs):
+    """``--hf_data_dirs`` under torchrun with two ranks: rank 1 waits on the
+    ``_PREPARED`` marker while rank 0 alone prepares (one "no source" line
+    per missing split, one ledger entry per split), then both train to
+    step 2 on the prepared shards."""
+    from rnntransducer_tpu_torch.data import read_ledger
+    root = runs["root"]
+    out = runs["logs"]["prepare"]
+    assert runs["rcs"]["prepare"] == 0, out
+    for r in range(2):
+        assert f"rank {r} of 2: done at step 2" in out, out
+    logmel = os.path.join(root, "logmel")
+    assert f"[prepare] process 1 waits on process 0 for {logmel}" in out, out
+    assert "[prepare] process 0 waits" not in out
+    for split in ("eval_clean", "eval_other"):
+        assert out.count(f"[prepare] no source for split '{split}', skipping") == 1
+    assert os.path.exists(os.path.join(logmel, "_PREPARED"))
+    ledger = read_ledger(logmel)
+    assert sorted(ledger) == ["dev", "train"]
+    assert all(list(tasks) == ["logmel"] for tasks in ledger.values())
+    assert sorted(os.listdir(os.path.join(logmel, "train"))) == ["0", "1", "_SUCCESS"]
+    assert [r["step"] for r in _logs(os.path.join(root, "prepare"))
+            if r.get("split") == "train"] == [1, 2]
 
 
 def test_cli_sigterm_to_one_rank_stops_both_at_one_step(runs):

@@ -390,12 +390,87 @@ def test_cli_trains_on_synthetic_data_on_the_cpu(tmp_path):
     (["--model_parallel", "2", "--shard_optimizer_state"], "one device"),
     (["--loss_backend", "xla"], "one backend"),
     (["--loss_backend", "pallas"], "one backend"),
-    (["--hf_data_dirs", "raw"], "not ported yet"),
+    (["--config", "PIPELINE_CONFIG"], "one device"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
+    """``PIPELINE_CONFIG`` stands for a config whose train.pipeline_stages
+    is 2 (the pipeline axis is not ported)."""
+    if "PIPELINE_CONFIG" in flags:
+        cfg = _cfg(tmp_path)
+        path = str(tmp_path / "pipeline.json")
+        dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, pipeline_stages=2)).to_json(path)
+        flags = [path if f == "PIPELINE_CONFIG" else f for f in flags]
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--synthetic", "4", "--device", "cpu",
                   "--checkpoint_dir", str(tmp_path / "x")] + flags)
+
+
+def _raw_corpus(root, splits):
+    """Raw PCM shards of seeded synthetic utterances, each split its own
+    seed (train in two shards)."""
+    from datasets import Dataset
+    for k, (split, n) in enumerate(splits.items()):
+        items = [_ds(n, seed=10 + k, as_waveform=True)[i] for i in range(n)]
+        ds = Dataset.from_dict({"input_values": [it["wav"] for it in items],
+                                "input_ids": [it["labels"].tolist() for it in items]})
+        shards = 2 if split == "train" else 1
+        for i in range(shards):
+            ds.shard(num_shards=shards, index=i).save_to_disk(
+                os.path.join(root, split, str(i)))
+
+
+def test_cli_prepares_raw_shards_and_trains(tmp_path, capsys):
+    """``--hf_data_dirs raw --pl_data_dir logmel --device cpu``: the CLI
+    prepares every split the raw root has (train in ``--num_shards``, the
+    others in one), prints that eval_other has no source, writes the
+    ``_PREPARED`` marker, and trains 2 steps whose losses equal a port
+    Trainer's on log-mel shards the JAX package prepared from a copy of the
+    same raw shards (1e-5 relative).  A second run prepares nothing."""
+    import shutil
+
+    from rnntransducer_tpu.data import prepare_logmel_dataset as jax_prepare
+
+    from rnntransducer_tpu_torch.data import ArrowAudioDataset, read_ledger
+
+    raw = str(tmp_path / "raw")
+    _raw_corpus(raw, {"train": 8, "dev": 3, "eval_clean": 2})
+    shutil.copytree(raw, tmp_path / "raw_jax")
+    cfg = _cfg(tmp_path, max_steps=2, per_device_train_batch_size=2)
+    path = str(tmp_path / "config.json")
+    cfg.to_json(path)
+    logmel = str(tmp_path / "logmel")
+    args = ["--config", path, "--hf_data_dirs", raw, "--pl_data_dir", logmel,
+            "--num_shards", "3", "--device", "cpu"]
+    state = cli.main(args)
+    assert state.step == 2
+    out = capsys.readouterr().out
+    assert "[prepare] no source for split 'eval_other', skipping" in out
+    assert os.path.exists(os.path.join(logmel, "_PREPARED"))
+    assert sorted(read_ledger(logmel)) == ["dev", "eval_clean", "train"]
+    assert [len(os.listdir(os.path.join(logmel, s))) - 1
+            for s in ("train", "dev", "eval_clean")] == [3, 1, 1]  # shards + _SUCCESS
+
+    jax_logmel = str(tmp_path / "jax_logmel")
+    jax_cfg = _cfg(tmp_path, module=jcfg)
+    for split in ("train", "dev"):
+        jax_prepare([str(tmp_path / "raw_jax")], jax_logmel, split, jax_cfg.data.audio,
+                    num_shards=3 if split == "train" else 1)
+    want_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(tmp_path / "want")))
+    Trainer(want_cfg, ArrowAudioDataset([jax_logmel], "train"),
+            val_dataset=ArrowAudioDataset([jax_logmel], "dev"), device="cpu").fit()
+    got = {r["step"]: r["loss"] for r in _logs(cfg) if r.get("split") == "train"}
+    want = {r["step"]: r["loss"] for r in _logs(want_cfg) if r.get("split") == "train"}
+    assert sorted(got) == sorted(want) == [1, 2]
+    for s in want:
+        assert abs(got[s] - want[s]) <= 1e-5 * abs(want[s]), (s, got[s], want[s])
+
+    stamp = os.path.getmtime(os.path.join(logmel, "postprocess_log.json"))
+    shutil.rmtree(raw)             # the marker holds: nothing is read again
+    results = cli.main(args + ["--eval_only"])
+    assert os.path.getmtime(os.path.join(logmel, "postprocess_log.json")) == stamp
+    assert set(results) == {"eval_clean"} and np.isfinite(results["eval_clean"]["loss"])
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
