@@ -166,10 +166,27 @@ Phases (each raises, and the script exits non-zero, on failure):
     copies of the batch, and a label id of V caught.  Host preparation
     times per 100 utterances and median step times (the steps after the
     first) are printed beside the card's name and power limit.
-11. One fp32 step at full width (B=8: the plain backward scans are Python
+11. From a trained model to a deployed one (``phase_deploy``): (a)
+    ``serve.export_params`` of phase 5's checkpoint, read back by
+    ``Recognizer.from_params`` (params bit-equal to ``from_checkpoint``'s,
+    the 8 waves' greedy transcripts equal); (b) a greedy wav bundle of
+    ``base_config()`` at full width (``utils/export.py``: fp32, batch 8,
+    one 512-frame bucket, traced on the CPU, loaded on the card): its
+    program holds the ``gru_scan`` op, each request launches 16 K1 and
+    nothing else, its tokens equal the live ``greedy_decode`` of the same
+    padded batch; export, save and load seconds, bytes, request ms beside
+    the live decoder's; (c) the same for a beam-4 bundle against the live
+    ``batched_beam_decode``'s top-1; (d) a streaming bundle of (6d)'s model
+    (64-frame chunks, fp32) over 10 s against ``StreamingRecognizer``
+    greedy: 6 K3 launches a chunk, RTF; (e) ``opcheck`` of the six
+    registered ops on small CUDA tensors and the op route's per-call cost
+    against the direct wrapper at K3's 64-lane tick; (f)
+    ``cli.convert_lm`` of (6b)'s char ARPA to PROBING, TRIE and an 8-bit
+    quantized TRIE, each scoring as its ARPA.
+12. One fp32 step at full width (B=8: the plain backward scans are Python
     loops of small launches), kernels against plain versions (GRU, LSTM and
     the sweep): loss and the grads of named params.
-12. Print one JSON line describing every kernel, then, as the last line,
+13. Print one JSON line describing every kernel, then, as the last line,
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -4135,6 +4152,333 @@ def phase_corpus(flax_params, smi: str):
     return launches, result
 
 
+DEPLOY_DIR = os.path.join(REPO, "build", "deploy")
+DEPLOY_FRAMES = 512          # one bucket: 512 * 160 - 1 samples, the waves' 5.11 s
+DEPLOY_BATCH = 8
+DEPLOY_BEAM = 4
+DEPLOY_MAX_OUT = 512
+DEPLOY_OP_REPS = 200         # per-call cost of the op route, K3 at a 64-lane tick
+DEPLOY_LM_QUERIES = 400
+
+
+@contextlib.contextmanager
+def _export_clock(times: dict):
+    """``torch.export.export`` / ``save`` timed into ``times["export_s"]`` /
+    ``["save_s"]`` (lists, one entry per program)."""
+    export, save = torch.export.export, torch.export.save
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    torch.export.export, torch.export.save = timed("export_s", export), timed("save_s", save)
+    try:
+        yield times
+    finally:
+        torch.export.export, torch.export.save = export, save
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _op_targets(program) -> set:
+    """The ops a loaded program calls, its while_loop bodies included."""
+    return {str(n.target) for m in program.modules() if isinstance(m, torch.fx.GraphModule)
+            for n in m.graph.nodes if n.op == "call_function"}
+
+
+def _deploy_params(waves):
+    """(a) ``export_params`` of phase 5's checkpoint, read back by
+    ``Recognizer.from_params``: the params bit-equal to ``from_checkpoint``'s,
+    the 8 waves' greedy transcripts equal."""
+    from rnntransducer_tpu_torch.serve import export_params
+    t0 = time.perf_counter()
+    out = export_params(TRAINER_DIR, os.path.join(DEPLOY_DIR, "params"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec_p = Recognizer.from_params(out, decoder="greedy", device=DEVICE)
+    load_s = time.perf_counter() - t0
+    rec_c = Recognizer.from_checkpoint(TRAINER_DIR, decoder="greedy", device=DEVICE)
+    sd_p, sd_c = rec_p.model.state_dict(), rec_c.model.state_dict()
+    if sd_p.keys() != sd_c.keys() or not all(torch.equal(sd_p[k], sd_c[k]) for k in sd_p):
+        raise AssertionError("from_params does not give from_checkpoint's params")
+    got, want = rec_p.transcribe_batch(waves), rec_c.transcribe_batch(waves)
+    print(f"deploy (a) export_params of {TRAINER_DIR}: {export_s:.2f} s, "
+          f"{_dir_bytes(out)} bytes; from_params {load_s:.2f} s; params bit-equal to "
+          f"from_checkpoint's; greedy transcripts equal {got == want} "
+          f"({sum(map(len, want))} characters)", flush=True)
+    if got != want:
+        raise AssertionError(f"from_params transcripts {got} != from_checkpoint's {want}")
+    del rec_p, rec_c
+    return {"export_s": export_s, "from_params_s": load_s, "bytes": _dir_bytes(out),
+            "characters": sum(map(len, want))}
+
+
+def _deploy_offline(cfg, flax_params, tokenizer, waves, decoder, live, launches):
+    """(b) / (c): a wav bundle of ``cfg`` at full width, fp32, batch 8, one
+    bucket, exported on the CPU, loaded on the card; its tokens for the 8
+    waves (padded to the bucket) against the live ``live`` decode of the
+    same padded batch; each request's launches checked (16 K1, no other)."""
+    from rnntransducer_tpu_torch.utils import export as export_mod
+    out = os.path.join(DEPLOY_DIR, decoder)
+    times = {}
+    with _export_clock(times):
+        export_mod.export_transcriber(
+            cfg, flax_params, out, tokenizer=tokenizer, batch=DEPLOY_BATCH,
+            frame_buckets=(DEPLOY_FRAMES,), input_kind="wav", decoder=decoder,
+            beam_width=DEPLOY_BEAM, max_output_len=DEPLOY_MAX_OUT)
+    t0 = time.perf_counter()
+    bundle = export_mod.ExportedTranscriber(out, device=DEVICE)
+    program = bundle._program(DEPLOY_FRAMES)
+    load_s = time.perf_counter() - t0
+    targets = _op_targets(program)
+    if "rnntransducer_tpu_torch.gru_scan.default" not in targets:
+        raise AssertionError(f"the {decoder} program holds no gru_scan op: {sorted(targets)}")
+    hop = cfg.data.audio.hop_length
+    x = np.zeros((DEPLOY_BATCH, DEPLOY_FRAMES * hop - 1), np.float32)
+    for i, w in enumerate(waves):
+        x[i, :len(w)] = w
+    lens = np.asarray([len(w) for w in waves], np.int32)
+    want_launches = _gru_launches(cfg, DEPLOY_BATCH, torch.float32)
+    runs = []
+    for r in range(2):  # the first request, then a steady one
+        (toks, n), ms, got = _counted(bundle.transcribe_tokens, x, lens)
+        _expect_launches(f"deploy {decoder} bundle request {r}", got, want_launches)
+        for k in KERNELS:
+            launches[k] += got[k]
+        runs.append(ms)
+    (live_toks, live_n), live_ms, live_got = _counted(live, torch.from_numpy(x).to(DEVICE),
+                                                    torch.from_numpy(lens).to(DEVICE))
+    _expect_launches(f"deploy live {decoder}", live_got, want_launches)
+    exported = [toks[i, :n[i]].tolist() for i in range(len(waves))]
+    reference = [live_toks[i, :live_n[i]].tolist() for i in range(len(waves))]
+    print(f"deploy ({'b' if decoder == 'greedy' else 'c'}) {decoder}"
+          f"{f' width {DEPLOY_BEAM}' if decoder == 'beam' else ''} wav bundle, "
+          f"base_config fp32, batch {DEPLOY_BATCH}, {DEPLOY_FRAMES} frames: export "
+          f"{times['export_s'][0]:.1f} s, save {times['save_s'][0]:.1f} s, "
+          f"{_dir_bytes(out)} bytes, load on the card {load_s:.1f} s; request "
+          f"{runs[0]:.1f} ms first, {runs[1]:.1f} ms steady vs live {live_ms:.1f} ms; "
+          f"tokens equal {exported == reference} ({sum(map(len, reference))} tokens)",
+          flush=True)
+    if exported != reference or not any(reference):
+        raise AssertionError(f"the exported {decoder} tokens differ from the live "
+                             "decoder's (or none were emitted)")
+    del bundle, program
+    return {"export_s": times["export_s"][0], "save_s": times["save_s"][0],
+            "bundle_bytes": _dir_bytes(out), "load_s": load_s,
+            "request_ms_first": runs[0], "request_ms": runs[1], "live_ms": live_ms,
+            "tokens": sum(map(len, reference)), "launches_per_request": want_launches}
+
+
+def _deploy_streaming(stream_sd, launches):
+    """(d) a streaming bundle of bench_streaming.py's model (64-frame chunks,
+    fp32) against ``StreamingRecognizer`` greedy over 10 s, 100 ms feeds:
+    equal tokens, 6 K3 launches per chunk, RTF."""
+    from rnntransducer_tpu_torch.decode.streaming import StreamingRecognizer
+    from rnntransducer_tpu_torch.utils import export as export_mod
+    cfg = streaming_config()
+    audio, T = cfg.data.audio, STREAM_CHUNK_FRAMES
+    out = os.path.join(DEPLOY_DIR, "stream")
+    times = {}
+    with _export_clock(times):
+        export_mod.export_transcriber(cfg, stream_sd, out, frame_buckets=(),
+                                      streaming_chunk_frames=T,
+                                      max_output_len=DEPLOY_MAX_OUT)
+    t0 = time.perf_counter()
+    sess = export_mod.ExportedStreamingSession(out, normalize="none", device=DEVICE)
+    load_s = time.perf_counter() - t0
+    if "rnntransducer_tpu_torch.lstm_scan.default" not in _op_targets(sess._step):
+        raise AssertionError("the streaming program holds no lstm_scan op")
+    wav = _stream_waves(1, SEED + 12)[0]
+    feed = audio.sample_rate * STREAM_FEED_MS // 1000
+    n_frames = len(wav) // audio.hop_length + 1
+    n_chunks = -(-n_frames // T)
+    want = dict.fromkeys(KERNELS, 0)
+    want["lstm_fwd"] = cfg.model.transnet.num_layers * n_chunks * scan_launches(
+        "lstm", T, cfg.model.transnet.hidden_size, 1, torch.float32, device=DEVICE)[0]
+
+    def stream(session):
+        toks = []
+        for s in range(0, len(wav), feed):
+            toks += session.feed(wav[s:s + feed])
+        return toks + session.flush()
+
+    got_toks, ms, got = _counted(stream, sess)
+    _expect_launches(f"deploy streaming bundle ({n_chunks} chunks)", got, want)
+    for k in KERNELS:
+        launches[k] += got[k]
+    model = build_model(cfg, DEVICE, state_dict=stream_sd)
+    live = StreamingRecognizer(model, audio, chunk_frames=T, normalize="none",
+                               max_output_len=DEPLOY_MAX_OUT)
+    want_toks, live_ms, _ = _counted(stream, live)
+    rtf = ms / 1e3 / (len(wav) / audio.sample_rate)
+    print(f"deploy (d) streaming bundle, bench_streaming's model fp32, chunk_frames {T}: "
+          f"export {times['export_s'][0]:.1f} s, save {times['save_s'][0]:.1f} s, "
+          f"{_dir_bytes(out)} bytes, load {load_s:.1f} s; {len(wav) / audio.sample_rate:.0f}"
+          f" s in {ms:.1f} ms (RTF {rtf:.4f}; live StreamingRecognizer {live_ms:.1f} ms); "
+          f"K3 launches per chunk {got['lstm_fwd'] / n_chunks:g}; tokens equal "
+          f"{got_toks == want_toks} ({len(want_toks)} tokens)", flush=True)
+    if got_toks != want_toks or not want_toks:
+        raise AssertionError("the streaming bundle's tokens differ from "
+                             "StreamingRecognizer greedy's (or none were emitted)")
+    del sess, live, model
+    return {"export_s": times["export_s"][0], "save_s": times["save_s"][0],
+            "bundle_bytes": _dir_bytes(out), "load_s": load_s, "ms": ms, "rtf": rtf,
+            "live_ms": live_ms, "chunks": n_chunks,
+            "k3_per_chunk": got["lstm_fwd"] / n_chunks, "tokens": len(want_toks)}
+
+
+def _deploy_ops(gen):
+    """(e) ``opcheck`` of the six ops on small CUDA tensors (no launch of
+    them counts), and the per-call cost of the op route against the direct
+    wrapper at K3's 64-lane tick shape (T=16, B=64, H=1024, bf16)."""
+    from torch.library import opcheck
+    ops = torch.ops.rnntransducer_tpu_torch
+    T, B, H = 5, 3, 64
+
+    def r(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen)
+
+    lengths = torch.tensor([T, 2, 0], device=DEVICE)
+    cases = {
+        "gru_scan": (r(T, B, 3 * H), r(H, 3 * H), r(3 * H), r(B, H), lengths, True),
+        "gru_scan_backward": (r(T, B, 3 * H), r(T, B, H), r(H, 3 * H), r(3 * H),
+                              lengths, r(T, B, H), r(B, H), False),
+        "lstm_scan": (r(T, B, 4 * H), r(H, 4 * H), r(4 * H), r(B, H), r(B, H),
+                      lengths, False),
+        "lstm_scan_backward": (r(T, B, 4 * H), r(T, B, H), r(T, B, H), r(H, 4 * H),
+                               r(4 * H), lengths, r(T, B, H), r(B, H), r(B, H), True),
+        "rnnt_sweep": (r(2, 9, 4), r(2, 9, 4)),
+        "logmel_rows": (r(7, 400), 16000, 0.025, "hann", 80, False),
+    }
+    checked = {}
+    for name, args in cases.items():
+        res = opcheck(getattr(ops, name).default, args)
+        if set(res.values()) != {"SUCCESS"}:
+            raise AssertionError(f"opcheck {name} on CUDA: {res}")
+        checked[name] = "SUCCESS"
+    xw, w, b, h0, c0, _ = _lstm_inputs(SESSION_CHUNK_FRAMES, 64, 1024, torch.bfloat16, gen)
+    lens = torch.full((64,), SESSION_CHUNK_FRAMES, device=DEVICE)
+    cost = {}
+    for route, fn in (("direct", lambda: rnn_kernels.lstm_scan(xw, w, b, h0, c0, lens)),
+                      ("op", lambda: ops.lstm_scan(xw, w, b, h0, c0, lens, False))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DEPLOY_OP_REPS):
+            fn()
+        host = (time.perf_counter() - t0) / DEPLOY_OP_REPS * 1e6
+        torch.cuda.synchronize()
+        cost[route] = {"host_us_per_call": host,
+                       "device_ms_per_call": _sync_time(fn, DEPLOY_OP_REPS)}
+    print(f"deploy (e) opcheck on CUDA: {checked}; K3 at the 64-lane tick (T="
+          f"{SESSION_CHUNK_FRAMES}, B=64, H=1024, bf16): direct wrapper "
+          f"{cost['direct']['host_us_per_call']:.1f} us host / "
+          f"{cost['direct']['device_ms_per_call']:.4f} ms per call, op route "
+          f"{cost['op']['host_us_per_call']:.1f} us host / "
+          f"{cost['op']['device_ms_per_call']:.4f} ms per call", flush=True)
+    return {"opcheck": checked, "k3_tick_call": cost}
+
+
+def _deploy_lm(tokenizer):
+    """(f) ``cli.convert_lm`` from the order-3 char ARPA of phase 6 (with the
+    unigram ``<unk>`` the writers require) to PROBING, TRIE and an 8-bit
+    quantized TRIE: the first two score every query as the ARPA does, the
+    quantized one as the ARPA ``convert_lm`` reads back from it (its binned
+    values)."""
+    from rnntransducer_tpu_torch.cli import convert_lm
+    from rnntransducer_tpu_torch.decode.ngram_lm import NGramLM
+    d = os.path.join(DEPLOY_DIR, "lm")
+    os.makedirs(d, exist_ok=True)
+    # the binary writers take the unigram <unk> kenlm requires: add one
+    text = open(write_char_arpa(tokenizer, os.path.join(d, "char3_no_unk.arpa")),
+                encoding="utf-8").read().split("\n")
+    n1 = text.index("\\1-grams:")
+    text[1] = f"ngram 1={int(text[1].split('=')[1]) + 1}"
+    text.insert(n1 + 1, "-3.0000\t<unk>")
+    arpa = os.path.join(d, "char3.arpa")
+    with open(arpa, "w", encoding="utf-8") as f:
+        f.write("\n".join(text))
+    paths = {}
+    t0 = time.perf_counter()
+    for name, argv in (("probing", ["--to", "probing"]), ("trie", ["--to", "trie"]),
+                       ("trie_q8", ["--to", "trie", "--quant", "8", "8"])):
+        paths[name] = os.path.join(d, f"char3.{name}")
+        convert_lm.main([arpa, paths[name]] + argv)
+    paths["q8_arpa"] = os.path.join(d, "char3_q8.arpa")
+    convert_lm.main([paths["trie_q8"], paths["q8_arpa"], "--to", "arpa"])
+    convert_s = time.perf_counter() - t0
+    lms = {k: NGramLM.load(p, weight=1.0, beta=0.0) for k, p in paths.items()}
+    lms["arpa"] = NGramLM.load(arpa, weight=1.0, beta=0.0)
+    chars = [tokenizer.ids_to_tokens[i] for i in range(tokenizer.vocab_size)
+             if i not in tokenizer._special_ids] + ["<s>", "</s>"]
+    rng = np.random.RandomState(SEED)
+    queries = [([chars[j] for j in rng.randint(len(chars), size=2)],
+                chars[rng.randint(len(chars))]) for _ in range(DEPLOY_LM_QUERIES)]
+
+    def score(lm, ctx, w):
+        return lm.raw_score(tuple(lm.word_id(c) for c in ctx), lm.word_id(w))
+
+    worst = {}
+    for name, ref in (("probing", "arpa"), ("trie", "arpa"), ("trie_q8", "q8_arpa")):
+        worst[name] = max(abs(score(lms[name], c, w) - score(lms[ref], c, w))
+                          for c, w in queries)
+    print(f"deploy (f) convert_lm of phase 6's order-3 char ARPA to probing, trie, "
+          f"trie -q 8 -b 8 in {convert_s:.2f} s; max |score - reference| over "
+          f"{DEPLOY_LM_QUERIES} queries: {worst}", flush=True)
+    if max(worst.values()) > 1e-6:
+        raise AssertionError(f"a converted LM scores differently: {worst}")
+    return {"convert_s": convert_s, "max_score_diff": worst}
+
+
+def phase_deploy(flax_params, tokenizer, waves, stream_sd):
+    """From a trained model to a deployed one: (a) a params bundle of phase
+    5's checkpoint; (b) / (c) greedy and beam-4 wav bundles of base_config()
+    at full width (K1 in every request; the programs hold the gru_scan op)
+    against the live decoders on the card; (d) a streaming bundle of
+    bench_streaming.py's model (K3 in every chunk); (e) opcheck of the six
+    ops on CUDA and the op route's per-call cost; (f) the KenLM tools."""
+    from rnntransducer_tpu_torch.frontend.melspec import LogMelFrontend
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    os.makedirs(DEPLOY_DIR)
+    launches = dict.fromkeys(KERNELS, 0)
+    cfg = base_config()
+    model = build_model(cfg, DEVICE, state_dict=state_dict_from_flax(flax_params, cfg.model))
+    frontend = LogMelFrontend(cfg.data.audio)
+
+    def live_greedy(x, lens):
+        with torch.inference_mode():
+            feats, flens = frontend(x, lens)
+            return greedy_mod.greedy_decode(model, feats, flens, max_output_len=DEPLOY_MAX_OUT)
+
+    def live_beam(x, lens):
+        from rnntransducer_tpu_torch.decode.beam_batched import batched_beam_decode
+        with torch.inference_mode():
+            feats, flens = frontend(x, lens)
+            toks, n, _ = batched_beam_decode(model, feats, flens, beam_width=DEPLOY_BEAM,
+                                             max_output_len=DEPLOY_MAX_OUT)
+        return toks[:, 0], n[:, 0]
+
+    result = {"params": _deploy_params(waves)}
+    torch.cuda.empty_cache()
+    for decoder, live in (("greedy", live_greedy), ("beam", live_beam)):
+        result[decoder] = _deploy_offline(cfg, flax_params, tokenizer, waves, decoder,
+                                          live, launches)
+        torch.cuda.empty_cache()
+    del model
+    result["streaming"] = _deploy_streaming(stream_sd, launches)
+    torch.cuda.empty_cache()
+    result["ops"] = _deploy_ops(torch.Generator(device=DEVICE).manual_seed(SEED + 14))
+    result["lm"] = _deploy_lm(tokenizer)
+    shutil.rmtree(DEPLOY_DIR, ignore_errors=True)
+    return launches, result
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its wall time printed (where the script's time goes)."""
     t0 = time.perf_counter()
@@ -4211,14 +4555,16 @@ def main() -> int:
                 ("import", lambda: phase_import(tokenizer)),
                 ("conformer", lambda: phase_conformer(tokenizer, waves)),
                 ("parallel", lambda: phase_parallel(flax_params)),
-                ("corpus", lambda: phase_corpus(flax_params, smi))):
+                ("corpus", lambda: phase_corpus(flax_params, smi)),
+                ("deploy", lambda: phase_deploy(flax_params, tokenizer, waves,
+                                                stream_sd))):
             got, result = _timed(name, run)
             bare_busy[name] = result.get("device_busy_share")
             launches = {k: launches[k] + got[k] for k in KERNELS}
             print(f"{name} " + json.dumps(result, ensure_ascii=False), flush=True)
     finally:
         for d in (TRAINER_DIR, DECODE_DIR, EVAL_DIR, IMPORT_DIR, PARALLEL_DIR,
-                  CORPUS_DIR):
+                  CORPUS_DIR, DEPLOY_DIR):
             shutil.rmtree(d, ignore_errors=True)
     vs_plain = _timed("step_vs_plain", phase_step_vs_plain, flax_params)
     print("step_vs_plain " + json.dumps(vs_plain), flush=True)

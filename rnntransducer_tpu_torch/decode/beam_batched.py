@@ -17,12 +17,14 @@ With beam_width=1 this is greedy decoding.  The beam state is an explicit
 ``BeamCarry``, so the same frame loop serves offline decoding and chunked
 streaming (``decode/streaming.py``).
 
-The frame loop is a Python loop of device ops with no host sync inside
-(the JAX package's is one ``lax.scan``): frames past an utterance's
-``enc_lengths`` are skipped with ``torch.where``, not by slicing on host
-lengths.  Hypotheses are batch-major (row b*K + k) in every flat tensor,
-and the prediction network's state keeps its (layers, directions, B*K, H)
-layout.  Scores are fp32 whatever the params' dtype: the joint's logits
+One frame is :func:`beam_frame_step`, a function of the carry with no
+in-place writes.  The eager frame loop is a Python loop over it with no
+host sync inside; an exported program (``utils/export.py``) runs the same
+step in one ``while_loop`` (the JAX package's is one ``lax.scan``).  Frames
+past an utterance's ``enc_lengths`` are skipped with ``torch.where``, not
+by slicing on host lengths.  Hypotheses are batch-major (row b*K + k) in
+every flat tensor, and the prediction network's state keeps its (layers,
+directions, B*K, H) layout.  Scores are fp32 whatever the params' dtype: the joint's logits
 are cast before ``log_softmax``.
 
 Search options (the reference ranking is the default):
@@ -65,21 +67,23 @@ class BeamCarry(NamedTuple):
     wlm_node: Optional[torch.Tensor] = None
 
 
-@torch.inference_mode()
-def init_beam_carry(model: RNNTransducer, batch: int, beam_width: int,
-                    blank_id: int = 0, max_output_len: int = 256,
-                    lm_context: int = 0, word_lm_start: int = -1) -> BeamCarry:
-    """``lm_context > 0`` adds a (B, K, lm_context) emitted-grapheme history
-    for device char-LM fusion (pass the LM's ``.context``), blank-filled =
-    no history yet.  ``word_lm_start >= 0`` adds the word-boundary fusion
-    state: every hypothesis starts in LM state ``word_lm_start`` (the LM's
-    ``<s>`` row) at the trie root."""
+def beam_carry(model: RNNTransducer, batch: int, beam_width: int,
+               blank_id: int = 0, max_output_len: int = 256,
+               lm_context: int = 0, word_lm_start: int = -1) -> BeamCarry:
+    """The carry before the first frame: hypothesis 0 of each utterance
+    live at score 0, the others at NEG.  ``lm_context > 0`` adds a (B, K,
+    lm_context) emitted-grapheme history for device char-LM fusion (pass
+    the LM's ``.context``), blank-filled = no history yet.
+    ``word_lm_start >= 0`` adds the word-boundary fusion state: every
+    hypothesis starts in LM state ``word_lm_start`` (the LM's ``<s>`` row)
+    at the trie root.  Runs under the caller's grad mode (a tracer's too);
+    :func:`init_beam_carry` is the inference-mode entry point."""
     B, K = batch, beam_width
     dev = _device(model)
     dec_out0, state0 = model.predict_step(
         torch.full((B * K,), blank_id, dtype=torch.int64, device=dev), None)
-    scores = torch.full((B, K), NEG, dtype=torch.float32, device=dev)
-    scores[:, 0] = 0.0
+    first = torch.arange(K, device=dev) == 0
+    scores = torch.where(first, 0.0, NEG).to(torch.float32).expand(B, K).contiguous()
 
     def full(shape, value):
         return torch.full(shape, value, dtype=torch.int64, device=dev)
@@ -91,6 +95,9 @@ def init_beam_carry(model: RNNTransducer, batch: int, beam_width: int,
         ctx=full((B, K, lm_context), blank_id) if lm_context > 0 else None,
         wlm_state=full((B, K), word_lm_start) if word_lm_start >= 0 else None,
         wlm_node=full((B, K), 0) if word_lm_start >= 0 else None)
+
+
+init_beam_carry = torch.inference_mode()(beam_carry)
 
 
 def _merge_duplicate_hyps(scores, tokens, lens):
@@ -134,6 +141,137 @@ def _top_k(pool: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return values[:, :k], idx[:, :k]
 
 
+def _check_fusion(carry: BeamCarry, lm_table, word_lm) -> None:
+    if lm_table is not None:
+        if carry.ctx is None:
+            raise ValueError("lm_table given but the beam carry has no ctx "
+                             "history — init_beam_carry(lm_context=order-1)")
+        if carry.ctx.shape[2] != lm_table.ndim - 1:
+            raise ValueError(
+                f"carry ctx holds {carry.ctx.shape[2]} tokens of history "
+                f"but the LM table is order {lm_table.ndim}")
+    if word_lm is not None and carry.wlm_state is None:
+        raise ValueError("word_lm given but the beam carry has no word-LM "
+                         "state — init_beam_carry(word_lm_start=...)")
+
+
+def beam_frame_step(model: RNNTransducer, carry: BeamCarry, enc_t: torch.Tensor,
+                    frame_valid: torch.Tensor, blank_id: int = 0,
+                    max_symbols: int = 3, lm_table: Optional[torch.Tensor] = None,
+                    lm_weight: float = 0.0, merge_duplicates: bool = False,
+                    word_lm=None) -> BeamCarry:
+    """One encoder frame enc_t (B, De) of the beam, valid where
+    ``frame_valid`` (B,): ``max_symbols`` expansion rounds, then the
+    blank-close.  Returns the new carry (an invalid frame's rows unchanged)
+    and writes nothing in place.  Fusion arguments as
+    :func:`beam_decode_frames`."""
+    B, K = carry.scores.shape
+    V = model.cfg.jointnet.num_classes
+    max_len = carry.tokens.shape[2]
+    vocab = torch.arange(V, device=enc_t.device)
+    rows_k = torch.arange(B, device=enc_t.device)[:, None] * K
+
+    def joint(enc_bk, dec_flat):
+        # fp32 scores whatever the compute dtype: the ranking accumulates
+        # log-probs across frames
+        return torch.log_softmax(model.joint_step(enc_bk, dec_flat).float(), -1)
+
+    enc_bk = enc_t.repeat_interleave(K, dim=0)
+    done = torch.zeros_like(carry.lens, dtype=torch.bool)
+    (scores, tokens, lens, last, dec_out, state, ctx, wlm_s, wlm_n) = carry
+    for _ in range(max_symbols):
+        logp = joint(enc_bk, dec_out).reshape(B, K, V)
+        stay = torch.where(done, scores, scores + logp[..., blank_id])
+        ext = scores[..., None] + logp
+        if lm_table is not None:
+            # one gather of the (B, K, V) next-grapheme row per round
+            ext = ext + lm_weight * lm_table[tuple(ctx.unbind(-1))]
+        if word_lm is not None:
+            # the delimiter extension closes the in-progress word: its
+            # fused n-gram score joins the candidate before top-K; an
+            # empty current word (trie root) scores nothing
+            bonus = word_lm.rows[wlm_s, word_lm.node_word[wlm_n]]
+            bonus = torch.where(wlm_n == 0, 0.0, bonus)
+            ext = torch.where(vocab == word_lm.delimiter_id, ext + bonus[..., None], ext)
+        ext = torch.where(vocab == blank_id, NEG, ext)
+        ext = torch.where(done[..., None], NEG, ext)
+        top_sc, top_idx = _top_k(
+            torch.cat([stay, ext.reshape(B, K * V)], dim=1), K)
+        is_stay = top_idx < K
+        parent = torch.where(is_stay, top_idx, (top_idx - K) // V)
+        tok = torch.where(is_stay, blank_id, (top_idx - K) % V)
+
+        # hypotheses are batch-major: row b*K + k of every flat tensor
+        flat = (rows_k + parent).reshape(B * K)
+        tokens_g = _gather_k(tokens, parent)
+        lens_g = torch.gather(lens, 1, parent)
+        last_g = torch.gather(last, 1, parent)
+        dec_g = dec_out.index_select(0, flat)
+        state_g = _map_state(state, lambda a: a.index_select(2, flat))
+
+        append = (~is_stay) & (tok != last_g) & (lens_g < max_len)
+        if ctx is not None:
+            # the LM history mirrors the token buffer: appended graphemes
+            # shift in, duplicate drops advance nothing
+            ctx_g = _gather_k(ctx, parent)
+            shifted = torch.cat([ctx_g[..., 1:], tok[..., None]], dim=-1)
+            ctx = torch.where(append[..., None], shifted, ctx_g)
+        if word_lm is not None:
+            # an appended delimiter commits the completed word (OOV keeps
+            # the previous state) and resets the trie walk; an appended
+            # grapheme advances the trie; drops and stays change nothing
+            wlm_s_g = torch.gather(wlm_s, 1, parent)
+            wlm_n_g = torch.gather(wlm_n, 1, parent)
+            is_delim = tok == word_lm.delimiter_id
+            ns_cand = word_lm.next_state[word_lm.node_word[wlm_n_g]]
+            committed = torch.where(ns_cand >= 0, ns_cand, wlm_s_g)
+            wlm_s = torch.where(append & is_delim & (wlm_n_g != 0),
+                                committed, wlm_s_g)
+            walk = word_lm.trie_next[wlm_n_g, tok]
+            wlm_n = torch.where(append, torch.where(is_delim, 0, walk),
+                                wlm_n_g)
+        idx = lens_g.clamp(max=max_len - 1)[..., None]
+        cur = torch.gather(tokens_g, 2, idx)
+        tokens = tokens_g.scatter(2, idx, torch.where(append[..., None],
+                                                      tok[..., None], cur))
+        lens = lens_g + append.to(torch.int64)
+        last = torch.where(is_stay, last_g, tok)
+
+        feed = torch.where(is_stay, blank_id, tok).reshape(B * K)
+        new_dec, new_state = model.predict_step(feed, state_g)
+        stay_bk = is_stay.reshape(B * K)
+        dec_out = torch.where(stay_bk[:, None], dec_g, new_dec)
+        state = _map_state(state_g, lambda a, n: torch.where(
+            stay_bk.reshape(1, 1, -1, 1), a, n), new_state)
+        done = is_stay
+        scores = top_sc
+
+    # blank-close the hypotheses that used up the round budget
+    logp = joint(enc_bk, dec_out).reshape(B, K, V)
+    scores = torch.where(done, scores, scores + logp[..., blank_id])
+    if merge_duplicates:
+        # every hypothesis is blank-closed here, so merging at the frame
+        # boundary is alignment-consistent
+        scores = _merge_duplicate_hyps(scores, tokens, lens)
+
+    # invalid frames change nothing
+    def pick(new, old):
+        if new is None:
+            return None
+        return torch.where(frame_valid.reshape((B,) + (1,) * (new.ndim - 1)),
+                           new, old)
+
+    valid_bk = frame_valid.repeat_interleave(K)
+    return BeamCarry(
+        pick(scores, carry.scores), pick(tokens, carry.tokens),
+        pick(lens, carry.lens), pick(last, carry.last),
+        torch.where(valid_bk[:, None], dec_out, carry.dec_out),
+        _map_state(state, lambda n, o: torch.where(
+            valid_bk.reshape(1, 1, -1, 1), n, o), carry.state),
+        pick(ctx, carry.ctx), pick(wlm_s, carry.wlm_state),
+        pick(wlm_n, carry.wlm_node))
+
+
 @torch.inference_mode()
 def beam_decode_frames(model: RNNTransducer, enc: torch.Tensor,
                        enc_lengths: torch.Tensor, carry: BeamCarry,
@@ -150,125 +288,12 @@ def beam_decode_frames(model: RNNTransducer, enc: torch.Tensor,
     ``word_lm``: a ``DeviceWordLM`` on enc's device: a delimiter extension
     gains the just-completed word's fused n-gram score; the carry must hold
     the word-LM fields."""
-    B, K = carry.scores.shape
-    if lm_table is not None:
-        if carry.ctx is None:
-            raise ValueError("lm_table given but the beam carry has no ctx "
-                             "history — init_beam_carry(lm_context=order-1)")
-        if carry.ctx.shape[2] != lm_table.ndim - 1:
-            raise ValueError(
-                f"carry ctx holds {carry.ctx.shape[2]} tokens of history "
-                f"but the LM table is order {lm_table.ndim}")
-    if word_lm is not None and carry.wlm_state is None:
-        raise ValueError("word_lm given but the beam carry has no word-LM "
-                         "state — init_beam_carry(word_lm_start=...)")
-    V = model.cfg.jointnet.num_classes
-    max_len = carry.tokens.shape[2]
-    dev = enc.device
-    enc_lengths = enc_lengths.to(device=dev, dtype=torch.int64)
-    rows_k = torch.arange(B, device=dev)[:, None] * K
-
-    def joint(enc_bk, dec_flat):
-        # fp32 scores whatever the compute dtype: the ranking accumulates
-        # log-probs across frames
-        return torch.log_softmax(model.joint_step(enc_bk, dec_flat).float(), -1)
-
+    _check_fusion(carry, lm_table, word_lm)
+    enc_lengths = enc_lengths.to(device=enc.device, dtype=torch.int64)
     for t in range(enc.shape[1]):
-        frame_valid = t < enc_lengths                          # (B,)
-        enc_bk = enc[:, t].repeat_interleave(K, dim=0)
-        done = torch.zeros((B, K), dtype=torch.bool, device=dev)
-        (scores, tokens, lens, last, dec_out, state, ctx,
-         wlm_s, wlm_n) = carry
-        for _ in range(max_symbols):
-            logp = joint(enc_bk, dec_out).reshape(B, K, V)
-            stay = torch.where(done, scores, scores + logp[..., blank_id])
-            ext = scores[..., None] + logp
-            if lm_table is not None:
-                # one gather of the (B, K, V) next-grapheme row per round
-                ext = ext + lm_weight * lm_table[tuple(ctx.unbind(-1))]
-            if word_lm is not None:
-                # the delimiter extension closes the in-progress word: its
-                # fused n-gram score joins the candidate before top-K; an
-                # empty current word (trie root) scores nothing
-                bonus = word_lm.rows[wlm_s, word_lm.node_word[wlm_n]]
-                ext[..., word_lm.delimiter_id] += torch.where(wlm_n == 0, 0.0, bonus)
-            ext[..., blank_id] = NEG
-            ext = torch.where(done[..., None], NEG, ext)
-            top_sc, top_idx = _top_k(
-                torch.cat([stay, ext.reshape(B, K * V)], dim=1), K)
-            is_stay = top_idx < K
-            parent = torch.where(is_stay, top_idx, (top_idx - K) // V)
-            tok = torch.where(is_stay, blank_id, (top_idx - K) % V)
-
-            # hypotheses are batch-major: row b*K + k of every flat tensor
-            flat = (rows_k + parent).reshape(B * K)
-            tokens_g = _gather_k(tokens, parent)
-            lens_g = torch.gather(lens, 1, parent)
-            last_g = torch.gather(last, 1, parent)
-            dec_g = dec_out.index_select(0, flat)
-            state_g = _map_state(state, lambda a: a.index_select(2, flat))
-
-            append = (~is_stay) & (tok != last_g) & (lens_g < max_len)
-            if ctx is not None:
-                # the LM history mirrors the token buffer: appended graphemes
-                # shift in, duplicate drops advance nothing
-                ctx_g = _gather_k(ctx, parent)
-                shifted = torch.cat([ctx_g[..., 1:], tok[..., None]], dim=-1)
-                ctx = torch.where(append[..., None], shifted, ctx_g)
-            if word_lm is not None:
-                # an appended delimiter commits the completed word (OOV keeps
-                # the previous state) and resets the trie walk; an appended
-                # grapheme advances the trie; drops and stays change nothing
-                wlm_s_g = torch.gather(wlm_s, 1, parent)
-                wlm_n_g = torch.gather(wlm_n, 1, parent)
-                is_delim = tok == word_lm.delimiter_id
-                ns_cand = word_lm.next_state[word_lm.node_word[wlm_n_g]]
-                committed = torch.where(ns_cand >= 0, ns_cand, wlm_s_g)
-                wlm_s = torch.where(append & is_delim & (wlm_n_g != 0),
-                                    committed, wlm_s_g)
-                walk = word_lm.trie_next[wlm_n_g, tok]
-                wlm_n = torch.where(append, torch.where(is_delim, 0, walk),
-                                    wlm_n_g)
-            idx = lens_g.clamp(max=max_len - 1)[..., None]
-            cur = torch.gather(tokens_g, 2, idx)
-            tokens = tokens_g.scatter(2, idx, torch.where(append[..., None],
-                                                          tok[..., None], cur))
-            lens = lens_g + append.to(torch.int64)
-            last = torch.where(is_stay, last_g, tok)
-
-            feed = torch.where(is_stay, blank_id, tok).reshape(B * K)
-            new_dec, new_state = model.predict_step(feed, state_g)
-            stay_bk = is_stay.reshape(B * K)
-            dec_out = torch.where(stay_bk[:, None], dec_g, new_dec)
-            state = _map_state(state_g, lambda a, n: torch.where(
-                stay_bk.reshape(1, 1, -1, 1), a, n), new_state)
-            done = is_stay
-            scores = top_sc
-
-        # blank-close the hypotheses that used up the round budget
-        logp = joint(enc_bk, dec_out).reshape(B, K, V)
-        scores = torch.where(done, scores, scores + logp[..., blank_id])
-        if merge_duplicates:
-            # every hypothesis is blank-closed here, so merging at the frame
-            # boundary is alignment-consistent
-            scores = _merge_duplicate_hyps(scores, tokens, lens)
-
-        # invalid frames change nothing
-        def pick(new, old):
-            if new is None:
-                return None
-            return torch.where(frame_valid.reshape((B,) + (1,) * (new.ndim - 1)),
-                               new, old)
-
-        valid_bk = frame_valid.repeat_interleave(K)
-        carry = BeamCarry(
-            pick(scores, carry.scores), pick(tokens, carry.tokens),
-            pick(lens, carry.lens), pick(last, carry.last),
-            torch.where(valid_bk[:, None], dec_out, carry.dec_out),
-            _map_state(state, lambda n, o: torch.where(
-                valid_bk.reshape(1, 1, -1, 1), n, o), carry.state),
-            pick(ctx, carry.ctx), pick(wlm_s, carry.wlm_state),
-            pick(wlm_n, carry.wlm_node))
+        carry = beam_frame_step(model, carry, enc[:, t], t < enc_lengths, blank_id,
+                                max_symbols, lm_table, lm_weight, merge_duplicates,
+                                word_lm)
     return carry
 
 

@@ -10,10 +10,12 @@ Same emission rule as the JAX frame scan:
 * emission times are absolute encoder-frame indices (``frames_done``
   offset), so the carry can resume across chunks.
 
-The frame loop is a Python loop of device ops with no host sync inside;
-the carry's token and time buffers are updated in place.
-:func:`greedy_decode_label_looping` walks events instead of frames and
-emits the same tokens.
+One frame is :func:`greedy_frame_step`, a function of the carry with no
+in-place writes: the eager frame loop is a Python loop over it with no host
+sync inside, and an exported program (``utils/export.py``) runs the same
+step in one ``while_loop`` over frames, as the JAX package runs its step in
+one ``lax.scan``.  :func:`greedy_decode_label_looping` walks events instead
+of frames and emits the same tokens.
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ def _device(model: RNNTransducer) -> torch.device:
     return next(model.parameters()).device
 
 
-@torch.inference_mode()
-def init_greedy_carry(model: RNNTransducer, batch: int, blank_id: int = 0,
-                      max_output_len: int = 256) -> GreedyCarry:
+def greedy_carry(model: RNNTransducer, batch: int, blank_id: int = 0,
+                 max_output_len: int = 256) -> GreedyCarry:
+    """The carry before the first frame: the prediction net primed with
+    blank, an empty output.  Runs under the caller's grad mode (a tracer's
+    too); :func:`init_greedy_carry` is the inference-mode entry point."""
     dev = _device(model)
     blank = torch.full((batch,), blank_id, dtype=torch.int64, device=dev)
     dec_out0, state0 = model.predict_step(blank, None)
@@ -58,11 +62,53 @@ def init_greedy_carry(model: RNNTransducer, batch: int, blank_id: int = 0,
         frames_done=zeros)
 
 
+init_greedy_carry = torch.inference_mode()(greedy_carry)
+
+
 def _select_state(keep: torch.Tensor, new: RNNState, old: RNNState) -> RNNState:
     """Per-row choice between two (L, D, B, H) states."""
     m = keep.view(1, 1, -1, 1)
     c = None if new.c is None else torch.where(m, new.c, old.c)
     return RNNState(torch.where(m, new.h, old.h), c)
+
+
+def _put(buf: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
+         value: torch.Tensor) -> torch.Tensor:
+    """``buf`` (B, L) with ``value`` written at column idx[b] of the rows
+    where ``keep``; out of place."""
+    col = idx[:, None]
+    return buf.scatter(1, col, torch.where(keep[:, None], value[:, None],
+                                           buf.gather(1, col)))
+
+
+def greedy_frame_step(model: RNNTransducer, carry: GreedyCarry, enc_t: torch.Tensor,
+                      t, enc_lengths: torch.Tensor, blank_id: int = 0,
+                      max_symbols: int = 3) -> GreedyCarry:
+    """One encoder frame enc_t (B, De) at frame index ``t`` (an int, or a
+    0-dim int64 tensor inside a traced loop) of this call's chunk: up to
+    ``max_symbols`` joint + prediction steps.  Returns the new carry and
+    writes nothing in place; ``frames_done`` is left for the caller to
+    advance once the chunk is consumed."""
+    dec_out, state, last_app, out_buf, out_len, time_buf, frames_done = carry
+    max_len = out_buf.shape[1]
+    abs_t = frames_done + t
+    emitting = t < enc_lengths
+    for _ in range(max_symbols):
+        tok = model.joint_step(enc_t, dec_out).argmax(dim=-1)
+        advance = emitting & (tok != blank_id)
+        do_append = advance & (tok != last_app) & (out_len < max_len)
+        idx = out_len.clamp(max=max_len - 1)
+        out_buf = _put(out_buf, idx, do_append, tok)
+        time_buf = _put(time_buf, idx, do_append, abs_t)
+        out_len = out_len + do_append.to(torch.int64)
+        last_app = torch.where(do_append, tok, last_app)
+        new_dec_out, new_state = model.predict_step(
+            torch.where(advance, tok, blank_id), state)
+        dec_out = torch.where(advance[:, None], new_dec_out, dec_out)
+        state = _select_state(advance, new_state, state)
+        emitting = advance
+    return GreedyCarry(dec_out, state, last_app, out_buf, out_len, time_buf,
+                       frames_done)
 
 
 @torch.inference_mode()
@@ -71,32 +117,11 @@ def greedy_decode_frames(model: RNNTransducer, enc: torch.Tensor,
                          blank_id: int = 0, max_symbols: int = 3) -> GreedyCarry:
     """Consume encoder frames enc (B, T, De), valid up to enc_lengths, and
     return the advanced carry."""
-    B, T = enc.shape[0], enc.shape[1]
-    max_len = carry.tokens.shape[1]
-    dec_out, state, last_app, out_buf, out_len, time_buf, frames_done = carry
     enc_lengths = enc_lengths.to(device=enc.device, dtype=torch.int64)
-    rows = torch.arange(B, device=enc.device)
-    blank = torch.full((B,), blank_id, dtype=torch.int64, device=enc.device)
-    for t in range(T):
-        enc_i = enc[:, t]
-        abs_t = frames_done + t
-        emitting = t < enc_lengths
-        for _ in range(max_symbols):
-            tok = model.joint_step(enc_i, dec_out).argmax(dim=-1)
-            advance = emitting & (tok != blank_id)
-            do_append = advance & (tok != last_app) & (out_len < max_len)
-            idx = out_len.clamp(max=max_len - 1)
-            out_buf[rows, idx] = torch.where(do_append, tok, out_buf[rows, idx])
-            time_buf[rows, idx] = torch.where(do_append, abs_t, time_buf[rows, idx])
-            out_len = out_len + do_append.to(torch.int64)
-            last_app = torch.where(do_append, tok, last_app)
-            new_dec_out, new_state = model.predict_step(
-                torch.where(advance, tok, blank), state)
-            dec_out = torch.where(advance[:, None], new_dec_out, dec_out)
-            state = _select_state(advance, new_state, state)
-            emitting = advance
-    return GreedyCarry(dec_out, state, last_app, out_buf, out_len, time_buf,
-                       frames_done + enc_lengths)
+    for t in range(enc.shape[1]):
+        carry = greedy_frame_step(model, carry, enc[:, t], t, enc_lengths,
+                                  blank_id, max_symbols)
+    return carry._replace(frames_done=carry.frames_done + enc_lengths)
 
 
 def _encode(model: RNNTransducer, feats, feat_lengths):

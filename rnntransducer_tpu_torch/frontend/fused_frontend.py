@@ -24,7 +24,8 @@ and multiplies in fp32, so on the CPU it is exact up to summation order.
 
 ``logmel_fused`` dispatches on the device of ``wav``: the plain version for
 a CPU tensor, the hand-written kernel ``csrc/logmel.cu`` for a CUDA tensor,
-or the call raises.  ``logmel_fused.launches`` counts its kernel launches
+or the call raises; while a tracer runs, the frame rows go to the
+registered op ``rnntransducer_tpu_torch::logmel_rows`` (``ops/library.py``).  ``logmel_fused.launches`` counts its kernel launches
 (one per call; two on the chunked engine).  The kernel has three engines
 (:func:`kernel_plan`): wgmma where its 64-row slab fits the card's shared
 memory, else mma.sync on smaller tiles, else, for windows too wide for a
@@ -49,7 +50,7 @@ from rnntransducer_tpu_torch.config import AudioConfig
 from rnntransducer_tpu_torch.frontend.melspec import (WINDOWS, frame_signal,
                                                       mean_var_normalize,
                                                       mel_filterbank)
-from rnntransducer_tpu_torch.ops import build
+from rnntransducer_tpu_torch.ops import build, library
 from rnntransducer_tpu_torch.ops.device import device_limits
 from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 
@@ -375,12 +376,18 @@ def logmel_fused(wav, cfg: AudioConfig, wav_lengths=None,
     """Fused log-mel: wav (B, S) float PCM -> ((B, F, n_mels) float32
     features, (B,) int32 frame lengths), as the JAX package's
     ``logmel_pallas``."""
-    if wav.device.type == "cpu":
+    if library.tracing(wav):
+        rows, F = _frames(wav, cfg, wav_lengths)
+        feats = torch.ops.rnntransducer_tpu_torch.logmel_rows(
+            rows, cfg.sample_rate, cfg.window_size_sec, cfg.window, cfg.n_mels,
+            bool(high_precision))
+    elif wav.device.type == "cpu":
         return logmel_fused_reference(wav, cfg, wav_lengths, high_precision)
-    if wav.device.type != "cuda":
+    elif wav.device.type != "cuda":
         raise ValueError(f"logmel_fused runs on cpu or cuda, not {wav.device}")
-    rows, F = _frames(wav, cfg, wav_lengths)
-    feats = logmel_rows_cuda(rows, cfg, high_precision)
+    else:
+        rows, F = _frames(wav, cfg, wav_lengths)
+        feats = logmel_rows_cuda(rows, cfg, high_precision)
     return (feats.reshape(wav.shape[0], F, cfg.n_mels),
             _lengths(wav, cfg, wav_lengths, F))
 

@@ -9,7 +9,9 @@ tensor goes to the hand-written kernel (``csrc/gru_fwd.cu``,
 ``csrc/lstm_fwd.cu``) or the call raises.  ``gru_scan_backward`` and
 ``lstm_scan_backward`` do the same for the backward through time
 (``csrc/gru_bwd.cu``, ``csrc/lstm_bwd.cu``).  There is no fallback from a
-kernel to its plain version.
+kernel to its plain version.  While a tracer runs (``torch.export``), each
+wrapper calls its registered op instead (``ops/library.py``), which
+resolves to the same two implementations when the traced program runs.
 
 :class:`GRUScanFunction` and :class:`LSTMScanFunction` are the autograd
 forms: the forward is the scan, the backward the backward scan plus the
@@ -45,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from rnntransducer_tpu_torch.ops import build
+from rnntransducer_tpu_torch.ops import build, library
 from rnntransducer_tpu_torch.ops.device import device_limits
 from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 
@@ -362,6 +364,9 @@ def gru_scan(xw, w_hh, b_hh, h0, lengths, reverse: bool = False):
     Returns:
       (h_all (T, B, H), h_final (B, H)) in xw's dtype.
     """
+    if library.tracing(xw):
+        return torch.ops.rnntransducer_tpu_torch.gru_scan(xw, w_hh, b_hh, h0, lengths,
+                                                          bool(reverse))
     if xw.device.type == "cpu":
         return gru_scan_reference(xw, w_hh, b_hh, h0, lengths, reverse)
     if xw.device.type != "cuda":
@@ -647,6 +652,9 @@ def gru_scan_backward(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
                       reverse: bool = False):
     """Backward through a masked GRU scan; see
     :func:`gru_scan_backward_reference` for the arguments and results."""
+    if library.tracing(xw):
+        return torch.ops.rnntransducer_tpu_torch.gru_scan_backward(
+            xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin, bool(reverse))
     if xw.device.type == "cpu":
         return gru_scan_backward_reference(xw, h_prev, w_hh, b_hh, lengths,
                                            g_hall, g_hfin, reverse)
@@ -900,13 +908,17 @@ def lstm_scan(xw, w_hh, b_hh, h0, c0, lengths, reverse: bool = False,
       ``with_carry``, (h_all, c_all, h_final, c_final) as
       :func:`lstm_scan_reference`.
     """
-    if xw.device.type == "cpu":
+    if library.tracing(xw):
+        h_all, c_all, h_fin, c_fin = torch.ops.rnntransducer_tpu_torch.lstm_scan(
+            xw, w_hh, b_hh, h0, c0, lengths, bool(reverse))
+    elif xw.device.type == "cpu":
         return lstm_scan_reference(xw, w_hh, b_hh, h0, c0, lengths, reverse,
                                    with_carry)
-    if xw.device.type != "cuda":
+    elif xw.device.type != "cuda":
         raise ValueError(f"lstm_scan runs on cpu or cuda, not {xw.device}")
-    h_all, c_all, h_fin, c_fin = _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0, lengths,
-                                                 reverse)
+    else:
+        h_all, c_all, h_fin, c_fin = _lstm_scan_cuda(xw, w_hh, b_hh, h0, c0,
+                                                     lengths, reverse)
     return (h_all, c_all, h_fin, c_fin) if with_carry else (h_all, h_fin, c_fin)
 
 
@@ -1106,6 +1118,10 @@ def lstm_scan_backward(xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
                        g_cfin, reverse: bool = False):
     """Backward through a masked LSTM scan; see
     :func:`lstm_scan_backward_reference` for the arguments and results."""
+    if library.tracing(xw):
+        return torch.ops.rnntransducer_tpu_torch.lstm_scan_backward(
+            xw, h_prev, c_prev, w_hh, b_hh, lengths, g_hall, g_hfin, g_cfin,
+            bool(reverse))
     if xw.device.type == "cpu":
         return lstm_scan_backward_reference(xw, h_prev, c_prev, w_hh, b_hh, lengths,
                                             g_hall, g_hfin, g_cfin, reverse)

@@ -5,7 +5,9 @@
 lattices, one label column at a time.  It dispatches on the device of its
 inputs: a CPU tensor goes to :func:`sweep_reference`; a CUDA tensor goes to
 the hand-written kernel ``csrc/rnnt_sweep.cu`` or the call raises.  There is
-no fallback from the kernel to the plain version.
+no fallback from the kernel to the plain version.  While a tracer runs it
+calls the registered op ``rnntransducer_tpu_torch::rnnt_sweep`` instead
+(``ops/library.py``).
 
 ``sweep.launches`` counts the kernel launches (one per call).
 :func:`sweep_chunked_reference` is the plain mirror of the kernel's
@@ -20,7 +22,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from rnntransducer_tpu_torch.ops import build
+from rnntransducer_tpu_torch.ops import build, library
 
 NEG = -1e30  # the loss's fill (rnnt_loss.py)
 
@@ -119,6 +121,8 @@ def _sweep_cuda(blank_edge, label_edge):
 
 def sweep(blank_edge: torch.Tensor, label_edge: torch.Tensor) -> torch.Tensor:
     """alpha (N, T, U+1) of N lattices; see :func:`sweep_reference`."""
+    if library.tracing(blank_edge):
+        return torch.ops.rnntransducer_tpu_torch.rnnt_sweep(blank_edge, label_edge)
     if blank_edge.device.type == "cpu":
         return sweep_reference(blank_edge, label_edge)
     if blank_edge.device.type != "cuda":

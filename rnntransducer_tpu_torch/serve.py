@@ -1,6 +1,7 @@
 """Recognition API for serving (port of ``rnntransducer_tpu/serve.py``).
 
     rec = Recognizer.from_torch_params("bundle")        # config.json + params.pt
+    rec = Recognizer.from_params("export")              # a params bundle
     rec = Recognizer.from_checkpoint("checkpoints")     # a Trainer's checkpoints
     text = rec.transcribe("utt.wav")
     texts = rec.transcribe_batch([wav1, wav2])          # batched device beam
@@ -10,10 +11,18 @@ Decoders: ``"beam_batched"`` (the default, the device beam at
 ``cfg.inference.beam_width``, with an optional on-device char LM),
 ``"greedy"``, and LM / hotword fusion through the host A/B beam
 (``decode/beam.py``).
+
+Deployment artifacts: ``export_params`` writes a params bundle (no
+optimizer moments) in the JAX package's files, ``params.msgpack`` (flax's
+``to_bytes`` layout of the flax params tree) + ``config.json`` +
+``export.json``; ``Recognizer.from_params`` reads one, whichever package
+wrote it.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -33,6 +42,39 @@ from rnntransducer_tpu_torch.utils.precision import decode_dtype
 
 def _is_flax_tree(params: Mapping) -> bool:
     return any(isinstance(v, Mapping) for v in params.values())
+
+
+PARAMS_FILE = "params.msgpack"
+
+
+def export_params(checkpoint_dir: str, out_dir: str,
+                  step: Optional[int] = None) -> str:
+    """Write a params bundle of a Trainer's checkpoint (the best-by-val_cer,
+    else latest step, or ``step``): ``params.msgpack`` (the flax params tree
+    in flax's ``to_bytes`` layout, :mod:`utils.flax_msgpack`),
+    ``config.json`` and ``export.json`` holding ``{"step": n}``, the JAX
+    package's ``serve.export_params`` files.  Returns ``out_dir``."""
+    from rnntransducer_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                          load_config,
+                                                          load_decode_params)
+    from rnntransducer_tpu_torch.utils import flax_msgpack
+
+    cfg = load_config(checkpoint_dir)
+    if step is None:
+        mgr = CheckpointManager(checkpoint_dir, save_top_k=cfg.train.save_top_k)
+        step = mgr.best_or_latest_step()
+        mgr.close()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {checkpoint_dir}")
+    params, _ = load_decode_params(checkpoint_dir, cfg, step=step)
+    tree = weights.flax_from_state_dict(params, cfg.model)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, PARAMS_FILE), "wb") as f:
+        f.write(flax_msgpack.dumps(tree))
+    cfg.to_json(os.path.join(out_dir, "config.json"))
+    with open(os.path.join(out_dir, "export.json"), "w") as f:
+        json.dump({"step": int(step)}, f)
+    return out_dir
 
 
 class Recognizer:
@@ -120,6 +162,20 @@ class Recognizer:
         cfg = load_config(checkpoint_dir)
         params, _ = load_decode_params(checkpoint_dir, cfg, step=step,
                                        average_k=average_k, use_ema=use_ema)
+        tokenizer = load_tokenizer(vocab_path or cfg.vocab_path,
+                                   cfg.model.jointnet.num_classes)
+        return cls(cfg, params, tokenizer, **kw)
+
+    @classmethod
+    def from_params(cls, export_dir: str, vocab_path: Optional[str] = None,
+                    **kw) -> "Recognizer":
+        """From a params bundle (:func:`export_params`, or the JAX package's
+        ``serve.export_params``): ``config.json`` + ``params.msgpack``."""
+        from rnntransducer_tpu_torch.utils import flax_msgpack
+
+        cfg = Config.from_json(os.path.join(export_dir, "config.json"))
+        with open(os.path.join(export_dir, PARAMS_FILE), "rb") as f:
+            params = flax_msgpack.loads(f.read())
         tokenizer = load_tokenizer(vocab_path or cfg.vocab_path,
                                    cfg.model.jointnet.num_classes)
         return cls(cfg, params, tokenizer, **kw)

@@ -20,8 +20,10 @@ the port's ``state_dict``.  Layouts:
   with a leading L/G axis (global block s*G + j); the bridge unstacks them.
 
 Every shape is checked against the port's model for ``model_cfg`` and every
-flax leaf must be used: a mismatch raises.  ``save``/``load`` keep a
-converted bundle (``config.json`` + ``params.pt``) for machines without flax.
+flax leaf must be used: a mismatch raises.  :func:`flax_from_state_dict`
+maps the other way, for the params bundles both packages read
+(``serve.export_params``).  ``save``/``load`` keep a converted bundle
+(``config.json`` + ``params.pt``) for machines without flax.
 """
 
 from __future__ import annotations
@@ -194,6 +196,49 @@ def state_dict_from_flax(params: Mapping, model_cfg: ModelConfig
     return out
 
 
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                         model_cfg: ModelConfig) -> Dict:
+    """The inverse of :func:`state_dict_from_flax`: the port's state_dict ->
+    the JAX package's flax params tree (nested dicts of numpy arrays), in
+    the layout ``model_cfg`` gives it (:func:`flax_layout`: the RNN stacks,
+    ``scan_layers``, the Conformer's ``scan_blocks`` / ``scan_block_group``).
+    Float tensors keep their dtype, but bfloat16 (numpy has none), which
+    becomes float32.  Every shape is checked against the port's model for
+    ``model_cfg`` and every tensor must be used: a mismatch raises."""
+    expected = _expected_shapes(model_cfg)
+    layout = list(flax_layout(model_cfg))
+    stacked: Dict[Tuple[str, ...], int] = {}
+    for path, _, index, _ in layout:
+        if index is not None:
+            stacked[path] = max(stacked.get(path, 0), index + 1)
+    missing = sorted({key for _, key, _, _ in layout} - set(state_dict))
+    if missing:
+        raise ValueError(f"state_dict lacks {missing}")
+    extra = sorted(set(state_dict) - {key for _, key, _, _ in layout})
+    if extra:
+        raise ValueError(f"state_dict holds tensors the config does not use: {extra}")
+    tree: Dict = {}
+    for path, key, index, transpose in layout:
+        value = state_dict[key].detach().cpu()
+        if tuple(value.shape) != expected[key]:
+            raise ValueError(f"{key}: shape {tuple(value.shape)}, the config's "
+                             f"model has {expected[key]}")
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        arr = value.numpy()
+        if transpose:
+            arr = np.ascontiguousarray(arr.T)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        if index is None:
+            node[path[-1]] = arr
+        else:
+            node.setdefault(path[-1], np.zeros((stacked[path],) + arr.shape,
+                                               arr.dtype))[index] = arr
+    return tree
+
+
 def random_flax_params(model_cfg: ModelConfig, generator: torch.Generator) -> Dict:
     """Random weights in the JAX package's flax layout (nested dicts of
     float32 numpy arrays), drawn from ``generator``: RNN tensors uniform in
@@ -201,13 +246,8 @@ def random_flax_params(model_cfg: ModelConfig, generator: torch.Generator) -> Di
     +-1/sqrt(fan_in), the embedding standard normal, LayerNorm scales 1 and
     offsets 0."""
     expected = _expected_shapes(model_cfg)
-    layout = list(flax_layout(model_cfg))
-    stacked: Dict[Tuple[str, ...], int] = {}
-    for path, _, index, _ in layout:
-        if index is not None:
-            stacked[path] = max(stacked.get(path, 0), index + 1)
-    tree: Dict = {}
-    for path, key, index, transpose in layout:
+    state_dict: Dict[str, torch.Tensor] = {}
+    for path, key, _, _ in flax_layout(model_cfg):
         shape = expected[key]
         if key.endswith("embedding.weight"):
             value = torch.randn(shape, generator=generator)
@@ -224,18 +264,8 @@ def random_flax_params(model_cfg: ModelConfig, generator: torch.Generator) -> Di
                 fan = expected[key.rsplit(".", 1)[0] + ".weight"][1]
             scale = 1.0 / float(fan) ** 0.5
             value = (torch.rand(shape, generator=generator) * 2.0 - 1.0) * scale
-        arr = value.numpy()
-        if transpose:
-            arr = np.ascontiguousarray(arr.T)
-        node = tree
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        if index is None:
-            node[path[-1]] = arr
-        else:
-            node.setdefault(path[-1], np.zeros((stacked[path],) + arr.shape,
-                                               np.float32))[index] = arr
-    return tree
+        state_dict[key] = value
+    return flax_from_state_dict(state_dict, model_cfg)
 
 
 def save(directory: str, cfg: Config, state_dict: Mapping[str, torch.Tensor]) -> str:

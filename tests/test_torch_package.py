@@ -15,7 +15,7 @@ from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer
 from rnntransducer_tpu_torch.utils.weights import random_flax_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rnntransducer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "rnntransducer_tpu")
 
 
 def _port_sources():
@@ -49,8 +49,10 @@ def test_scan_covers_the_training_loop_and_cli():
     """The modules of the training loop, the data feed, the decoders, the
     train and inference CLIs, session serving, corpus evaluation, the
     reference-checkpoint import, the Conformer, the optimizers, the data
-    axis, the manifest and tokenizer tools and the debugging tools are among
-    those scanned, and each imports the port's own copies."""
+    axis, the manifest and tokenizer tools, the debugging tools, the
+    kernels' op registrations, the deployment bundles, the params-bundle
+    codec and the KenLM tools are among those scanned, and each imports the
+    port's own copies."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     pkg = "rnntransducer_tpu_torch"
     for mod in ("train/metrics.py", "train/checkpoint.py", "train/loop.py",
@@ -65,7 +67,9 @@ def test_scan_covers_the_training_loop_and_cli():
                 "models/conformer.py", "models/transducer.py", "train/optim.py",
                 "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
                 "cli/prepare_manifest.py", "cli/train_tokenizer.py",
-                "utils/debugging.py"):
+                "utils/debugging.py", "ops/library.py", "utils/export.py",
+                "utils/flax_msgpack.py", "utils/weights.py", "utils/kenlm_binary.py",
+                "cli/convert_lm.py"):
         path = os.path.join(pkg, mod)
         assert path in scanned, path
         own = [m for m in _imported_modules(os.path.join(REPO, path))
