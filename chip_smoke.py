@@ -183,10 +183,29 @@ Phases (each raises, and the script exits non-zero, on failure):
     against the direct wrapper at K3's 64-lane tick; (f)
     ``cli.convert_lm`` of (6b)'s char ARPA to PROBING, TRIE and an 8-bit
     quantized TRIE, each scoring as its ARPA.
-12. One fp32 step at full width (B=8: the plain backward scans are Python
+12. The model, stage and time axes (``phase_model_parallel``): gloo
+    worker processes share the card (NCCL refuses two ranks on one
+    device; gloo's send / recv stage through host copies), every rank's
+    launches checked at every step, step times and the card's name and
+    power limit printed.  Two ranks, in turn: (a) model 2, the flagship
+    on int16 raw PCM, bf16, B=64 (16 K1, 32 K2, 2 K3, 4 K4, 1 K5, 1 K6 a
+    step), the first loss against this process's single-device step
+    within 2 (T + U) 2^-8 max(|A| + |C|), then fp32 at 2 encoder layers
+    and 8 rows: the params after 2 steps against one process (1e-5
+    relative in each tensor's 2-norm; the first grads' difference
+    printed); (b) stage 2, the flagship on
+    features, M = 2 (16 K1, 32 K2, 2 K3, 4 K4, 1 K5), then
+    ``pipeline_encode`` in fp32 at 4 layers: output and grads against
+    the same microbatches in one process (1e-5); (c) time 2, the
+    streaming model, bf16, B=16, T=1024 (8 K3, 16 K4, 1 K5), then
+    ``wavefront_encode`` against one whole-T scan, fp32 within 1e-6 and
+    the bf16 difference printed.  Four ranks beside this process's
+    references: (d) data 2 x stage 2, fp32 at 4 layers, ZeRO-1, against
+    one process on the same rows as microbatches (1e-5).
+13. One fp32 step at full width (B=8: the plain backward scans are Python
     loops of small launches), kernels against plain versions (GRU, LSTM and
     the sweep): loss and the grads of named params.
-13. Print one JSON line describing every kernel, then, as the last line,
+14. Print one JSON line describing every kernel, then, as the last line,
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -1534,6 +1553,18 @@ def quantize_pcm(wav: np.ndarray, lengths: np.ndarray):
     return q, scales
 
 
+def _raw_batch(cfg, B, T, U) -> dict:
+    """B seeded waves of up to (T - 1) * 160 samples as int16 plus a
+    per-utterance scale, with ``_train_batch``'s labels, on the card."""
+    wav, lengths = _pcm(B, seed=SEED + 2)
+    q, scale = quantize_pcm(wav, lengths)
+    text = {k: v for k, v in _train_batch(cfg, B, T, U).items()
+            if k not in ("feats", "feat_lengths")}
+    return {"wav": torch.from_numpy(q).to(DEVICE),
+            "wav_scale": torch.from_numpy(scale).to(DEVICE),
+            "wav_lengths": torch.from_numpy(lengths).to(DEVICE), **text}
+
+
 def phase_raw_pcm(flax_params):
     """bf16 train_step of base_config() on raw PCM at the flagship shape:
     B=64 seeded waves of up to 81760 samples (512 frames) shipped as int16
@@ -1541,13 +1572,8 @@ def phase_raw_pcm(flax_params):
     step.  Step time and the frontend's share of it."""
     cfg, state = _bf16_train_state(base_config(), flax_params)
     B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
-    wav, lengths = _pcm(B, seed=SEED + 2)
-    q, scale = quantize_pcm(wav, lengths)
-    text = {k: v for k, v in _train_batch(cfg, B, T, U).items()
-            if k not in ("feats", "feat_lengths")}
-    batch = {"wav": torch.from_numpy(q).to(DEVICE),
-             "wav_scale": torch.from_numpy(scale).to(DEVICE),
-             "wav_lengths": torch.from_numpy(lengths).to(DEVICE), **text}
+    batch = _raw_batch(cfg, B, T, U)
+    wav = batch["wav"]
     want = step_launches(cfg, T, U, raw_pcm=True, device=DEVICE)
     print(f"raw-PCM expected launches per step {json.dumps(want)}", flush=True)
     step_ms, launches, metrics = _run_steps("raw-PCM", state, batch, want, 1,
@@ -3886,6 +3912,650 @@ def phase_parallel(flax_params):
     return launches, results
 
 
+# ---- phase 12: the model, stage and time axes ----------------------------
+# NCCL refuses two ranks on one device, so the axes' checks run as gloo
+# worker processes sharing the card (chip_smoke.model_parallel_worker): a
+# pair through the model axis, the stage axis and the time axis in turn,
+# and four ranks through the stage axis composed with the data axis and
+# ZeRO-1.  This process computes the single-device references meanwhile.
+MP_DIR = os.path.join(REPO, "build", "model_parallel")
+MP_TIMEOUT_S = 420          # a hung worker or collective fails the phase
+MP_STEPS = 2                # timed bf16 steps per axis, after one warm-up
+MP_ROWS = 8                 # the fp32 checks' batch
+MP_MICRO = 2                # GPipe microbatches
+MP_TIME_B, MP_TIME_T = 16, 1024
+MP_TOL = 1e-5               # fp32 params, outputs and grads, relative (ROADMAP)
+MP_TIME_TOL = 1e-6          # the fp32 wavefront against one whole-T scan
+MP_WITNESS_SLACK = 2.0      # a run's grads against one device's: at most this
+#                             times a sound reordering's (its witness's) reading
+MP_RATIO_TOL = 1e-3         # each grad's 2-norm over one device's: a grad k times
+#                             too large reads k - 1
+MP_TIME_LENGTHS = [1024, 700, 513, 512, 511, 1, 0, 1023, 256, 768, 900, 100, 1024,
+                   640, 384, 2]
+
+
+def _mp_config(base, precision, layers=None, **train):
+    """``base`` with ``train`` set; at ``layers`` the encoder cut to that
+    depth with dropout and SpecAugment off (the fp32 checks)."""
+    cfg = dataclasses.replace(base, train=TrainConfig(
+        precision=precision, accumulate_grad_batches=train.pop("accumulate", 1),
+        max_steps=1000, seed=SEED, **train))
+    if layers is None:
+        return cfg
+    m = cfg.model
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(
+            m, transnet=dataclasses.replace(m.transnet, num_layers=layers, dropout=0.0),
+            prednet=dataclasses.replace(m.prednet, dropout=0.0)),
+        data=dataclasses.replace(cfg.data, audio=dataclasses.replace(
+            cfg.data.audio, spec_augment=False)))
+
+
+def _mp_weights(cfg, seed):
+    return state_dict_from_flax(random_flax_params(
+        cfg.model, torch.Generator().manual_seed(seed)), cfg.model)
+
+
+def axis_launches(cfg, T, U, B, enc_scans, enc_steps, enc_batch) -> dict:
+    """Launches of one train_step on one rank: ``enc_scans`` directional
+    encoder scans of ``enc_steps`` steps at ``enc_batch`` rows (a stage's
+    layers times its microbatches, a time rank's chunk scans), the
+    prediction network's scans at B rows, one sweep."""
+    tn, pn = cfg.model.transnet, cfg.model.prednet
+    dtype = torch.bfloat16 if cfg.train.precision == "bf16" else torch.float32
+    want = dict.fromkeys(KERNELS, 0)
+    for net, scans, steps, batch in ((pn, pn.num_layers, U + 1, B),
+                                     (tn, enc_scans, enc_steps, enc_batch)):
+        fwd, bwd = scan_launches(net.rnn_type, steps, net.hidden_size, batch=batch,
+                                 dtype=dtype, device=DEVICE)
+        want[f"{net.rnn_type.lower()}_fwd"] += scans * fwd
+        want[f"{net.rnn_type.lower()}_bwd"] += scans * bwd
+    want["rnnt_sweep"] = 1
+    return want
+
+
+def _mp_steps(label, state, batch, want, steps):
+    """One warm-up and ``steps`` timed train_steps, every step's launches
+    checked against ``want``: (losses, timed step ms, summed launches)."""
+    losses, step_ms, launches = [], [], dict.fromkeys(KERNELS, 0)
+    for i in range(steps + 1):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_step(state, batch)["loss"].item()
+        torch.cuda.synchronize()
+        got = _counts()
+        if got != want:
+            raise AssertionError(f"{label} step {i}: launches {got}, expected {want}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{label} step {i}: loss {loss}")
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+        losses.append(loss)
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, launches
+
+
+def _whole_params(state) -> dict:
+    return {k: v.detach().cpu() for k, v in state.whole(
+        {k: v.detach() for k, v in state.model.state_dict().items()}).items()}
+
+
+@contextlib.contextmanager
+def _first_grads(state):
+    """Within: the grads the optimizer's first step is given (the fc's rows
+    gathered), on the host, in the dict yielded."""
+    grads, step = {}, state.optimizer.step
+
+    def capture():
+        if not grads:
+            grads.update({k: v.cpu() for k, v in state.whole(
+                {k: p.grad.detach() for k, p in state.model.named_parameters()}).items()})
+        return step()
+    state.optimizer.step = capture
+    try:
+        yield grads
+    finally:
+        state.optimizer.step = step
+
+
+def _steps_with_grads(state, batch, n=2) -> dict:
+    """``n`` train_steps; the first step's grads."""
+    with _first_grads(state) as grads:
+        for _ in range(n):
+            train_step(state, batch)
+    return grads
+
+
+@contextlib.contextmanager
+def _vocab_halves(joint):
+    """Within: one process computes the factored joint and lattice in the
+    model axis's order of sums, the witness that sets phase 12 (a)'s
+    limit.  Each vocabulary half of ``vocab_sizes(V, 2)`` applies its own
+    gelu to enc and dec (so their cotangents add after the gelu's backward,
+    as the model group's sum adds them) and makes its rows of the factors,
+    its part of the product, of the label terms and of the blank column;
+    the parts are summed, as the model group's all-reduce sums them."""
+    from rnntransducer_tpu_torch.models.joint import _gelu
+    from rnntransducer_tpu_torch.ops import rnnt_loss as loss_mod
+    from rnntransducer_tpu_torch.parallel.mesh import vocab_sizes
+    from rnntransducer_tpu_torch.train import state as state_mod
+
+    def halves(V):
+        starts = np.cumsum([0] + vocab_sizes(V, 2))
+        return [slice(int(a), int(b)) for a, b in zip(starts[:-1], starts[1:])]
+
+    def factors(enc, dec, shard=None):
+        w, b = joint.fc.weight, joint.fc.bias
+        De = enc.shape[-1]
+        parts = [(_gelu(enc) @ w[rows, :De].t(), _gelu(dec) @ w[rows, De:].t() + b[rows])
+                 for rows in halves(w.shape[0])]
+        return torch.cat([a for a, _ in parts], -1), torch.cat([c for _, c in parts], -1)
+
+    def lattice(A, C, labels, blank=0):
+        A, C = A.float(), C.float()
+        U1 = C.shape[1]
+        maxA, maxC = A.detach().amax(-1), C.detach().amax(-1)
+        padded = loss_mod._padded_labels(labels, U1, blank)
+        parts = []
+        for rows in halves(A.shape[-1]):
+            Ak, Ck, size = A[..., rows], C[..., rows], rows.stop - rows.start
+            lab = padded - rows.start
+            here = ((lab >= 0) & (lab < size)).float()
+            onehot = torch.nn.functional.one_hot(lab.clamp(0, size - 1), size).float() * here[
+                ..., None]
+            b = blank - rows.start
+            blank_ac = ((Ak[..., b], Ck[..., b]) if 0 <= b < size else
+                        (Ak.new_zeros(Ak.shape[:2]), Ck.new_zeros(Ck.shape[:2])))
+            EA = torch.exp(Ak - maxA[..., None])
+            EC = torch.exp(Ck - maxC[..., None])
+            parts.append(blank_ac + (loss_mod._Fp32Bmm.apply(EA, EC.transpose(1, 2)),
+                                      loss_mod._Fp32Bmm.apply(Ak, onehot.transpose(1, 2)),
+                                      (Ck * onehot).sum(-1)))
+        blank_a, blank_c, S, a_lab, c_lab = (x + y for x, y in zip(*parts))
+        S = S.clamp_min(float(np.finfo(np.float32).tiny))
+        lse = maxA[:, :, None] + maxC[:, None, :] + torch.log(S)
+        return (blank_a[:, :, None] + blank_c[:, None, :] - lse,
+                a_lab + c_lab[:, None, :] - lse)
+
+    def loss(A, C, labels, logit_lengths, label_lengths, blank=0, reduction="mean",
+             fastemit_lambda=0.0, shard=None):
+        bl, lb = lattice(A, C, labels, blank)
+        return loss_mod._reduce(loss_mod.RNNTCore.apply(bl, lb, logit_lengths,
+                                                        label_lengths, fastemit_lambda),
+                                reduction)
+
+    saved = state_mod.rnnt_loss_factored
+    joint.factors = factors
+    state_mod.rnnt_loss_factored = loss
+    try:
+        yield
+    finally:
+        del joint.factors
+        state_mod.rnnt_loss_factored = saved
+
+
+@contextlib.contextmanager
+def _microbatched_stack(rnn, M):
+    """Within: the encoder's recurrent stack runs each of ``M`` row blocks
+    apart and concatenates them, as the stage axis's GPipe schedule does
+    (the output projection still sees every row): with the rows of a data
+    index as one microbatch, one process sums phase 12 (d)'s terms in the
+    composed run's order, the witness that sets (d)'s limit."""
+    forward = rnn.forward
+
+    def run(x, lengths=None, initial_state=None, generator=None):
+        bm = x.shape[0] // M
+        parts = [forward(x[i * bm:(i + 1) * bm], lengths[i * bm:(i + 1) * bm], None,
+                         generator) for i in range(M)]
+        h = torch.cat([st.h for _, st in parts], 2)
+        c = None if parts[0][1].c is None else torch.cat([st.c for _, st in parts], 2)
+        return torch.cat([out for out, _ in parts]), cells.RNNState(h, c)
+    rnn.forward = run
+    try:
+        yield
+    finally:
+        del rnn.forward
+
+
+def _mp_encoder_case(cfg, B, T, lengths, seed):
+    """Frames, lengths and an output cotangent of one encoder check, from
+    ``seed``, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    tn = cfg.model.transnet
+    x = torch.randn((B, T, tn.input_size), generator=g).to(DEVICE)
+    cot = torch.randn((B, T, tn.output_size), generator=g).to(DEVICE)
+    return x, torch.tensor(lengths, device=DEVICE), cot
+
+
+def _mp_pair(rank_, out_dir) -> dict:
+    """Phase 12 (a)-(c) on one rank of two."""
+    import torch.distributed as dist
+    from rnntransducer_tpu_torch.parallel.mesh import STAGE_AXIS, make_mesh
+    from rnntransducer_tpu_torch.parallel.pipeline import pipeline_encode
+    from rnntransducer_tpu_torch.parallel.wavefront import wavefront_encode
+    res = {}
+
+    def save(name, obj):
+        if rank_ == 0:
+            torch.save(obj, os.path.join(out_dir, name + ".pt"))
+
+    def bf16_steps(axis, cfg, sd, batch, mesh, want):
+        state = TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED, mesh=mesh)
+        losses, ms, launches = _mp_steps(f"model_parallel {axis} rank {rank_}", state,
+                                         batch, want, MP_STEPS)
+        res[axis] = {"want": want, "losses": losses, "step_ms": ms, "launches": launches,
+                     "coords": [mesh.index(a) for a in mesh.axis_names],
+                     "mesh": mesh.shape}
+        del state
+        torch.cuda.empty_cache()
+
+    # (a) the model axis: the flagship, bf16, then fp32 at 2 encoder layers
+    base = base_config()
+    tp = make_mesh(model_parallel=2)
+    cfg = _mp_config(base, "bf16", model_parallel=2)
+    tn = cfg.model.transnet
+    want = axis_launches(cfg, T_FRAMES, TRAIN_U, TRAIN_B, tn.num_layers * 2, T_FRAMES,
+                         TRAIN_B)
+    want["logmel"] = 1  # raw PCM: the frontend kernel in every step
+    bf16_steps("model", cfg, _mp_weights(cfg, SEED),
+               _raw_batch(cfg, TRAIN_B, T_FRAMES, TRAIN_U), tp, want)
+    cfg = _mp_config(base, "fp32", 2, model_parallel=2)
+    state = TrainState.create(cfg, DEVICE, state_dict=_mp_weights(cfg, SEED + 50),
+                              seed=SEED, mesh=tp)
+    grads = _steps_with_grads(state, _train_batch(cfg, MP_ROWS, T_FRAMES, TRAIN_U))
+    save("model_fp32", {"params": _whole_params(state), "grads": grads})
+    del state, grads
+
+    # (b) the stage axis: the flagship, bf16, M = 2; then pipeline_encode in
+    # fp32 at 4 encoder layers, its grads summed over the stages
+    pp = make_mesh(pipeline_stages=2)
+    cfg = _mp_config(base, "bf16", pipeline_stages=2, pipeline_microbatches=MP_MICRO)
+    bf16_steps("stage", cfg, _mp_weights(cfg, SEED), _train_batch(
+        cfg, TRAIN_B, T_FRAMES, TRAIN_U), pp, axis_launches(
+            cfg, T_FRAMES, TRAIN_U, TRAIN_B, tn.num_layers // 2 * 2 * MP_MICRO, T_FRAMES,
+            TRAIN_B // MP_MICRO))
+    cfg = _mp_config(base, "fp32", 4)
+    params = {k[len("encoder."):]: v.to(DEVICE).requires_grad_()
+              for k, v in _mp_weights(cfg, SEED + 51).items() if k.startswith("encoder.")}
+    x, lengths, cot = _mp_encoder_case(cfg, MP_ROWS, T_FRAMES, PLAIN_STEP_LENGTHS[0],
+                                       SEED + 52)
+    _zero_counts()
+    out = pipeline_encode(params, cfg.model.transnet, x, lengths, pp, MP_MICRO)
+    (out * cot).sum().backward()
+    res["stage_fp32_launches"] = _counts()
+    grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
+             for k, v in params.items()}
+    for k, v in grads.items():
+        if k.startswith("rnn."):
+            dist.all_reduce(v, group=pp.group(STAGE_AXIS))
+    save("stage_fp32", {"out": out.detach().cpu(),
+                        "grads": {k: v.cpu() for k, v in grads.items()}})
+    del params, out, grads
+
+    # (c) the time axis: the streaming model, bf16, B=16, T=1024; then
+    # wavefront_encode in fp32 and bf16 against one whole-T scan
+    sp = make_mesh(sequence_parallel=2)
+    stream = streaming_config()
+    cfg = _mp_config(stream, "bf16", sequence_parallel=2)
+    stn = cfg.model.transnet
+    sd = _mp_weights(cfg, SEED + 7)
+    bf16_steps("time", cfg, sd, _train_batch(cfg, MP_TIME_B, MP_TIME_T, TRAIN_U), sp,
+               axis_launches(cfg, MP_TIME_T, TRAIN_U, MP_TIME_B, stn.num_layers,
+                             MP_TIME_T // 2, MP_TIME_B))
+    x, lengths, _ = _mp_encoder_case(cfg, MP_TIME_B, MP_TIME_T, MP_TIME_LENGTHS, SEED + 54)
+    for dtype in (torch.float32, torch.bfloat16):
+        params = {k[len("encoder."):]: v.to(DEVICE, dtype) for k, v in sd.items()
+                  if k.startswith("encoder.")}
+        with torch.no_grad():
+            out, state = wavefront_encode(params, stn, x.to(dtype), lengths, sp)
+        save(f"time_{str(dtype).split('.')[-1]}", {"out": out.float().cpu(),
+                                                  "h": state.h.float().cpu(),
+                                                  "c": state.c.float().cpu()})
+    return res
+
+
+def _mp_quad(rank_, out_dir) -> dict:
+    """Phase 12 (d) on one rank of four: (data 2 x stage 2), fp32 at 4
+    encoder layers, ZeRO-1, each data index on its rows."""
+    from rnntransducer_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(pipeline_stages=2)
+    cfg = _mp_config(base_config(), "fp32", 4, pipeline_stages=2,
+                     pipeline_microbatches=MP_MICRO, shard_optimizer_state=True)
+    state = TrainState.create(cfg, DEVICE, state_dict=_mp_weights(cfg, SEED + 53),
+                              seed=SEED, mesh=mesh)
+    batch = _train_batch(cfg, MP_ROWS, T_FRAMES, TRAIN_U)
+    local = {k: v[mesh.data_index::2] for k, v in batch.items()}
+    rows = MP_ROWS // 2
+    want = axis_launches(cfg, T_FRAMES, TRAIN_U, rows, 2 * 2 * MP_MICRO, T_FRAMES,
+                         rows // MP_MICRO)
+    with _first_grads(state) as grads:
+        losses, ms, launches = _mp_steps(f"model_parallel composed rank {rank_}", state,
+                                         local, want, 1)
+    if rank_ == 0:
+        torch.save({"params": _whole_params(state), "grads": grads},
+                   os.path.join(out_dir, "composed.pt"))
+    return {"composed": {"want": want, "losses": losses, "step_ms": ms,
+                         "launches": launches, "optimizer": type(state.optimizer).__name__,
+                         "coords": [mesh.index(a) for a in mesh.axis_names],
+                         "mesh": mesh.shape}}
+
+
+def model_parallel_worker(job: str, rank_: int, world: int, port: str, out_dir: str) -> int:
+    """One rank of phase 12's ``job`` ("pair" or "quad") in a process of its
+    own on cuda:0, over gloo; writes ``<job>.rank<r>.json``."""
+    from rnntransducer_tpu_torch import parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(KERNELS)
+    parallel.initialize(f"127.0.0.1:{port}", world, rank_, device=DEVICE, backend="gloo",
+                        timeout_s=MP_TIMEOUT_S)
+    try:
+        res = (_mp_pair if job == "pair" else _mp_quad)(rank_, out_dir)
+        with open(os.path.join(out_dir, f"{job}.rank{rank_}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def _mp_start(job, world, out_dir):
+    worker = os.path.join(out_dir, "worker.py")
+    if not os.path.exists(worker):
+        with open(worker, "w") as f:
+            f.write(f"import sys\nsys.path.insert(0, {REPO!r})\nimport chip_smoke\n"
+                    "sys.exit(chip_smoke.model_parallel_worker(sys.argv[1], "
+                    "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))\n")
+    port = str(_free_port())
+    logs = [open(os.path.join(out_dir, f"{job}.rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, worker, job, str(r), str(world), port,
+                               out_dir], stdout=logs[r], stderr=subprocess.STDOUT,
+                              cwd=REPO) for r in range(world)]
+    return procs, logs
+
+
+def _mp_wait(job, procs, logs, out_dir) -> list:
+    """Every rank's result, or the phase fails with the first failed rank's
+    log (a worker past MP_TIMEOUT_S is killed)."""
+    deadline = time.time() + MP_TIMEOUT_S
+    try:
+        rcs = [p.wait(timeout=max(deadline - time.time(), 1)) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = [p.poll() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, rc in enumerate(rcs):
+        if rc != 0:
+            tail = open(os.path.join(out_dir, f"{job}.rank{r}.log")).read()[-4000:]
+            raise AssertionError(f"model_parallel {job}: rank {r} exited {rc}:\n{tail}")
+    return [json.load(open(os.path.join(out_dir, f"{job}.rank{r}.json")))
+            for r in range(len(procs))]
+
+
+def _rel_diff(got: dict, want: dict) -> float:
+    """max over tensors of max |got - want| / max |want|."""
+    return max((got[k].float() - want[k].float().cpu()).abs().max().item()
+               / max(want[k].float().abs().max().item(), 1e-30) for k in want)
+
+
+def _norm_rel(got: dict, want: dict) -> float:
+    """max over tensors of ||got - want|| / ||want|| (2-norms)."""
+    return max(((got[k].float() - want[k].float().cpu()).norm()
+                / want[k].float().norm().clamp_min(1e-30)).item() for k in want)
+
+
+def _norm_ratio(got: dict, want: dict) -> float:
+    """max over tensors of | ||got|| / ||want|| - 1 | (2-norms)."""
+    return max(abs((got[k].float().norm() / want[k].float().norm().clamp_min(1e-30)).item()
+                   - 1.0) for k in want)
+
+
+def _mp_references(flax_params) -> dict:
+    """This process's single-device references of phase 12."""
+    from rnntransducer_tpu_torch.models.transducer import build_model as build
+    ref = {}
+    base = base_config()
+    # (a): the flagship's bf16 step on the same raw-PCM batch and weights;
+    # (b): on the same features
+    cfg = _mp_config(base, "bf16")
+    sd = state_dict_from_flax(flax_params, cfg.model)
+    batch = _raw_batch(cfg, TRAIN_B, T_FRAMES, TRAIN_U)
+    for key, b in (("raw_loss", batch),
+                   ("flagship_loss", _train_batch(cfg, TRAIN_B, T_FRAMES, TRAIN_U))):
+        state = TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED)
+        ref[key] = train_step(state, b)["loss"].item()
+        del state
+    # the joint factors' largest magnitude, for the model axis's bf16 bound
+    model = build(cfg, DEVICE, sd).to(torch.bfloat16)
+    with torch.no_grad():
+        feats, flen = device_frontend(cfg.data.audio, dequantize_wav(batch),
+                                      batch["wav_lengths"])
+        enc, _ = model.encode(feats.to(torch.bfloat16), flen)
+        dec, _ = model.predict(batch["text_in"], batch["text_lengths"])
+        A, C = model.joint_factors(enc, dec)
+        ref["zmax"] = A.float().abs().max().item() + C.float().abs().max().item()
+    del model, enc, dec, A, C
+    # (a) fp32 at 2 layers: two single-device steps, and two of the witness
+    # that sums the vocabulary in the model axis's two halves
+    cfg = _mp_config(base, "fp32", 2)
+    for key in ("model_fp32", "model_fp32_halves"):
+        state = TrainState.create(cfg, DEVICE, state_dict=_mp_weights(cfg, SEED + 50),
+                                  seed=SEED)
+        with (_vocab_halves(state.model.joint) if key.endswith("halves")
+              else contextlib.nullcontext()):
+            grads = _steps_with_grads(state, _train_batch(cfg, MP_ROWS, T_FRAMES, TRAIN_U))
+        ref[key] = {"params": {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()}, "grads": grads}
+        del state
+
+    # (b) fp32 at 4 layers: the encoder on the pipeline's microbatches, and on
+    # the whole batch
+    cfg = _mp_config(base, "fp32", 4)
+    enc_model = build(cfg, DEVICE, _mp_weights(cfg, SEED + 51), trainable=True).encoder
+    x, lengths, cot = _mp_encoder_case(cfg, MP_ROWS, T_FRAMES, PLAIN_STEP_LENGTHS[0],
+                                       SEED + 52)
+    bm = MP_ROWS // MP_MICRO
+    outs = []
+    for m in range(MP_MICRO):
+        rows = slice(m * bm, (m + 1) * bm)
+        out, _ = enc_model(x[rows], lengths[rows])
+        (out * cot[rows]).sum().backward()
+        outs.append(out.detach())
+    ref["stage_fp32"] = {"out": torch.cat(outs).cpu(), "grads": {
+        k: v.grad.detach().cpu().clone() for k, v in enc_model.named_parameters()}}
+    enc_model.zero_grad()
+    out, _ = enc_model(x, lengths)
+    (out * cot).sum().backward()
+    ref["stage_fp32_whole"] = {"out": out.detach().cpu(), "grads": {
+        k: v.grad.detach().cpu() for k, v in enc_model.named_parameters()}}
+    del enc_model, out, outs
+    # (c) the streaming model: a bf16 step, and one whole-T scan in fp32 and bf16
+    stream = streaming_config()
+    cfg = _mp_config(stream, "bf16")
+    sd = _mp_weights(cfg, SEED + 7)
+    state = TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED)
+    ref["time_loss"] = train_step(state, _train_batch(cfg, MP_TIME_B, MP_TIME_T,
+                                                      TRAIN_U))["loss"].item()
+    del state
+    x, lengths, _ = _mp_encoder_case(cfg, MP_TIME_B, MP_TIME_T, MP_TIME_LENGTHS, SEED + 54)
+    for dtype in (torch.float32, torch.bfloat16):
+        enc_model = build(cfg, DEVICE, sd).encoder.to(dtype)
+        with torch.no_grad():
+            out, st = enc_model(x.to(dtype), lengths)
+        ref[f"time_{str(dtype).split('.')[-1]}"] = {
+            "out": out.float().cpu(), "h": st.h.float().cpu(), "c": st.c.float().cpu()}
+        del enc_model
+    # (d) the composed run's rows as four microbatches of one process: data
+    # index 0's two pipeline microbatches, then data index 1's; and the
+    # witness: one microbatch per data index, its recurrent stack on the
+    # pipeline's row blocks
+    order = torch.cat([torch.arange(0, MP_ROWS, 2), torch.arange(1, MP_ROWS, 2)]).to(DEVICE)
+    for key, accum in (("composed", 2 * MP_MICRO), ("composed_witness", 2)):
+        cfg = _mp_config(base, "fp32", 4, accumulate=accum)
+        state = TrainState.create(cfg, DEVICE, state_dict=_mp_weights(cfg, SEED + 53),
+                                  seed=SEED)
+        b = _train_batch(cfg, MP_ROWS, T_FRAMES, TRAIN_U)
+        with (_microbatched_stack(state.model.encoder.rnn, MP_MICRO)
+              if key.endswith("witness") else contextlib.nullcontext()):
+            grads = _steps_with_grads(state, {k: v[order] for k, v in b.items()})
+        ref[key] = {"params": {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()}, "grads": grads}
+        del state
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_model_parallel(flax_params, smi: str):
+    """Phase 12: the model, stage and time axes.  Returns the launches of
+    their train steps on every worker rank and the figures."""
+    out_dir = MP_DIR
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # the four-rank job (fp32, cut depth) beside this process's references
+    procs, logs = _mp_start("quad", 4, out_dir)
+    try:
+        ref = _mp_references(flax_params)
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    quad = _mp_wait("quad", procs, logs, out_dir)
+    # the pair alone on the card, so that its step times are its own
+    pair = _mp_wait("pair", *_mp_start("pair", 2, out_dir), out_dir)
+    launches = dict.fromkeys(KERNELS, 0)
+    results = {"card": smi}
+    for job, ranks in (("pair", pair), ("quad", quad)):
+        for axis in ("model", "stage", "time", "composed"):
+            if axis not in ranks[0]:
+                continue
+            per_rank = [rk[axis] for rk in ranks]
+            for r, rk in enumerate(per_rank):
+                for k in KERNELS:
+                    launches[k] += rk["launches"][k]
+            print(f"model_parallel {axis}: mesh {per_rank[0]['mesh']}, per rank per step "
+                  f"launches {per_rank[0]['want']} (checked on every rank, every step), "
+                  f"step ms per rank {[rk['step_ms'] for rk in per_rank]}, losses "
+                  f"{[rk['losses'] for rk in per_rank]}; {smi}", flush=True)
+            results[axis] = {"launches_per_step_per_rank": per_rank[0]["want"],
+                             "step_ms": [rk["step_ms"] for rk in per_rank],
+                             "losses": [rk["losses"] for rk in per_rank]}
+            if len({tuple(rk["losses"]) for rk in per_rank}) != 1:
+                raise AssertionError(f"model_parallel {axis}: the ranks' losses differ: "
+                                     f"{[rk['losses'] for rk in per_rank]}")
+    # (a) the bf16 loss against the single device's: the ranks compute the
+    # encoder and the prediction network exactly as one device does, and each
+    # its columns of the factors, whose GEMM may round each element to a
+    # neighbouring bf16 value (2^-8 relative of |A| + |C| <= zmax); every
+    # lattice path crosses T + U log-softmax terms, each moved by at most
+    # twice that, so |dL| <= 2 (T + U) 2^-8 zmax per row, and for the mean
+    loss_a, loss_1 = pair[0]["model"]["losses"][0], ref["raw_loss"]
+    bound = 2.0 * (T_FRAMES + TRAIN_U) * 2.0 ** -8 * ref["zmax"]
+    results["model"].update(single_loss=loss_1, bf16_bound=bound, zmax=ref["zmax"])
+    print(f"model_parallel model: first bf16 loss {loss_a} vs the single device's "
+          f"{loss_1} (|diff| {abs(loss_a - loss_1):.3e}, bound {bound:.3e} from zmax "
+          f"{ref['zmax']:.3f})", flush=True)
+    if not abs(loss_a - loss_1) <= bound:
+        raise AssertionError(f"model_parallel model: bf16 loss {loss_a} vs {loss_1}, "
+                             f"bound {bound}")
+    # (a) fp32.  The model ranks sum each V reduction in two halves, where one
+    # device sums it whole: the first grads against one device's move by the
+    # lattice's rounding (the gate: per tensor, at most MP_WITNESS_SLACK times
+    # the reading of the witness, one process that sums the vocabulary in the
+    # model axis's halves).  Against that witness, the same sums in the same
+    # order, the first grads and the params after 2 steps are held per element
+    # to MP_TOL, and against one device the fc grads' 2-norms to MP_RATIO_TOL
+    # (a model-axis fault that doubles them reads 1) and each param's 2-norm
+    # to MP_TOL.  Per element against one device the params miss MP_TOL by
+    # design: Adam's first update is ~lr sign(g), so an element whose grad is
+    # near zero steps by up to 2 lr on a rounding.
+    got_a = torch.load(os.path.join(out_dir, "model_fp32.pt"))
+    plain_a, halves_a = ref["model_fp32"], ref["model_fp32_halves"]
+    fc = ("joint.fc.weight", "joint.fc.bias")
+    check_a = {
+        "grads_vs_witness_elem": _rel_diff(got_a["grads"], halves_a["grads"]),
+        "params_vs_witness_elem": _rel_diff(got_a["params"], halves_a["params"]),
+        "grads_vs_single_norm": _norm_rel(got_a["grads"], plain_a["grads"]),
+        "witness_grads_vs_single_norm": _norm_rel(halves_a["grads"], plain_a["grads"]),
+        "fc_grad_norm_ratio_minus_1": _norm_ratio(
+            {k: got_a["grads"][k] for k in fc}, {k: plain_a["grads"][k] for k in fc}),
+        "params_vs_single_norm": _norm_rel(got_a["params"], plain_a["params"]),
+        "params_vs_single_elem": _rel_diff(got_a["params"], plain_a["params"]),
+        "grads_vs_single_elem": _rel_diff(got_a["grads"], plain_a["grads"])}
+    # (b) the pipeline's fp32 output and grads against the same microbatches
+    # in one process (and, for the record, the whole batch)
+    got_b = torch.load(os.path.join(out_dir, "stage_fp32.pt"))
+    rel_b = max(_rel_diff({"out": got_b["out"]}, {"out": ref["stage_fp32"]["out"]}),
+                _rel_diff(got_b["grads"], ref["stage_fp32"]["grads"]))
+    whole_b = max(_rel_diff({"out": got_b["out"]}, {"out": ref["stage_fp32_whole"]["out"]}),
+                  _rel_diff(got_b["grads"], ref["stage_fp32_whole"]["grads"]))
+    stage_loss = pair[0]["stage"]["losses"][0]
+    # (c) the wavefront against one whole-T scan
+    time_err = {}
+    for dt in ("float32", "bfloat16"):
+        got_c, want_c = (torch.load(os.path.join(out_dir, f"time_{dt}.pt")),
+                         ref[f"time_{dt}"])
+        time_err[dt] = max((got_c[k] - want_c[k]).abs().max().item() for k in want_c)
+    time_loss = pair[0]["time"]["losses"][0]
+    # (d) four ranks: the same gates against one process's step on the same
+    # rows as four microbatches, and its witness, the rows of each data
+    # index as one microbatch whose recurrent stack runs the pipeline's
+    # row blocks (the composed run's sums in its order)
+    got_d, want_d, wit_d = (torch.load(os.path.join(out_dir, "composed.pt")),
+                            ref["composed"], ref["composed_witness"])
+    check_d = {"grads_vs_witness_elem": _rel_diff(got_d["grads"], wit_d["grads"]),
+               "params_vs_witness_elem": _rel_diff(got_d["params"], wit_d["params"]),
+               "grads_vs_single_norm": _norm_rel(got_d["grads"], want_d["grads"]),
+               "witness_grads_vs_single_norm": _norm_rel(wit_d["grads"], want_d["grads"]),
+               "grad_norm_ratio_minus_1": _norm_ratio(got_d["grads"], want_d["grads"]),
+               "params_vs_single_norm": _norm_rel(got_d["params"], want_d["params"]),
+               "params_vs_single_elem": _rel_diff(got_d["params"], want_d["params"]),
+               "grads_vs_single_elem": _rel_diff(got_d["grads"], want_d["grads"])}
+    results.update(model_fp32=check_a, composed_fp32=check_d, stage_fp32_rel=rel_b,
+                   stage_fp32_vs_whole_batch_rel=whole_b,
+                   stage_first_loss=stage_loss, stage_single_loss=ref["flagship_loss"],
+                   time_fp32_max_abs=time_err["float32"],
+                   time_bf16_max_abs=time_err["bfloat16"], time_first_loss=time_loss,
+                   time_single_loss=ref["time_loss"],
+                   composed_optimizer=quad[0]["composed"]["optimizer"],
+                   stage_fp32_launches=pair[0]["stage_fp32_launches"])
+    print(f"model_parallel fp32: model axis {json.dumps(check_a)}; stage axis output "
+          f"and grads max rel {rel_b:.3e} against the same microbatches ({whole_b:.3e} "
+          f"against the whole batch); time axis outputs and final states max abs "
+          f"{time_err['float32']:.3e} (bf16: {time_err['bfloat16']:.3e}); composed "
+          f"(data 2 x stage 2, ZeRO-1 {quad[0]['composed']['optimizer']}) "
+          f"{json.dumps(check_d)}; bf16 first losses: stage {stage_loss} vs "
+          f"{ref['flagship_loss']}, time {time_loss} vs {ref['time_loss']} (dropout "
+          f"masks differ by design)", flush=True)
+    gates = {
+        "model: grads vs witness": check_a["grads_vs_witness_elem"] <= MP_TOL,
+        "model: params vs witness": check_a["params_vs_witness_elem"] <= MP_TOL,
+        "model: grads vs single": check_a["grads_vs_single_norm"]
+        <= MP_WITNESS_SLACK * check_a["witness_grads_vs_single_norm"],
+        "model: fc grad norms": check_a["fc_grad_norm_ratio_minus_1"] <= MP_RATIO_TOL,
+        "model: params vs single": check_a["params_vs_single_norm"] <= MP_TOL,
+        "stage": rel_b <= MP_TOL,
+        "time": time_err["float32"] <= MP_TIME_TOL,
+        "composed: grads vs witness": check_d["grads_vs_witness_elem"] <= MP_TOL,
+        "composed: params vs witness": check_d["params_vs_witness_elem"] <= MP_TOL,
+        "composed: grads vs single": check_d["grads_vs_single_norm"]
+        <= MP_WITNESS_SLACK * check_d["witness_grads_vs_single_norm"],
+        "composed: grad norms": check_d["grad_norm_ratio_minus_1"] <= MP_RATIO_TOL,
+        "composed: params vs single": check_d["params_vs_single_norm"] <= MP_TOL}
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"model_parallel fp32 parity {failed}: {results}")
+    if {rk["composed"]["optimizer"] for rk in quad} != {"ShardedOptimizer"}:
+        raise AssertionError(f"model_parallel composed: {quad}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, results
+
+
 CORPUS_DIR = os.path.join(REPO, "build", "corpus")
 CORPUS_SPLITS = (("train", 128), ("dev", 16), ("eval_clean", 16))
 CORPUS_B, CORPUS_EVAL_B = 64, 16
@@ -4557,14 +5227,15 @@ def main() -> int:
                 ("parallel", lambda: phase_parallel(flax_params)),
                 ("corpus", lambda: phase_corpus(flax_params, smi)),
                 ("deploy", lambda: phase_deploy(flax_params, tokenizer, waves,
-                                                stream_sd))):
+                                                stream_sd)),
+                ("model_parallel", lambda: phase_model_parallel(flax_params, smi))):
             got, result = _timed(name, run)
             bare_busy[name] = result.get("device_busy_share")
             launches = {k: launches[k] + got[k] for k in KERNELS}
             print(f"{name} " + json.dumps(result, ensure_ascii=False), flush=True)
     finally:
         for d in (TRAINER_DIR, DECODE_DIR, EVAL_DIR, IMPORT_DIR, PARALLEL_DIR,
-                  CORPUS_DIR, DEPLOY_DIR):
+                  CORPUS_DIR, DEPLOY_DIR, MP_DIR):
             shutil.rmtree(d, ignore_errors=True)
     vs_plain = _timed("step_vs_plain", phase_step_vs_plain, flax_params)
     print("step_vs_plain " + json.dumps(vs_plain), flush=True)

@@ -32,9 +32,16 @@ Examples:
   python -m rnntransducer_tpu_torch.cli.train --coordinator_address host0:1234 \\
       --num_processes 2 --process_id 0 ...
 
-The tensor-parallel and Pallas / XLA loss-backend flags of ``train.py`` are
-accepted and raise: the port keeps the whole model on each device, and its
-loss has one backend (the sweep kernel).
+  # model parallel: ``--model_parallel 2`` splits the joint's vocabulary
+  # over pairs of ranks; a --config whose train section sets
+  # pipeline_stages (with pipeline_microbatches) or sequence_parallel runs
+  # the encoder on the GPipe pipeline or the time wavefront; every extra axis
+  # divides the world size, the rest is the data axis (here on the CPU)
+  python -m torch.distributed.run --nproc_per_node 2 \
+      -m rnntransducer_tpu_torch.cli.train --device cpu --config cfg.json
+
+The Pallas / XLA loss-backend flag of ``train.py`` is accepted and raises:
+the port's loss has one backend (the sweep kernel).
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ def parse_args(argv=None):
     p.add_argument("--per_device_eval_batch_size", type=int, default=None)
     p.add_argument("--accumulate_grad_batches", type=int, default=None)
     p.add_argument("--model_parallel", type=int, default=None,
-                   help="tensor parallelism (not ported: raises above 1)")
+                   help="the model axis: the joint fc's vocabulary over this many ranks")
     p.add_argument("--shard_optimizer_state", action="store_true", default=None,
                    help="ZeRO-1: split the AdamW / lion / SGD moments over the ranks")
     p.add_argument("--precision", type=str, default=None, choices=["bf16", "fp32"])
@@ -145,17 +152,24 @@ def main(argv=None):
     _check_flags(args)
 
     from rnntransducer_tpu_torch import parallel
-    from rnntransducer_tpu_torch.train.loop import check_single_device
+    from rnntransducer_tpu_torch.parallel.mesh import mesh_shape
     from rnntransducer_tpu_torch.utils.debugging import debug_nans
     from rnntransducer_tpu_torch.utils.device import resolve_device
 
-    check_single_device(cfg)
     device = args.device
     if device is None and "LOCAL_RANK" in os.environ:
         device = f"cuda:{os.environ['LOCAL_RANK']}"
     device = resolve_device(device)
     topology = parallel.initialize(args.coordinator_address, args.num_processes,
                                    args.process_id, device=device)
+    try:
+        # the JAX package's refusals of a mesh the world size does not fit,
+        # before any data is read
+        mesh_shape(cfg.train.model_parallel, cfg.train.pipeline_stages,
+                   cfg.train.sequence_parallel, topology["process_count"])
+    except ValueError:
+        parallel.shutdown()
+        raise
     if args.debug_nans:
         debug_nans(True)
     try:

@@ -91,6 +91,50 @@ def _gru_step(h, xw, hw):
     return (1.0 - z) * n + z * h
 
 
+def _plain_cell(rnn_type, w_hh, b_hh, h, c, xw_t, mask_t):
+    """Plain masked step: (h, c, output) from the carry and xw_t (B, G*H);
+    mask_t (B, 1)."""
+    hw = torch.matmul(h, w_hh) + b_hh
+    if rnn_type == "lstm":
+        h_new, c_new = _lstm_step(c, xw_t, hw)
+        c = torch.where(mask_t, c_new, c)
+    elif rnn_type == "gru":
+        h_new = _gru_step(h, xw_t, hw)
+    else:
+        h_new = torch.tanh(xw_t + hw)
+    h = torch.where(mask_t, h_new, h)
+    return h, c, torch.where(mask_t, h_new, torch.zeros_like(h_new))
+
+
+def layer_scan(rnn_type: str, xw_t, w_hh, b_hh, h, c, lengths_t, reverse: bool = False):
+    """One direction of one layer over time-major pre-activations xw_t
+    (T, B, G*H) from the carry (h, c) (c is passed through for GRU / RNN);
+    lengths_t (B,) within [0, T].  Returns (outputs (T, B, H), h, c), the
+    carry in the dtypes it came in.  GRU and LSTM run on their kernels
+    (through the autograd functions when autograd records); the vanilla RNN
+    on a plain loop."""
+    T = xw_t.shape[0]
+    if rnn_type == "gru":
+        args = (xw_t, w_hh, b_hh, h.to(xw_t.dtype), lengths_t, reverse)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args[:4]):
+            outs, h_fin = GRUScanFunction.apply(*args)
+        else:
+            outs, h_fin = gru_scan(*args)
+        return outs, h_fin.to(h.dtype), c
+    if rnn_type == "lstm":
+        args = (xw_t, w_hh, b_hh, h.to(xw_t.dtype), c.to(xw_t.dtype), lengths_t, reverse)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args[:5]):
+            outs, h_fin, c_fin = LSTMScanFunction.apply(*args)
+        else:
+            outs, h_fin, c_fin = lstm_scan(*args)
+        return outs, h_fin.to(h.dtype), c_fin.to(c.dtype)
+    mask_t = length_mask(lengths_t, T).transpose(0, 1)[..., None]  # (T, B, 1)
+    outs: List[Optional[torch.Tensor]] = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h, c, outs[t] = _plain_cell(rnn_type, w_hh, b_hh, h, c, xw_t[t], mask_t[t])
+    return (torch.stack(outs) if T else xw_t.new_zeros((0,) + h.shape)), h, c
+
+
 class RNNLayer(nn.Module):
     """One direction of one recurrent layer."""
 
@@ -108,16 +152,7 @@ class RNNLayer(nn.Module):
 
     def _cell(self, h, c, xw_t, mask_t):
         """Plain step. xw_t: (B, G*H) input pre-activation; mask_t: (B, 1)."""
-        hw = torch.matmul(h, self.w_hh) + self.b_hh
-        if self.rnn_type == "lstm":
-            h_new, c_new = _lstm_step(c, xw_t, hw)
-            c = torch.where(mask_t, c_new, c)
-        elif self.rnn_type == "gru":
-            h_new = _gru_step(h, xw_t, hw)
-        else:
-            h_new = torch.tanh(xw_t + hw)
-        h = torch.where(mask_t, h_new, h)
-        return h, c, torch.where(mask_t, h_new, torch.zeros_like(h_new))
+        return _plain_cell(self.rnn_type, self.w_hh, self.b_hh, h, c, xw_t, mask_t)
 
     def init_state(self, batch: int, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
         z = torch.zeros((batch, self.hidden_size), dtype=dtype, device=device)
@@ -131,30 +166,9 @@ class RNNLayer(nn.Module):
             initial_state = self.init_state(B, x.dtype, x.device)
         h, c = initial_state
         xw_t = (torch.matmul(x, self.w_ih) + self.b_ih).transpose(0, 1).contiguous()
-        lengths_t = lengths.clamp(0, T)
-        if self.rnn_type == "gru":
-            args = (xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype), lengths_t,
-                    self.reverse)
-            if torch.is_grad_enabled() and any(
-                    a.requires_grad for a in args[:4]):
-                outs, h_fin = GRUScanFunction.apply(*args)
-            else:
-                outs, h_fin = gru_scan(*args)
-            return outs.transpose(0, 1), (h_fin.to(h.dtype), c)
-        if self.rnn_type == "lstm":
-            args = (xw_t, self.w_hh, self.b_hh, h.to(xw_t.dtype),
-                    c.to(xw_t.dtype), lengths_t, self.reverse)
-            if torch.is_grad_enabled() and any(
-                    a.requires_grad for a in args[:5]):
-                outs, h_fin, c_fin = LSTMScanFunction.apply(*args)
-            else:
-                outs, h_fin, c_fin = lstm_scan(*args)
-            return outs.transpose(0, 1), (h_fin.to(h.dtype), c_fin.to(c.dtype))
-        mask_t = length_mask(lengths, T).transpose(0, 1)[..., None]  # (T, B, 1)
-        outs: List[Optional[torch.Tensor]] = [None] * T
-        for t in (range(T - 1, -1, -1) if self.reverse else range(T)):
-            h, c, outs[t] = self._cell(h, c, xw_t[t], mask_t[t])
-        return torch.stack(outs, dim=1), (h, c)
+        outs, h, c = layer_scan(self.rnn_type, xw_t, self.w_hh, self.b_hh, h, c,
+                                lengths.clamp(0, T), self.reverse)
+        return outs.transpose(0, 1), (h, c)
 
     def step(self, x_t, state):
         """Single timestep (decode path). x_t: (B, input_size)."""

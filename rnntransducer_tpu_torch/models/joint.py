@@ -39,12 +39,29 @@ class JointNetwork(nn.Module):
         else:
             raise ValueError(f"unknown combine: {cfg.combine}")
 
-    def factors(self, enc, dec):
+    def keep_vocab_rows(self, start: int, size: int) -> None:
+        """Keep only the fc's V rows [start, start + size) (this rank's share
+        of a vocab-sharded classifier): its params are that slice."""
+        fc = self.fc
+        fc.weight = nn.Parameter(fc.weight.detach()[start:start + size].clone(),
+                                 requires_grad=fc.weight.requires_grad)
+        fc.bias = nn.Parameter(fc.bias.detach()[start:start + size].clone(),
+                               requires_grad=fc.bias.requires_grad)
+        fc.out_features = size
+
+    def factors(self, enc, dec, shard=None):
         """(A, C) with logits[..., t, u, :] == A[..., t, :] + C[..., u, :]
-        (the fc bias is folded into C).  concat-combine only."""
+        (the fc bias is folded into C).  concat-combine only.  Under a
+        ``parallel.mesh.VocabShard`` the fc holds this rank's V rows and
+        (A, C) are this rank's columns; ``enc`` and ``dec`` enter through a
+        region whose backward sums their cotangents over the model group,
+        so their grads are the single device's."""
         if self.cfg.combine != "concat":
             raise ValueError("factors requires combine='concat'; "
                              f"got {self.cfg.combine!r}")
+        if shard is not None:
+            from rnntransducer_tpu_torch.parallel.mesh import copy_to
+            enc, dec = copy_to(enc, shard.mesh), copy_to(dec, shard.mesh)
         ge, gd = _gelu(enc), _gelu(dec)
         De = ge.shape[-1]
         w = self.fc.weight                                  # (V, De + Dd)

@@ -50,8 +50,8 @@ class RNNTransducer(nn.Module):
         """enc_t (B, De), dec_u (B, Dd) -> (B, V) logits."""
         return self.joint(enc_t, dec_u)
 
-    def joint_factors(self, enc, dec):
-        return self.joint.factors(enc, dec)
+    def joint_factors(self, enc, dec, shard=None):
+        return self.joint.factors(enc, dec, shard)
 
 
 def build_model(cfg: Union[Config, ModelConfig], device=None,

@@ -204,7 +204,7 @@ class _Fp32Bmm(torch.autograd.Function):
         return ga, gb
 
 
-def factored_compact_lattice(A, C, labels, blank: int = 0):
+def factored_compact_lattice(A, C, labels, blank: int = 0, shard=None):
     """GEMM-form compact lattice for the rank-decomposed concat joint.
 
     A (B, T, V): encoder logit factor; C (B, U+1, V): decoder factor (fc bias
@@ -217,33 +217,62 @@ def factored_compact_lattice(A, C, labels, blank: int = 0):
     The max shifts cancel in LSE, so they are detached and autograd gives
     the exact softmax backward.  Computed in full float32 (no TF32); the
     product is floored at the float32 tiny so that anti-aligned factor
-    peaks stay finite."""
+    peaks stay finite.
+
+    Under a ``parallel.mesh.VocabShard`` A and C hold this rank's columns
+    [start, start + size) of V: the maxima are all-reduced with MAX, and
+    each rank's part of EA @ EC^T, of the label terms and of the blank
+    column (from the rank that holds it) is summed over the model group by
+    ``reduce_from``, whose backward passes the cotangent through unchanged
+    (every rank computes the same loss, so a sum there would multiply the
+    fc grads by the group's width)."""
     A = A.float()
     C = C.float()
     U1, V = C.shape[1], A.shape[-1]
-    maxA = A.amax(-1).detach()
-    maxC = C.amax(-1).detach()
+    if shard is None:
+        def total(x):
+            return x
+        maxA, maxC = A.amax(-1).detach(), C.amax(-1).detach()
+        lab = _padded_labels(labels, U1, blank)
+        onehot = F.one_hot(lab, V).float()  # (B,U+1,V)
+        blank_a, blank_c = A[..., blank], C[..., blank]
+    else:
+        from rnntransducer_tpu_torch.parallel.mesh import MODEL_AXIS, reduce_from
+        mesh = shard.mesh
+
+        def total(x):
+            return reduce_from(x, mesh)
+        maxA = mesh.all_reduce(A.detach().amax(-1), MODEL_AXIS, "max")
+        maxC = mesh.all_reduce(C.detach().amax(-1), MODEL_AXIS, "max")
+        lab = _padded_labels(labels, U1, blank) - shard.start
+        here = ((lab >= 0) & (lab < V)).float()
+        onehot = F.one_hot(lab.clamp(0, V - 1), V).float() * here[..., None]
+        b = blank - shard.start
+        blank_a, blank_c = ((A[..., b], C[..., b]) if 0 <= b < V else
+                            (A.new_zeros(A.shape[:2]), C.new_zeros(C.shape[:2])))
+        blank_a, blank_c = total(blank_a), total(blank_c)
     EA = torch.exp(A - maxA[..., None])
     EC = torch.exp(C - maxC[..., None])
-    S = _Fp32Bmm.apply(EA, EC.transpose(1, 2))
+    S = total(_Fp32Bmm.apply(EA, EC.transpose(1, 2)))
     S = S.clamp_min(float(np.finfo(np.float32).tiny))
     lse = maxA[:, :, None] + maxC[:, None, :] + torch.log(S)
 
-    onehot = F.one_hot(_padded_labels(labels, U1, blank), V).float()  # (B,U+1,V)
-    a_lab = _Fp32Bmm.apply(A, onehot.transpose(1, 2))
-    c_lab = (C * onehot).sum(-1)
+    a_lab = total(_Fp32Bmm.apply(A, onehot.transpose(1, 2)))
+    c_lab = total((C * onehot).sum(-1))
 
-    bl = A[..., blank][:, :, None] + C[..., blank][:, None, :] - lse
+    bl = blank_a[:, :, None] + blank_c[:, None, :] - lse
     lb = a_lab + c_lab[:, None, :] - lse
     return bl, lb
 
 
 def rnnt_loss_factored(A, C, labels, logit_lengths, label_lengths,
                        blank: int = 0, reduction: str = "mean",
-                       fastemit_lambda: float = 0.0):
+                       fastemit_lambda: float = 0.0, shard=None):
     """RNN-T loss straight from the concat joint's (A, C) factors: a few
     (B, T, V)-sized GEMMs plus the (B, T, U+1) recursion, no lattice and no
-    recomputation."""
-    bl, lb = factored_compact_lattice(A, C, labels, blank)
+    recomputation.  Under a vocabulary ``shard`` (A, C) are this rank's
+    columns (:func:`factored_compact_lattice`); the V-free recursion runs
+    alike on every rank of the model group."""
+    bl, lb = factored_compact_lattice(A, C, labels, blank, shard)
     losses = RNNTCore.apply(bl, lb, logit_lengths, label_lengths, fastemit_lambda)
     return _reduce(losses, reduction)

@@ -12,12 +12,14 @@ delete the training progress a resume needs.  One restore serves both
 resume (into a live TrainState) and decoding (:func:`load_decode_params`).
 
 Across the ranks of a process group every rank calls ``save`` at the same
-steps: the state is gathered there into the single-device layout (a
-ZeRO-sharded optimizer's moments, every rank's mask generator), only rank
-0 writes, keeps the ledger and prunes, and the ranks meet when the write is
-done, agreeing on whether it succeeded.  ``restore`` reads the same file on
-every rank, which takes its own slices and its own generator, so a
-checkpoint moves between widths.
+steps: the state is gathered there into the single-device layout (the
+joint fc's rows and their moments over the model group, a ZeRO-sharded
+optimizer's moments over the data group, one mask generator per data
+index), only rank 0 writes, keeps the ledger and prunes, and the ranks
+meet when the write is done, agreeing on whether it succeeded.
+``restore`` reads the same file on every rank, which takes its own slices
+and its data index's generator, so a checkpoint moves between widths and
+topologies (data parallel to vocab-sharded and back).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import torch
 from rnntransducer_tpu_torch.config import Config
 from rnntransducer_tpu_torch.parallel.distributed import (host_all_gather,
                                                           host_all_reduce, rank)
+from rnntransducer_tpu_torch.parallel.mesh import TP_LEAVES, gather_vocab, vocab_slice
+from rnntransducer_tpu_torch.train.optim import Adafactor
 from rnntransducer_tpu_torch.train.state import TrainState, rank_seed
 
 _STATE_FILE = "state.pt"
@@ -50,17 +54,50 @@ def _to_host(obj):
     return obj
 
 
+def _tp_moments(state: TrainState, sd: dict, fn, whole_layout: bool) -> dict:
+    """``sd`` (an optimizer state dict, in the single-device layout where
+    ``whole_layout``, else this rank's) with ``fn`` applied to each moment
+    of the joint fc's vocabulary-sharded params that holds their rows: one
+    shaped like the param, or adafactor's factored statistic that keeps
+    the vocabulary dim."""
+    shard = state.vocab_shard
+    names = [n for n, _ in state.model.named_parameters()]
+    params = dict(state.model.named_parameters())
+    factored = isinstance(state.optimizer, Adafactor)
+    sd = dict(sd, state=dict(sd["state"]))
+    for i, name in enumerate(names):
+        st = sd["state"].get(i)
+        if name not in TP_LEAVES or not st:
+            continue
+        whole = (shard.total,) + tuple(params[name].shape[1:])
+        shape = whole if whole_layout else tuple(params[name].shape)
+
+        def rows(k, v):
+            return isinstance(v, torch.Tensor) and v.dim() > 0 and (
+                tuple(v.shape) == shape or (factored and k in ("v_row", "v_col")
+                                            and Adafactor.keeps_rows(k, whole)))
+        sd["state"][i] = {k: fn(v) if rows(k, v) else v for k, v in st.items()}
+    return sd
+
+
 def state_payload(state: TrainState) -> dict:
     """Everything a resume needs, on the host, in the single-device layout;
-    'generator' lists every rank's mask generator state, in rank order.  A
-    collective across a process group: every rank calls it."""
+    'generator' lists each data index's mask generator state, in data
+    order.  A collective across a process group: every rank calls it."""
+    shard = state.vocab_shard
+    optimizer = state.optimizer.state_dict()
+    if shard is not None:
+        optimizer = _tp_moments(state, optimizer, lambda v: gather_vocab(v, shard), False)
+    mesh = state.mesh
+    gens = host_all_gather((mesh.data_index, mesh.is_data_lead(),
+                            state.generator.get_state()))
     return _to_host({
-        "params": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "params": state.whole(state.model.state_dict()),
+        "optimizer": optimizer,
         "step": int(state.step),
         "updates": int(state.updates),
-        "ema": state.ema,
-        "generator": host_all_gather(state.generator.get_state()),
+        "ema": None if state.ema is None else state.whole(state.ema),
+        "generator": [g for _, lead, g in sorted(gens, key=lambda e: e[0]) if lead],
         "noise_generator": state.noise_generator.get_state(),
         "config": state.cfg.to_dict(),
     })
@@ -212,26 +249,33 @@ class CheckpointManager:
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Load ``step`` (default the latest) into ``state`` in place: params,
         optimizer state (this rank's slices of a sharded one), step and
-        update counts, EMA shadow, generators.  A rank the checkpoint saved
-        no mask generator for (a run resumed on more ranks) seeds its own."""
+        update counts, EMA shadow, generators; under a model axis this
+        rank's rows of the fc and of its moments.  A data index the
+        checkpoint saved no mask generator for (a run resumed on more ranks)
+        seeds its own."""
         dev = next(state.model.parameters()).device
         payload = self.load(step, map_location=dev)
-        state.model.load_state_dict(payload["params"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        shard = state.vocab_shard
+        state.model.load_state_dict(state.own(payload["params"]))
+        optimizer = payload["optimizer"]
+        if shard is not None:
+            optimizer = _tp_moments(state, optimizer, lambda v: vocab_slice(v, shard).clone(),
+                                True)
+        state.optimizer.load_state_dict(optimizer)
         state.step = int(payload["step"])
         state.updates = int(payload["updates"])
         if payload["ema"] is not None:
-            state.ema = {k: v.to(dev) for k, v in payload["ema"].items()}
+            state.ema = {k: v.to(dev).clone() for k, v in state.own(payload["ema"]).items()}
         if "noise_generator" in payload:
             state.noise_generator.set_state(payload["noise_generator"].cpu())
         masks = payload["generator"]
         masks = masks if isinstance(masks, list) else [masks]
-        r = rank()
-        if r < len(masks):
-            state.generator.set_state(masks[r].cpu())
+        d = state.mesh.data_index
+        if d < len(masks):
+            state.generator.set_state(masks[d].cpu())
         else:
             state.generator.manual_seed(
-                rank_seed(state.noise_generator.initial_seed(), r))
+                rank_seed(state.noise_generator.initial_seed(), d))
         return state
 
     def best_step(self) -> Optional[int]:

@@ -1,5 +1,4 @@
-"""The trainer (port of ``rnntransducer_tpu/train/loop.py``; its mesh is the
-data axis alone).
+"""The trainer (port of ``rnntransducer_tpu/train/loop.py``).
 
 * epoch loop over length-bucketed batches (``LengthBucketSampler``), rows
   fetched on reader threads ahead of the step (``ordered_readahead``),
@@ -14,15 +13,17 @@ data axis alone).
   continues the deterministic data schedule exactly where the run stopped;
 * SIGTERM checkpoints the current step and ends ``fit`` cleanly.
 
-Data parallel across the ranks of a process group (``parallel/``), one
-device each, as the JAX package's ``data`` mesh axis: every rank walks the
-same global batch sequence and takes its rows ``idxs[rank::world]``; the
-label bucket comes from the global batch, so every rank runs the same
-shapes; ``train_step`` all-reduces the grads once per step; validation
-decodes each rank's rows and sums the counts over the ranks; only rank 0
-writes logs and checkpoints; a SIGTERM on any rank stops every rank at the
-same step.  The JAX package's other mesh axes (tensor, pipeline and
-sequence parallelism) raise here.
+The mesh comes from ``cfg.train.{model_parallel, pipeline_stages,
+sequence_parallel}`` and the process group (``parallel/``, one device per
+rank), as the JAX package's Trainer builds it: ``data × [time | stage] ×
+[model]``.  Every rank walks the same global batch sequence and takes the
+rows ``idxs[d::D]`` of its data index d; the label bucket comes from the
+global batch, so every rank runs the same shapes; ``train_step`` reduces
+the grads once per step (the encoder's over the stage group, every leaf's
+mean over the data group); validation runs the loss and a decode on each
+data index's rows (a vocab-sharded model decodes with the fc gathered) and
+sums the counts over the data indices; only rank 0 writes logs and
+checkpoints; a SIGTERM on any rank stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from rnntransducer_tpu_torch.data.prefetch import (DevicePrefetcher,
 from rnntransducer_tpu_torch.decode.beam_batched import batched_beam_decode
 from rnntransducer_tpu_torch.decode.greedy import greedy_decode
 from rnntransducer_tpu_torch.parallel import distributed
+from rnntransducer_tpu_torch.models.transducer import build_model
 from rnntransducer_tpu_torch.parallel.mesh import broadcast_state, local_rows
 from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer
 from rnntransducer_tpu_torch.train.checkpoint import CheckpointManager
@@ -54,28 +56,12 @@ from rnntransducer_tpu_torch.utils.logging import MetricsLogger
 from rnntransducer_tpu_torch.utils.profiling import trace
 
 
-def check_single_device(cfg: Config) -> None:
-    """Raise for the JAX package's mesh axes other than ``data``, which the
-    port lacks."""
-    t = cfg.train
-    for name, value in (("model_parallel", t.model_parallel),
-                        ("pipeline_stages", t.pipeline_stages),
-                        ("sequence_parallel", t.sequence_parallel)):
-        if value != 1:
-            raise NotImplementedError(
-                f"train.{name}={value!r}: the port keeps the whole model on one "
-                "device per process; its parallel/ package has the data axis "
-                "(and ZeRO-1 optimizer state), not tensor, pipeline or sequence "
-                "parallelism")
-
-
 class Trainer:
     def __init__(self, cfg: Config, train_dataset, val_dataset=None,
                  tokenizer: Optional[GraphemeTokenizer] = None,
                  log_dir: Optional[str] = None, device=None,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  profile_dir: Optional[str] = None, profile_steps: tuple = (10, 15)):
-        check_single_device(cfg)
         self.cfg = cfg
         self.train_ds = train_dataset
         self.val_ds = val_dataset
@@ -83,14 +69,16 @@ class Trainer:
             GraphemeTokenizer.from_file(cfg.vocab_path) if cfg.vocab_path
             else GraphemeTokenizer.default(cfg.model.jointnet.num_classes))
         self.device = resolve_device(device)
-        # this process's place on the data axis (0 of 1 without a process group)
-        self.rank, self.world = distributed.rank(), distributed.world_size()
-        lead = self.rank == 0
+        # the mesh (raises the JAX package's errors where the world size does
+        # not fit cfg.train's axes) and this process's place on its data axis
+        self.state = TrainState.create(cfg, self.device, state_dict=state_dict)
+        self.mesh = self.state.mesh
+        self.rank, self.world = self.mesh.data_index, self.mesh.data_width
+        lead = distributed.rank() == 0
         self.logger = MetricsLogger((log_dir or cfg.train.checkpoint_dir) if lead else None,
                                     stdout=lead)
         self.ckpt = CheckpointManager(cfg.train.checkpoint_dir,
                                       save_top_k=cfg.train.save_top_k)
-        self.state = TrainState.create(cfg, self.device, state_dict=state_dict)
         broadcast_state(self.state)
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
@@ -235,7 +223,7 @@ class Trainer:
         profiling = False
         last_log_t, last_log_step, last_feed = time.perf_counter(), step, len(self.feed_s)
         self._install_preemption_handler()
-        lead = self.rank == 0
+        lead = distributed.rank() == 0
         # the agreed flag, not self._preempted: a signal may land on one rank
         # between two agreements, and every rank must take the same branches
         preempted = False
@@ -263,13 +251,15 @@ class Trainer:
                     self.profile = profile.enter_context(trace(self.profile_dir))
                     profile_t0 = time.perf_counter()
                     profiling = True
-                if (lead and cfg.train.watch_every_steps
+                if (self.rank == 0 and cfg.train.watch_every_steps
                         and step % cfg.train.watch_every_steps == 0):
-                    # rank 0's rows: the histograms are logged, never reduced
+                    # data index 0's rows (every rank of its model / stage /
+                    # time row takes part): logged by rank 0, never reduced
                     hists = watch_step(self.state, batch)
-                    self.logger.log_histograms(step, {
-                        g: {n: (c.cpu().numpy(), e.cpu().numpy())
-                            for n, (c, e) in h.items()} for g, h in hists.items()})
+                    if lead:
+                        self.logger.log_histograms(step, {
+                            g: {n: (c.cpu().numpy(), e.cpu().numpy())
+                                for n, (c, e) in h.items()} for g, h in hists.items()})
                 metrics = train_step(self.state, batch)
                 step += 1
                 self._host_step = step
@@ -397,9 +387,20 @@ class Trainer:
         self.logger.log(self._host_step, split="val", **out)
         return out
 
+    def _decode_model(self):
+        """The model validation decodes with: the state's own, or under a
+        model axis one holding the whole fc (gathered over the model group)."""
+        if self.state.vocab_shard is None:
+            return self.state.model
+        with torch.no_grad():
+            whole = self.state.whole({k: v.detach() for k, v in
+                                      self.state.model.state_dict().items()})
+        return build_model(self.cfg, self.device, whole)
+
     def _evaluate(self, dataset, max_batches: Optional[int] = None) -> dict:
         cfg = self.cfg
         model = self.state.model
+        decoder = self._decode_model()
         loss_sum, loss_n = 0.0, 0
         preds, refs = [], []
         n = 0
@@ -415,17 +416,17 @@ class Trainer:
                     cfg.data.audio, dequantize_wav(dev), dev["wav_lengths"])
                 dev = dict(dev, feats=feats, feat_lengths=feat_lengths)
             # per-sample losses, so the wrap-padding rows do not count
-            per_sample = eval_step(cfg, model, dev, reduction="none")
+            per_sample = eval_step(cfg, model, dev, reduction="none", mesh=self.mesh)
             kw = dict(blank_id=cfg.data.text.pad_token_id,
                       max_symbols=cfg.train.greedy_max_symbols,
                       max_output_len=max(cfg.data.label_buckets))
             if cfg.train.val_decoder == "beam":
                 toks, lens, _ = batched_beam_decode(
-                    model, dev["feats"], dev["feat_lengths"],
+                    decoder, dev["feats"], dev["feat_lengths"],
                     beam_width=cfg.train.val_beam_width, **kw)
                 toks, lens = toks[:, 0], lens[:, 0]
             else:
-                toks, lens = greedy_decode(model, dev["feats"], dev["feat_lengths"],
+                toks, lens = greedy_decode(decoder, dev["feats"], dev["feat_lengths"],
                                            **kw)
             per_sample = per_sample.float().cpu().numpy()
             toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
@@ -440,9 +441,11 @@ class Trainer:
             n += 1
             if max_batches is not None and n >= max_batches:
                 break
-        # corpus-level: the sufficient statistics summed over the ranks
+        # corpus-level: the sufficient statistics summed over the data
+        # indices (one rank speaks for each: its row computed the same rows)
+        counts = [loss_sum, loss_n, *error_counts(preds, refs)]
         loss_sum, loss_n, we, wt, ce, ct = distributed.host_all_reduce(
-            [loss_sum, loss_n, *error_counts(preds, refs)]).tolist()
+            counts if self.mesh.is_data_lead() else [0.0] * len(counts)).tolist()
         return {"loss": loss_sum / loss_n if loss_n else float("nan"),
                 "wer": we / max(wt, 1), "cer": ce / max(ct, 1)}
 

@@ -20,18 +20,21 @@ multiply_by_parameter_scale=False, weight_decay_rate=wd or None)``,
 ``optax.lion(b1=0.9, b2=0.99, weight_decay=wd)``); ``torch.optim.Adafactor``
 has other defaults and another weight decay.
 
-``ShardedOptimizer`` is ZeRO-1 across the ranks of a process group
+``ShardedOptimizer`` is ZeRO-1 across the ranks of the mesh's data axis
 (``train.shard_optimizer_state``): each rank keeps its slice of every
 moment that ``parallel.mesh.zero_split_dims`` splits, updates that slice of
-the param with the same optimizer, and the ranks all-gather the params.
-Every update above is elementwise, so the sliced step computes the
-replicated step's values bit for bit.
+the param with the same optimizer, and the data group all-gathers the
+params.  Every update above but adafactor's is elementwise, so the sliced
+step computes the replicated step's values bit for bit, and a model rank's
+update of its vocabulary rows is those rows of the single device's.
+adafactor is never ZeRO-split; on a model rank it sums its statistics of
+the fc's rows and its update's RMS over the model group.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -137,12 +140,21 @@ class Adafactor(torch.optim.Optimizer):
     5. subtracted from p.
 
     Row and column factoring is symmetric, so a param stored transposed
-    (torch's (out, in) against flax's (in, out)) gets the same update."""
+    (torch's (out, in) against flax's (in, out)) gets the same update.
+
+    ``row_split`` maps a param that holds this rank's rows (dim 0) of a
+    leaf split over a process group (the joint fc over the model axis) to
+    (the leaf's rows, a function that sums a tensor over that group in
+    place).  Such a param is factored by the whole leaf's shape, and every
+    mean over its rows and the update's RMS sum over the group, so each
+    rank's update is its rows of the whole leaf's, as GSPMD computes it."""
 
     DECAY_RATE, EPS, CLIPPING_THRESHOLD = 0.8, 1e-30, 1.0
 
-    def __init__(self, params, lr: float = 0.0, weight_decay: float = 0.0):
+    def __init__(self, params, lr: float = 0.0, weight_decay: float = 0.0,
+                 row_split: Optional[Mapping[torch.Tensor, Tuple[int, Callable]]] = None):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        self.row_split = dict(row_split or {})
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -153,7 +165,17 @@ class Adafactor(torch.optim.Optimizer):
 
     def _update(self, p, g, group):
         state = self.state[p]
-        dims = factored_dims(p.shape)
+        rows, group_sum = self.row_split.get(p, (p.shape[0] if p.dim() else 0, None))
+        whole = (rows,) + tuple(p.shape[1:]) if p.dim() else ()
+        dims = factored_dims(whole)
+
+        def mean(x, dim, split):
+            # the mean over ``dim`` of ``x``; over the group where ``dim`` is
+            # the split rows (``split``: whether x still holds them at dim 0)
+            if group_sum is None or not split or dim != 0:
+                return x.mean(dim=dim)
+            return group_sum(x.sum(dim=0)) / rows
+
         if not state:
             state["step"] = 0
             if dims is None:
@@ -171,18 +193,33 @@ class Adafactor(torch.optim.Optimizer):
             u = g * v.pow(-0.5)
         else:
             d1, d0 = dims
-            v_row = state["v_row"].mul_(decay).add_(grad_sqr.mean(dim=d0) * keep)
-            v_col = state["v_col"].mul_(decay).add_(grad_sqr.mean(dim=d1) * keep)
+            v_row = state["v_row"].mul_(decay).add_(mean(grad_sqr, d0, True) * keep)
+            v_col = state["v_col"].mul_(decay).add_(mean(grad_sqr, d1, True) * keep)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+            row_factor = (v_row / mean(v_row, reduced_d1, d0 != 0).unsqueeze(
+                reduced_d1)).pow(-0.5)
             u = g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
-        rms = torch.sqrt(torch.mean(u * u))
+        if group_sum is None:
+            rms = torch.sqrt(torch.mean(u * u))
+        else:
+            rms = torch.sqrt(group_sum(torch.sum(u * u).reshape(1))[0] / math.prod(whole))
         u = u / torch.clamp(rms / self.CLIPPING_THRESHOLD, min=1.0)
         u = group["lr"] * u
         if group["weight_decay"]:
             u = u + group["weight_decay"] * p
         p.sub_(u)
         state["step"] += 1
+
+    @staticmethod
+    def keeps_rows(key: str, shape: Sequence[int]) -> bool:
+        """Whether the state entry ``key`` of a param of the whole ``shape``
+        keeps its dim 0 (so a row split of the param splits it too)."""
+        dims = factored_dims(shape)
+        if key == "v_row":
+            return dims is not None and dims[1] != 0
+        if key == "v_col":
+            return dims is not None and dims[0] != 0
+        return key == "v"
 
 
 class Lion(torch.optim.Optimizer):
@@ -214,9 +251,11 @@ class Lion(torch.optim.Optimizer):
                 p.sub_(group["lr"] * u)
 
 
-def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+def make_optimizer(cfg, params: Iterable[torch.nn.Parameter],
+                   row_split=None) -> torch.optim.Optimizer:
     """The optimizer of ``cfg.optimizer`` over ``params``; its lr is set from
-    the schedule before every step (see module docstring)."""
+    the schedule before every step (see module docstring).  ``row_split``:
+    adafactor's (:class:`Adafactor`); the elementwise updates need none."""
     kind = getattr(cfg, "optimizer", "adamw").lower()
     if kind == "adamw":
         return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
@@ -226,7 +265,7 @@ def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Opt
     if kind == "adafactor":
         # factored second moment: optimizer memory ~ row + column sums;
         # tensors with a dim below 128 stay unfactored
-        return Adafactor(params, weight_decay=cfg.weight_decay or 0.0)
+        return Adafactor(params, weight_decay=cfg.weight_decay or 0.0, row_split=row_split)
     if kind == "lion":
         return Lion(params, weight_decay=cfg.weight_decay)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r} "
@@ -234,9 +273,9 @@ def make_optimizer(cfg, params: Iterable[torch.nn.Parameter]) -> torch.optim.Opt
 
 
 class ShardedOptimizer:
-    """ZeRO-1 over the ranks of the process group: ``make(tensors)`` builds
-    the optimizer over this rank's slice of each param whose entry of
-    ``dims`` names a dim (rank r holds the r-th of ``world`` equal slices
+    """ZeRO-1 over the data axis of ``mesh``: ``make(tensors)`` builds the
+    optimizer over this rank's slice of each param whose entry of ``dims``
+    names a dim (data index r holds the r-th of the width's equal slices
     along it) and over the whole of every other param.  ``step`` reads the
     grads from the params' ``.grad`` (the full, all-reduced grads), updates
     the slices and all-gathers the params.  ``state_dict`` gathers the
@@ -245,10 +284,10 @@ class ShardedOptimizer:
     a checkpoint moves between widths."""
 
     def __init__(self, make: Callable[[list], torch.optim.Optimizer],
-                 params: Sequence[torch.nn.Parameter], dims: Sequence[Optional[int]]):
-        from rnntransducer_tpu_torch.parallel.distributed import rank, world_size
-
-        r, w = rank(), world_size()
+                 params: Sequence[torch.nn.Parameter], dims: Sequence[Optional[int]],
+                 mesh):
+        r, w = mesh.data_index, mesh.data_width
+        self.mesh = mesh
         self.params = list(params)
         self.dims = list(dims)
         self._slices = [None if d is None else (d, r * (p.shape[d] // w), p.shape[d] // w)
@@ -283,7 +322,7 @@ class ShardedOptimizer:
         self.inner.step()
         all_gather_shards([self.params[i] for i in self._split],
                           [self.shards[i] for i in self._split],
-                          [self.dims[i] for i in self._split])
+                          [self.dims[i] for i in self._split], self.mesh)
 
     @staticmethod
     def _sliced_keys(st: dict, shape) -> List[str]:
@@ -309,7 +348,7 @@ class ShardedOptimizer:
                 shards.append(st[k])
                 dims.append(self.dims[i])
                 st[k] = full
-        all_gather_shards(fulls, shards, dims)
+        all_gather_shards(fulls, shards, dims, self.mesh)
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
@@ -324,23 +363,33 @@ class ShardedOptimizer:
         self.inner.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
 
 
-def make_train_optimizer(cfg, model_cfg, named_params: Sequence[Tuple[str, torch.nn.Parameter]]):
+def make_train_optimizer(cfg, model_cfg, named_params: Sequence[Tuple[str, torch.nn.Parameter]],
+                         mesh=None):
     """The optimizer of ``cfg`` (a TrainConfig) over ``named_params``:
-    ZeRO-1 sharded when ``cfg.shard_optimizer_state`` and the process group
-    has more than one rank and some moment splits (adafactor's never do);
-    otherwise replicated, as on a one-device JAX mesh."""
-    from rnntransducer_tpu_torch.parallel.distributed import world_size
-    from rnntransducer_tpu_torch.parallel.mesh import zero_split_dims
+    ZeRO-1 sharded over the data axis of ``mesh`` when
+    ``cfg.shard_optimizer_state`` and that axis has more than one rank and
+    some moment splits (adafactor's never do, nor the joint fc's under a
+    model axis); otherwise replicated, as on a one-device JAX mesh.  Under
+    a model axis adafactor sums its statistics of the fc's rows and its
+    update's RMS over the model group (``Adafactor``'s ``row_split``)."""
+    from rnntransducer_tpu_torch.parallel.mesh import MODEL_AXIS, TP_LEAVES, zero_split_dims
 
     names = [n for n, _ in named_params]
     params = [p for _, p in named_params]
-    world = world_size()
-    if cfg.shard_optimizer_state and world > 1:
-        plan = zero_split_dims(model_cfg, dict(named_params), world,
-                               getattr(cfg, "optimizer", "adamw"))
+    kind = getattr(cfg, "optimizer", "adamw")
+    tp = mesh is not None and mesh.size(MODEL_AXIS) > 1
+    if tp and kind.lower() == "adafactor":
+        rows = model_cfg.jointnet.num_classes
+        return make_optimizer(cfg, params, row_split={
+            p: (rows, lambda t: mesh.all_reduce(t, MODEL_AXIS))
+            for n, p in named_params if n in TP_LEAVES})
+    if cfg.shard_optimizer_state and mesh is not None and mesh.data_width > 1:
+        plan = zero_split_dims(model_cfg, dict(named_params), mesh.data_width, kind,
+                               vocab_sharded=tp)
         dims = [plan[n] for n in names]
         if any(d is not None for d in dims):
-            return ShardedOptimizer(lambda ts: make_optimizer(cfg, ts), params, dims)
+            return ShardedOptimizer(lambda ts: make_optimizer(cfg, ts), params, dims,
+                                    mesh)
     return make_optimizer(cfg, params)
 
 
@@ -358,9 +407,20 @@ def replicated_state_tensors(optimizer) -> List[torch.Tensor]:
     return out
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor], sharded: Sequence[int] = (),
+                mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    The tensors at the indices ``sharded`` are this rank's rows of a leaf
+    split over the model axis of ``mesh``: their squares are summed over
+    the model group, every other tensor's counted once."""
+    from rnntransducer_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    if not sharded or mesh is None or mesh.size(MODEL_AXIS) <= 1:
+        return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+    split = set(sharded)
+    own = sum(torch.sum(t * t) for i, t in enumerate(tensors) if i in split)
+    rest = sum(torch.sum(t * t) for i, t in enumerate(tensors) if i not in split)
+    return torch.sqrt(rest + mesh.all_reduce(own.reshape(1), MODEL_AXIS)[0])
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,

@@ -66,6 +66,7 @@ def test_scan_covers_the_training_loop_and_cli():
                 "eval.py", "cli/evaluate.py", "utils/torch_import.py",
                 "models/conformer.py", "models/transducer.py", "train/optim.py",
                 "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+                "parallel/pipeline.py", "parallel/wavefront.py",
                 "cli/prepare_manifest.py", "cli/train_tokenizer.py",
                 "utils/debugging.py", "ops/library.py", "utils/export.py",
                 "utils/flax_msgpack.py", "utils/weights.py", "utils/kenlm_binary.py",

@@ -219,7 +219,8 @@ def test_fit_no_double_save_when_max_steps_hits_val_interval(tmp_path):
 
 
 def test_beam_validation_and_mesh_options_raise(tmp_path):
-    """The mesh axes other than data are not ported: they raise instead of
+    """The model, stage and time axes need ranks the world size divides: in
+    one process they raise the JAX package's ``make_mesh`` error instead of
     running something else.  Beam validation decoding is ported and no
     longer raises; ZeRO-1 is ported, and in one process it is a no-op (the
     replicated optimizer), as on a one-device JAX mesh."""
@@ -227,9 +228,10 @@ def test_beam_validation_and_mesh_options_raise(tmp_path):
     assert trainer.cfg.train.val_decoder == "beam"
     zero = Trainer(_cfg(tmp_path, shard_optimizer_state=True), _ds(2), device="cpu")
     assert type(zero.state.optimizer) is torch.optim.AdamW
-    for kw in (dict(model_parallel=2), dict(pipeline_stages=2),
-               dict(sequence_parallel=2)):
-        with pytest.raises(NotImplementedError, match="one device"):
+    for kw, axis in ((dict(model_parallel=2), "model=2"),
+                     (dict(pipeline_stages=2), "stage=2"),
+                     (dict(sequence_parallel=2), "time=2")):
+        with pytest.raises(ValueError, match=f"1 devices not divisible by {axis}"):
             Trainer(_cfg(tmp_path, **kw), _ds(2), device="cpu")
 
 
@@ -386,22 +388,25 @@ def test_cli_trains_on_synthetic_data_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--model_parallel", "2"], "one device"),
-    (["--model_parallel", "2", "--shard_optimizer_state"], "one device"),
+    (["--model_parallel", "2"], "1 devices not divisible by model=2"),
+    (["--model_parallel", "2", "--shard_optimizer_state"],
+     "1 devices not divisible by model=2"),
     (["--loss_backend", "xla"], "one backend"),
     (["--loss_backend", "pallas"], "one backend"),
-    (["--config", "PIPELINE_CONFIG"], "one device"),
+    (["--config", "PIPELINE_CONFIG"], "1 devices not divisible by stage=2"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
     """``PIPELINE_CONFIG`` stands for a config whose train.pipeline_stages
-    is 2 (the pipeline axis is not ported)."""
+    is 2.  The loss backends are not ported; the model and stage axes are,
+    and one process raises the JAX package's ``make_mesh`` error for them."""
     if "PIPELINE_CONFIG" in flags:
         cfg = _cfg(tmp_path)
         path = str(tmp_path / "pipeline.json")
         dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, pipeline_stages=2)).to_json(path)
         flags = [path if f == "PIPELINE_CONFIG" else f for f in flags]
-    with pytest.raises(NotImplementedError, match=match):
+    error = NotImplementedError if "backend" in match else ValueError
+    with pytest.raises(error, match=match):
         cli.main(["--synthetic", "4", "--device", "cpu",
                   "--checkpoint_dir", str(tmp_path / "x")] + flags)
 
