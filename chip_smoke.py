@@ -202,10 +202,23 @@ Phases (each raises, and the script exits non-zero, on failure):
     the bf16 difference printed.  Four ranks beside this process's
     references: (d) data 2 x stage 2, fp32 at 4 layers, ZeRO-1, against
     one process on the same rows as microbatches (1e-5).
-13. One fp32 step at full width (B=8: the plain backward scans are Python
+13. Lane sharding and remat (``phase_lanes_remat``): (a) phase 7a's
+    64-lane runner on (6d)'s model, greedy and beam 4, bf16, on the first
+    3 s of its waves, unsharded and sharded as two lane groups on the card
+    (``mesh=lane_devices([cuda, cuda])``: a model copy and 32 lanes each;
+    over every card too where there are several): 6 K3 launches per group
+    per tick, tick p50 / p99 of both, an all-idle tick in every group
+    leaving the state bit-identical; in fp32 8 lanes of 1 s sharded
+    against unsharded under phase 7a's margin rule; (b) the flagship bf16
+    step (B=64, T=512, U=48) with ``transnet.remat`` off and on (16, then
+    32 K1 launches a step) and the unfused branch of the flagship widths
+    with the additive joint with ``jointnet.remat`` off and on: step ms
+    and peak memory of each; in fp32 (B=8, dropout and SpecAugment from one
+    seed) the grads with both remats equal those without, bit for bit.
+14. One fp32 step at full width (B=8: the plain backward scans are Python
     loops of small launches), kernels against plain versions (GRU, LSTM and
     the sweep): loss and the grads of named params.
-14. Print one JSON line describing every kernel, then, as the last line,
+15. Print one JSON line describing every kernel, then, as the last line,
     ``{"ok": true, "device": {...}}``.
 
 Imports nothing from JAX or from the JAX package.
@@ -1473,9 +1486,9 @@ def phase_profile_step(state, batch, rows_out=None):
     return device_ms / wall_ms
 
 
-def _bf16_train_state(cfg, flax_params):
+def _bf16_train_state(cfg, flax_params, **train):
     cfg = dataclasses.replace(cfg, train=TrainConfig(
-        precision="bf16", accumulate_grad_batches=1, max_steps=1000))
+        precision="bf16", accumulate_grad_batches=1, max_steps=1000, **train))
     sd = state_dict_from_flax(flax_params, cfg.model)
     return cfg, TrainState.create(cfg, DEVICE, state_dict=sd, seed=SEED)
 
@@ -2461,18 +2474,23 @@ def phase_lstm_tick(gen):
 
 
 def _state_leaves(runner):
-    """Every tensor of a runner's persistent state (encoder state, carry)."""
-    leaves = [runner._enc_state.h, runner._enc_state.c]
-    for leaf in runner._carry:
-        leaves += list(leaf) if isinstance(leaf, tuple) else [leaf]
+    """Every tensor of a runner's persistent state (each lane group's
+    encoder state and carry)."""
+    leaves = []
+    for g in runner._groups:
+        leaves += [g.enc_state.h, g.enc_state.c]
+        for leaf in g.carry:
+            leaves += list(leaf) if isinstance(leaf, tuple) else [leaf]
     return [x for x in leaves if x is not None]
 
 
 def _idle_tick_check(runner, what: str) -> None:
-    """One all-idle tick against the live state: every lane's encoder state
-    and carry come back torch.equal (K3 with every length 0)."""
+    """One all-idle tick in every lane group against its live state: every
+    lane's encoder state and carry come back torch.equal (K3 with every
+    length 0)."""
     before = [x.clone() for x in _state_leaves(runner)]
-    runner._enc_state, runner._carry = runner._step(*runner._idle_inputs())
+    for g in runner._groups:
+        g.enc_state, g.carry = runner._step(*runner._idle_inputs(g), g)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(_state_leaves(runner), before))
     print(f"{what}: all-idle tick leaves every lane bit-identical {same}", flush=True)
@@ -3396,11 +3414,11 @@ def _staggered(runner, waves):
     idled = [0]
     step = runner._step
 
-    def recording(feats, n_valid):
+    def recording(feats, n_valid, group=None):
         live = sorted(runner._live)
         nv = n_valid[live]
         idled[0] += int(bool((nv == 0).any() and (nv > 0).any()))
-        return step(feats, n_valid)
+        return step(feats, n_valid, group)
 
     runner._step = recording
     sessions, got, pos, r = [], [[] for _ in waves], [0] * len(waves), 0
@@ -5149,6 +5167,215 @@ def phase_deploy(flax_params, tokenizer, waves, stream_sd):
     return launches, result
 
 
+LANES_UTT_SEC = 3.0         # phase 13: the first 3 s of phase 7a's waves (time limit)
+LANES_IDLE_ROUND = 12       # the sharded runs' all-idle tick, mid-stream
+REMAT_STEPS = 2             # timed bf16 steps per remat setting, after one warm-up
+UNFUSED_COMBINE = "add"     # the joint whose unfused branch keeps a lattice (13b)
+
+
+def _lane_runs(stream_sd, shared):
+    """Phase 13a: the 64-lane runner of phase 7a, greedy and beam 4, bf16,
+    unsharded and sharded as two lane groups on the card (and over every
+    card where there are several), on the first LANES_UTT_SEC of phase 7a's
+    waves; then fp32 8 lanes of 1 s, sharded against unsharded under
+    phase 7a's margin rule."""
+    from rnntransducer_tpu_torch.decode.session_batch import BatchedStreamingRunner
+    from rnntransducer_tpu_torch.parallel import lane_devices
+    cfg = streaming_config()
+    tn, audio = cfg.model.transnet, cfg.data.audio
+    T, H, lanes = SESSION_CHUNK_FRAMES, tn.hidden_size, max(SESSION_LANES)
+    max_symbols = cfg.train.greedy_max_symbols
+    waves = [w[:int(16000 * LANES_UTT_SEC)] for w in shared["session_waves"][:lanes]]
+    layouts = {"unsharded": None, "2 groups on one card": lane_devices([DEVICE] * 2)}
+    if torch.cuda.device_count() > 1:
+        layouts[f"{torch.cuda.device_count()} cards"] = lane_devices()
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {}
+
+    def runner_of(model, n, decoder, mesh):
+        return BatchedStreamingRunner(model, audio, max_sessions=n, chunk_frames=T,
+                                      max_symbols=max_symbols, max_output_len=512,
+                                      decoder=decoder, beam_width=4, mesh=mesh)
+
+    model = build_model(cfg, DEVICE, state_dict=stream_sd).to(torch.bfloat16)
+    for decoder in ("greedy", "beam"):
+        tokens = {}
+        for label, mesh in layouts.items():
+            runner = runner_of(model, lanes, decoder, mesh)
+            groups = len(runner._groups)
+            per_tick = groups * tn.num_layers * scan_launches(
+                "lstm", T, H, lanes // groups, torch.bfloat16, device=DEVICE)[0]
+            if per_tick != groups * tn.num_layers:
+                raise AssertionError(f"K3 takes {per_tick} launches per tick over "
+                                     f"{groups} groups, not {tn.num_layers} per group")
+            _zero_counts()
+            t0 = time.perf_counter()
+            runner.warmup()
+            warm_s = time.perf_counter() - t0
+            sharded = mesh is not None
+            stats = _lockstep(runner, waves, idle_round=LANES_IDLE_ROUND if sharded else None,
+                              flush=False)
+            torch.cuda.synchronize()
+            got = _counts()
+            want = dict.fromkeys(KERNELS, 0)
+            # the warmup's tick, the traffic's ticks and the all-idle tick, in every group
+            want["lstm_fwd"] = per_tick * (1 + stats["ticks"] + int(sharded))
+            what = f"lanes {decoder} bf16 {lanes} lanes, {label} ({stats['ticks']} ticks)"
+            _expect_launches(what, got, want)
+            for k in KERNELS:
+                launches[k] += got[k]
+            tokens[label] = stats.pop("tokens")
+            stats.pop("times")
+            print(f"{what}: K3 launches per tick {per_tick} ({per_tick // groups} per group, "
+                  f"{groups} groups); warmup {warm_s:.2f} s; tick p50 "
+                  f"{stats['tick_ms_p50']:.1f} ms, p99 {stats['tick_ms_p99']:.1f} ms; "
+                  f"aggregate RTF {stats['aggregate_rtf']:.2f} audio s per wall s", flush=True)
+            if not all(tokens[label]):
+                raise AssertionError(f"{what}: a lane decoded no token")
+            result[f"{decoder} {label}"] = dict(stats, warmup_s=warm_s,
+                                                k3_per_tick=per_tick, groups=groups)
+            del runner
+        base = tokens["unsharded"]
+        for label in list(layouts)[1:]:
+            same = sum(a == b for a, b in zip(tokens[label], base))
+            # bf16 products over 32 rows may round otherwise than over 64:
+            # printed here, held to the margin rule in fp32 below
+            print(f"lanes {decoder} bf16, {label}: tokens equal to the unsharded runner's "
+                  f"on {same} of {lanes} lanes", flush=True)
+            result[f"{decoder} {label}"]["lanes_equal_unsharded"] = same
+    del model
+    torch.cuda.empty_cache()
+
+    model32 = build_model(cfg, DEVICE, state_dict=stream_sd)
+    short = [w[:int(16000 * SESSION_CMP_SEC)] for w in shared["session_waves"][:SERVER_LANES]]
+    for decoder in ("greedy", "beam"):
+        _zero_counts()
+        ref = _lockstep(runner_of(model32, len(short), decoder, None), short)
+        got = _lockstep(runner_of(model32, len(short), decoder, lane_devices([DEVICE] * 2)),
+                        short)
+        counts = _counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        ties = _margin_rule(model32, f"lanes {decoder} fp32 sharded vs unsharded", decoder,
+                            short, got["tokens"], got["times"],
+                            list(zip(ref["tokens"], ref["times"] or [None] * len(short))),
+                            max_symbols, T, audio, audio.window_stride_sec)
+        print(f"lanes {decoder} fp32, {len(short)} lanes of {SESSION_CMP_SEC:.0f} s in 2 "
+              f"groups: tokens equal to the unsharded runner's on "
+              f"{len(short) - len(ties)} of {len(short)} lanes; near-ties {ties}", flush=True)
+        result[f"{decoder} fp32 sharded vs unsharded"] = {"near_ties": ties}
+    del model32
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def _with_remat(cfg, transnet=None, joint=None, combine=None):
+    """``cfg`` with ``transnet.remat`` / ``jointnet.remat`` / the joint's
+    combine set where given."""
+    m = cfg.model
+    tn = m.transnet if transnet is None else dataclasses.replace(m.transnet, remat=transnet)
+    jn = m.jointnet if joint is None else dataclasses.replace(m.jointnet, remat=joint)
+    jn = jn if combine is None else dataclasses.replace(jn, combine=combine)
+    return dataclasses.replace(cfg, model=dataclasses.replace(m, transnet=tn, jointnet=jn))
+
+
+def _remat_runs(flax_params):
+    """Phase 13b: bf16 train steps at B=64, T=512, U=48 with and without
+    remat: the flagship with ``transnet.remat`` off and on (K1 16, then
+    32, launches a step), then the unfused branch (``joint_chunk_frames``
+    0) of the flagship widths with the additive joint, ``jointnet.remat``
+    off and on; step ms and the peak memory of the timed steps for each.
+    Then the gate: one fp32 loss and its grads at B=8 with dropout and
+    SpecAugment from one seed, both remats off and both on, bit for bit."""
+    B, T, U = TRAIN_B, T_FRAMES, TRAIN_U
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {}
+    base = base_config()
+    # the additive joint has projections of its own: weights drawn for it
+    add_params = random_flax_params(_with_remat(base, combine=UNFUSED_COMBINE).model,
+                                    torch.Generator().manual_seed(SEED))
+    runs = [(f"transnet.remat={r}", _with_remat(base, transnet=r), flax_params, {})
+            for r in (False, True)]
+    runs += [(f"unfused {UNFUSED_COMBINE} joint, jointnet.remat={r}",
+              _with_remat(base, joint=r, combine=UNFUSED_COMBINE), add_params,
+              {"joint_chunk_frames": 0}) for r in (False, True)]
+    batch = None
+    for label, cfg, weights, train in runs:
+        cfg, state = _bf16_train_state(cfg, weights, **train)
+        if batch is None:
+            batch = _train_batch(cfg, B, T, U)
+        want = step_launches(cfg, T, U, device=DEVICE)
+        if cfg.model.transnet.remat:  # every encoder scan once more in the backward
+            want["gru_fwd"] *= 2
+        train_step(state, batch)
+        torch.cuda.synchronize()
+        resting = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, got, _ = _run_steps(f"remat {label}", state, batch, want, 0, REMAT_STEPS,
+                                     "encoder.rnn.fwd.0.w_hh")
+        peak = torch.cuda.max_memory_allocated()
+        for k in KERNELS:
+            launches[k] += got[k]
+        ms = float(np.mean(step_ms))
+        result[label] = {"step_ms": ms, "step_ms_each": step_ms, "launches_per_step": want,
+                         "peak_mib": peak / 2 ** 20, "resting_mib": resting / 2 ** 20}
+        print(f"remat bf16 B={B} T={T} U={U}, {label}: step {ms:.1f} ms; peak memory "
+              f"{peak / 2 ** 20:.0f} MiB (state at rest {resting / 2 ** 20:.0f} MiB, "
+              f"steps {(peak - resting) / 2 ** 20:.0f} MiB); K1 launches per step "
+              f"{want['gru_fwd']}", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+    feat_lengths, target_lengths = PLAIN_STEP_LENGTHS
+    check = {}
+    for remat in (False, True):
+        cfg = _with_remat(dataclasses.replace(base, train=TrainConfig(
+            precision="fp32", joint_chunk_frames=0)), transnet=remat, joint=remat,
+            combine=UNFUSED_COMBINE)
+        model = build_model(cfg, DEVICE, state_dict_from_flax(add_params, cfg.model),
+                            trainable=True)
+        params = dict(model.named_parameters())
+        batch = _train_batch(cfg, len(feat_lengths), T, U, seed=SEED + 1)
+        batch["feat_lengths"] = torch.tensor(feat_lengths, device=DEVICE).clamp(max=T)
+        batch["target_lengths"] = torch.tensor(target_lengths, device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        _zero_counts()
+        loss = loss_fn(model, cfg, params, batch, gen, deterministic=False)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        got = _counts()
+        for k in KERNELS:
+            launches[k] += got[k]
+        check[remat] = (loss, grads, gen.get_state(), got)
+        del model, params
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = check[False], check[True]
+    differ = sum(not torch.equal(a, b) for a, b in zip(g0, g1))
+    equal = torch.equal(l0, l1) and torch.equal(s0, s1) and differ == 0
+    print(f"remat fp32 B={len(feat_lengths)} unfused {UNFUSED_COMBINE} joint, dropout and "
+          f"SpecAugment from one seed: loss {l0.item():.6f} / {l1.item():.6f}; grads "
+          f"bit-equal with and without remat {equal} ({differ} of {len(g0)} tensors "
+          f"differ); launches without {json.dumps(c0)}, with {json.dumps(c1)}", flush=True)
+    if not equal:
+        raise AssertionError("remat changed the fp32 loss, grads or generator")
+    if not c1["gru_fwd"] == 2 * c0["gru_fwd"] > 0:
+        raise AssertionError("remat did not run every encoder scan again in the backward")
+    result["fp32_grads_bit_equal"] = equal
+    torch.cuda.empty_cache()
+    return launches, result
+
+
+def phase_lanes_remat(flax_params, stream_sd, shared, smi: str):
+    """Phase 13: lane-sharded continuous batching (13a) and remat (13b)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    result = {}
+    for name, part in (("lanes", lambda: _lane_runs(stream_sd, shared)),
+                       ("remat", lambda: _remat_runs(flax_params))):
+        got, result[name] = part()
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+    print(f"lanes_remat on {smi}", flush=True)
+    return launches, result
+
+
 def _timed(name, fn, *args):
     """``fn(*args)``, its wall time printed (where the script's time goes)."""
     t0 = time.perf_counter()
@@ -5228,7 +5455,9 @@ def main() -> int:
                 ("corpus", lambda: phase_corpus(flax_params, smi)),
                 ("deploy", lambda: phase_deploy(flax_params, tokenizer, waves,
                                                 stream_sd)),
-                ("model_parallel", lambda: phase_model_parallel(flax_params, smi))):
+                ("model_parallel", lambda: phase_model_parallel(flax_params, smi)),
+                ("lanes_remat", lambda: phase_lanes_remat(flax_params, stream_sd, shared,
+                                                          smi))):
             got, result = _timed(name, run)
             bare_busy[name] = result.get("device_busy_share")
             launches = {k: launches[k] + got[k] for k in KERNELS}

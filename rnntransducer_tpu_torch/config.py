@@ -3,9 +3,12 @@
 
 The dataclasses, defaults and JSON schema are identical, so every
 ``configs/*.json`` loads unchanged in both packages.  Fields that only steer
-the JAX package (``scan_layers``, ``use_pallas_cells``, ``remat``) are kept
-for schema compatibility; the port's weight bridge reads ``scan_layers`` to
-know the layout of a converted flax tree.
+the JAX package (``scan_layers``, ``use_pallas_cells``) are kept for schema
+compatibility; the port's weight bridge reads ``scan_layers`` to know the
+layout of a converted flax tree.  ``transnet.remat`` and ``jointnet.remat``
+steer the port as they do the JAX package: the encoder's layers (or
+Conformer blocks) and the unfused joint are recomputed in the backward
+pass.
 
 The original module's notes follow.
 

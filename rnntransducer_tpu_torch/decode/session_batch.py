@@ -26,6 +26,13 @@ hypotheses each, rows slot-major: lane s holds rows s*K .. s*K+K-1; poll
 ``hotwords`` the beam lanes run the host A/B search and the tick encodes
 only.
 
+Lane sharding (``mesh``, a list of devices): the lanes split into one group
+per device, slot-major, each group with its own copy of the model and its
+slice of the state; a tick launches every group's work, then copies each
+group's partials to the host.  Lanes are independent, so no group waits on
+another (the JAX runner's lane-sharded mesh, partitioned with no
+collectives).
+
 Thread-safe, two locks:
 
 * ``_state_lock`` guards host bookkeeping: slot allocation, per-session
@@ -67,6 +74,7 @@ from rnntransducer_tpu_torch.decode.streaming import (StreamingFrontend,
                                                       check_chunk_frames)
 from rnntransducer_tpu_torch.models.cells import RNNState
 from rnntransducer_tpu_torch.models.transducer import RNNTransducer
+from rnntransducer_tpu_torch.parallel.mesh import lane_devices
 from rnntransducer_tpu_torch.utils.precision import (decode_dtype,
                                                      match_param_dtype,
                                                      param_dtype)
@@ -292,6 +300,20 @@ class BatchedSession:
         self._runner._release(self)
 
 
+class _LaneGroup:
+    """One device's share of a runner's lanes: slots [lo, hi), with its own
+    model, LM tables, encoder state and decode carry on ``device``."""
+
+    def __init__(self, model: RNNTransducer, lo: int, hi: int, device_lm, word_lm):
+        self.model = model
+        self.device = _device(model)
+        self.lo, self.hi = lo, hi
+        self.lm_table = None if device_lm is None else device_lm.to(self.device).table
+        self.word_lm = None if word_lm is None else word_lm.to(self.device)
+        self.enc_state = _zero_encoder_state(model, hi - lo)
+        self.carry = None  # the decoders' (none in the host fused mode)
+
+
 class BatchedStreamingRunner:
     def __init__(self, model: RNNTransducer, audio_cfg: AudioConfig,
                  max_sessions: int = 8, chunk_frames: int = 64, blank_id: int = 0,
@@ -304,8 +326,14 @@ class BatchedStreamingRunner:
         """The lanes live on the model's device; the model holds its own
         weights (the JAX runner takes ``(model, variables)``).
 
-        ``mesh``: lane sharding over several devices is not ported (the
-        port runs on one device) and raises ``NotImplementedError``.
+        ``mesh``: a list of devices (``parallel.mesh.lane_devices``) to
+        shard the lanes over, the JAX runner's 1-D mesh.  Each device holds
+        one lane group: a copy of the model (after the ``precision`` cast)
+        and of the LM tables, and the state of ``max_sessions / n`` lanes;
+        slot s belongs to group ``s // (max_sessions / n)``, the JAX
+        runner's slot-major split.  A tick launches every group's device
+        work, then copies each group's partials to the host.  The lanes
+        must divide evenly; host LM / hotword fusion is not sharded.
 
         LM / hotword shallow fusion: ``lm`` (``decode.ngram_lm.NGramLM``)
         and / or ``hotwords`` with ``decoder="beam"`` and a ``tokenizer``.
@@ -318,14 +346,10 @@ class BatchedStreamingRunner:
         device.  ``word_lm`` (``decode.device_word_lm.DeviceWordLM``,
         ``decoder="beam"`` only): word-boundary fusion inside the beam
         tick; ``flush()`` serves the EOS-settled ranked best.  Both exclude
-        the host fused mode; they compose with each other.
+        the host fused mode; they compose with each other and with a mesh.
 
         ``precision``: 'bf16' / 'fp32' decode with a cast copy of the model;
         None keeps the model's dtype."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "lane sharding over a device mesh is not ported: the port's "
-                "runner serves its lanes on one device")
         tn = model.cfg.transnet
         if tn.bidirectional:
             raise ValueError("streaming requires a unidirectional encoder")
@@ -345,10 +369,18 @@ class BatchedStreamingRunner:
                 raise ValueError(
                     f"{name} (on-device fusion) and lm/hotwords (host "
                     "word-level fusion) are mutually exclusive")
+        if self.fused and mesh is not None:
+            raise ValueError(
+                "LM/hotword fusion + lane sharding is unsupported (the "
+                "fused search is host-side; shard plain beam lanes instead)")
+        devices = None if mesh is None else lane_devices(mesh)
+        if devices is not None and max_sessions % len(devices):
+            raise ValueError(
+                f"max_sessions ({max_sessions}) must divide evenly across "
+                f"the mesh ({len(devices)} devices)")
         if precision is not None and decode_dtype(precision) != param_dtype(model):
             model = copy.deepcopy(model).to(decode_dtype(precision))
         self.model = model
-        self.device = _device(model)
         self.audio_cfg = audio_cfg
         # encoder-frame duration in seconds (timestamps surface)
         self.frame_sec = stride * audio_cfg.window_stride_sec
@@ -364,16 +396,17 @@ class BatchedStreamingRunner:
         self._state_lock = threading.RLock()
         self._free = list(range(max_sessions))
         self._live: dict = {}
-        self._enc_state = _zero_encoder_state(model, max_sessions)
         self._host_beam = None
         self._host_sessions: dict = {}
-        self._word_lm = None if word_lm is None else word_lm.to(self.device)
+        self._word_lm = word_lm
         self._word_lm_start = -1 if word_lm is None else word_lm.start_state
-        self._lm_table = None
-        self._lm_weight = 0.0
-        if device_lm is not None:
-            self._lm_table = device_lm.to(self.device).table
-            self._lm_weight = device_lm.weight
+        self._lm_weight = 0.0 if device_lm is None else device_lm.weight
+        self._lanes = max_sessions // (1 if devices is None else len(devices))
+        self._groups: List[_LaneGroup] = []
+        for lo in range(0, max_sessions, self._lanes):
+            m = model if devices is None else copy.deepcopy(model).to(
+                devices[lo // self._lanes])
+            self._groups.append(_LaneGroup(m, lo, lo + self._lanes, device_lm, word_lm))
         if self.fused:
             from rnntransducer_tpu_torch.decode.beam import BeamSearchDecoder
             from rnntransducer_tpu_torch.decode.hotwords import DEFAULT_HOTWORD_WEIGHT
@@ -384,20 +417,46 @@ class BatchedStreamingRunner:
                 hotwords=hotwords,
                 hotword_weight=(DEFAULT_HOTWORD_WEIGHT if hotword_weight
                                 is None else hotword_weight))
-            self._carry = None  # no device-side decode carry in fused mode
         elif decoder == "beam":
-            self._carry = init_beam_carry(
-                model, max_sessions, beam_width, blank_id, max_output_len,
-                lm_context=device_lm.context if device_lm is not None else 0,
-                word_lm_start=self._word_lm_start)
+            for g in self._groups:
+                g.carry = init_beam_carry(
+                    g.model, self._lanes, beam_width, blank_id, max_output_len,
+                    lm_context=device_lm.context if device_lm is not None else 0,
+                    word_lm_start=self._word_lm_start)
         else:
-            self._carry = init_greedy_carry(model, max_sessions, blank_id,
+            for g in self._groups:
+                g.carry = init_greedy_carry(g.model, self._lanes, blank_id,
                                             max_output_len)
         # host mirror of (tokens, lengths[, times]), refreshed once per tick
         self._tokens = np.full((max_sessions, max_output_len), blank_id, np.int64)
         self._lengths = np.zeros((max_sessions,), np.int64)
         # per-token emission frames (greedy only; beam hypotheses rewrite)
         self._times = np.zeros((max_sessions, max_output_len), np.int64)
+
+    def _group(self, slot: int) -> _LaneGroup:
+        return self._groups[slot // self._lanes]
+
+    def _only_group(self) -> _LaneGroup:
+        if len(self._groups) != 1:
+            raise ValueError("a sharded runner's state lives in its lane groups")
+        return self._groups[0]
+
+    # the state of an unsharded runner (``mesh=None``), for inspection
+    @property
+    def _enc_state(self) -> RNNState:
+        return self._only_group().enc_state
+
+    @_enc_state.setter
+    def _enc_state(self, value: RNNState) -> None:
+        self._only_group().enc_state = value
+
+    @property
+    def _carry(self):
+        return self._only_group().carry
+
+    @_carry.setter
+    def _carry(self, value) -> None:
+        self._only_group().carry = value
 
     # ------------------------------------------------------------ sessions
     def open(self, normalize: str = "none", norm_mean: float = 0.0,
@@ -410,12 +469,13 @@ class BatchedStreamingRunner:
                     raise RuntimeError(
                         f"all {self.max_sessions} session slots in use")
                 slot = self._free.pop()
+            g = self._group(slot)
             if self.fused:
-                self._enc_state = _reset_enc_slot(self._enc_state, slot)
+                g.enc_state = _reset_enc_slot(g.enc_state, slot - g.lo)
                 self._host_sessions[slot] = self._host_beam.open_session()
             else:
-                self._enc_state, self._carry = self._reset(self._enc_state,
-                                                           self._carry, slot)
+                g.enc_state, g.carry = self._reset(g, g.enc_state, g.carry,
+                                                   slot - g.lo)
             with self._state_lock:
                 self._tokens[slot] = self.blank_id
                 self._lengths[slot] = 0
@@ -427,11 +487,12 @@ class BatchedStreamingRunner:
                 self._live[slot] = sess
                 return sess
 
-    def _reset(self, enc_state, carry, slot: int):
+    def _reset(self, g: _LaneGroup, enc_state, carry, lane: int):
+        """(enc_state, carry) of group ``g`` with its lane ``lane`` reset."""
         if self.decoder == "beam":
-            return _reset_slot_beam(self.model, enc_state, carry, slot,
+            return _reset_slot_beam(g.model, enc_state, carry, lane,
                                     self.blank_id, self._word_lm_start)
-        return _reset_slot(self.model, enc_state, carry, slot, self.blank_id)
+        return _reset_slot(g.model, enc_state, carry, lane, self.blank_id)
 
     def _release(self, sess: BatchedSession) -> None:
         with self._state_lock:
@@ -444,8 +505,9 @@ class BatchedStreamingRunner:
         (``settle_word_lm``), used by flush(); the carry itself is untouched,
         so other lanes' mid-stream ranking is unaffected."""
         with self._tick_lock:
-            t, n = best_hyp_all(settle_word_lm(self._carry, self._word_lm))
-            return t[slot, :int(n[slot])].tolist()
+            g = self._group(slot)
+            t, n = best_hyp_all(settle_word_lm(g.carry, g.word_lm))
+            return t[slot - g.lo, :int(n[slot - g.lo])].tolist()
 
     def slot_tokens(self, slot: int):
         with self._state_lock:
@@ -462,25 +524,27 @@ class BatchedStreamingRunner:
             return self._times[slot].copy(), int(self._lengths[slot])
 
     # ------------------------------------------------------------- device
-    def _idle_inputs(self):
-        feats = torch.zeros((self.max_sessions, self.chunk_frames,
-                             self.audio_cfg.n_mels), dtype=torch.float32,
-                            device=self.device)
-        return feats, torch.zeros((self.max_sessions,), dtype=torch.int64,
-                                  device=self.device)
+    def _idle_inputs(self, g: Optional[_LaneGroup] = None):
+        """All-idle tick inputs of group ``g`` (the only group by default)."""
+        g = g or self._only_group()
+        feats = torch.zeros((g.hi - g.lo, self.chunk_frames, self.audio_cfg.n_mels),
+                            dtype=torch.float32, device=g.device)
+        return feats, torch.zeros((g.hi - g.lo,), dtype=torch.int64, device=g.device)
 
-    def _step(self, feats, n_valid):
-        """One tick's device work against the live state: (enc_state, carry)."""
+    def _step(self, feats, n_valid, g: Optional[_LaneGroup] = None):
+        """One tick's device work against group ``g``'s live state (the only
+        group by default): its (enc_state, carry)."""
+        g = g or self._only_group()
         if self.decoder == "beam":
             return _batched_chunk_step_beam(
-                self.model, feats, n_valid, self._enc_state, self._carry,
-                self.blank_id, self.max_symbols, lm_table=self._lm_table,
-                lm_weight=self._lm_weight, word_lm=self._word_lm)
-        return _batched_chunk_step(self.model, feats, n_valid, self._enc_state,
-                                   self._carry, self.blank_id, self.max_symbols)
+                g.model, feats, n_valid, g.enc_state, g.carry, self.blank_id,
+                self.max_symbols, lm_table=g.lm_table, lm_weight=self._lm_weight,
+                word_lm=g.word_lm)
+        return _batched_chunk_step(g.model, feats, n_valid, g.enc_state, g.carry,
+                                   self.blank_id, self.max_symbols)
 
     def _fetch(self, carry):
-        """Every lane's partials in one device-to-host copy: (tokens (S, L),
+        """A group's partials in one device-to-host copy: (tokens (S, L),
         lengths (S,), times (S, L) or None).  Beam: the ranked best
         (length-normalized) of each lane, ranked on the device."""
         if self.decoder == "beam":
@@ -495,34 +559,35 @@ class BatchedStreamingRunner:
     def warmup(self) -> None:
         """Everything the first client would otherwise wait for, before
         serving traffic: build the encoder's recurrent kernel (an RNN
-        encoder's), then run one
-        all-idle tick (every ``n_valid`` = 0), one slot reset and one
-        partials fetch against the live state, discarding their results.
-        An all-idle tick changes no lane (asserted by tests), the reset
-        builds new tensors, and the live state is left as it was."""
+        encoder's), then run, in every lane group, one all-idle tick (every
+        ``n_valid`` = 0), one slot reset and one partials fetch against the
+        live state, discarding their results.  An all-idle tick changes no
+        lane (asserted by tests), the reset builds new tensors, and the live
+        state is left as it was."""
         tn = self.model.cfg.transnet
-        if self.device.type == "cuda" and tn.arch == "rnn":
+        if tn.arch == "rnn" and any(g.device.type == "cuda" for g in self._groups):
             from rnntransducer_tpu_torch.ops import build
             build.build_all([f"{tn.rnn_type.lower()}_fwd"])
         with self._tick_lock:
-            feats, n_valid = self._idle_inputs()
             if self.fused:
                 # the encode-only tick + the two wave-scoring widths a fused
                 # fleet hits first (one lane, the full-width pump)
-                enc, _ = _batched_encode(self.model, feats, n_valid, self._enc_state)
-                _reset_enc_slot(self._enc_state, 0)
+                g = self._only_group()
+                enc, _ = _batched_encode(g.model, *self._idle_inputs(g), g.enc_state)
+                _reset_enc_slot(g.enc_state, 0)
                 hb = self._host_beam
                 sessions = [hb.open_session() for _ in range(self.max_sessions)]
                 for n_lanes in sorted({1, self.max_sessions}):
                     hb._score_wave_multi([(list(s.B_hyps), enc[0, :1])
                                           for s in sessions[:n_lanes]])
                 return
-            enc_state, carry = self._step(feats, n_valid)
-            self._fetch(carry)
-            self._reset(enc_state, carry, 0)
-            if self._word_lm is not None:
-                # flush()'s settled final ranking
-                best_hyp_all(settle_word_lm(carry, self._word_lm))[0].cpu()
+            for g in self._groups:
+                enc_state, carry = self._step(*self._idle_inputs(g), g)
+                self._fetch(carry)
+                self._reset(g, enc_state, carry, 0)
+                if g.word_lm is not None:
+                    # flush()'s settled final ranking
+                    best_hyp_all(settle_word_lm(carry, g.word_lm))[0].cpu()
 
     # ---------------------------------------------------------------- tick
     def drain(self, final_session: Optional[BatchedSession] = None) -> int:
@@ -546,14 +611,23 @@ class BatchedStreamingRunner:
                 # device work and the fetch run WITHOUT the state lock: other
                 # connections keep buffering audio and polling partials
                 # while a wide tick is in flight
-                feats_d = torch.from_numpy(feats).to(self.device)
-                n_valid_d = torch.from_numpy(n_valid).to(self.device)
                 ticks += 1
                 if self.fused:
-                    self._tick_fused(feats_d, n_valid_d, active)
+                    g = self._only_group()
+                    self._tick_fused(torch.from_numpy(feats).to(g.device),
+                                     torch.from_numpy(n_valid).to(g.device), active)
                     continue
-                self._enc_state, self._carry = self._step(feats_d, n_valid_d)
-                t, n, tm = self._fetch(self._carry)
+                # every group's device work is queued before the first
+                # fetch waits on its group
+                steps = [self._step(torch.from_numpy(feats[g.lo:g.hi]).to(g.device),
+                                    torch.from_numpy(n_valid[g.lo:g.hi]).to(g.device), g)
+                         for g in self._groups]
+                for g, (enc_state, carry) in zip(self._groups, steps):
+                    g.enc_state, g.carry = enc_state, carry
+                # one device-to-host copy per group, in slot order
+                parts = [self._fetch(g.carry) for g in self._groups]
+                t, n = (np.concatenate([p[i] for p in parts]) for i in (0, 1))
+                tm = None if parts[0][2] is None else np.concatenate([p[2] for p in parts])
                 with self._state_lock:
                     self._tokens, self._lengths = t, n
                     if tm is not None:
@@ -572,8 +646,8 @@ class BatchedStreamingRunner:
         active lane's host A/B search advances together with cross-lane wave
         batching (one device call per pump round).  Each lane's valid frames
         stay on the device."""
-        enc, self._enc_state = _batched_encode(self.model, feats, n_valid,
-                                               self._enc_state)
+        g = self._only_group()
+        enc, g.enc_state = _batched_encode(g.model, feats, n_valid, g.enc_state)
         red = self.model.cfg.transnet.output_lengths
         with self._state_lock:
             lanes = [(slot, self._host_sessions[slot]) for slot, _ in active

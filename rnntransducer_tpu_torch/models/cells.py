@@ -27,6 +27,12 @@ is quantized to n/256, uint8 bits come from an explicit
 ``torch.Generator``, kept values are rescaled by the quantized keep
 probability.  It is active exactly when a generator is passed; the masks
 differ from the JAX package's (another generator), their statistics do not.
+
+``StackedRNN(remat=True)`` recomputes each layer in the backward pass
+(``remat_call``, the JAX package's ``nn.remat(RNNLayer)``): only a layer's
+input is kept, and the backward runs the layer's forward kernel again.  The
+inter-layer dropout sits outside the recomputed layer, so nothing random is
+replayed.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rnntransducer_tpu_torch.ops.rnn_kernels import (GRUScanFunction,
                                                     LSTMScanFunction, gru_scan,
@@ -179,18 +186,37 @@ class RNNLayer(nn.Module):
         return out, (h, c)
 
 
+def remat_call(module: nn.Module, *args):
+    """``module(*args)`` recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) on the params the forward
+    saw: under ``functional_call`` those are the swapped-in tensors (the
+    bf16 cast copies of a train step), not the module's own."""
+    params = dict(module.named_parameters())
+    return checkpoint(lambda *a: torch.func.functional_call(module, params, a),
+                      *args, use_reentrant=False)
+
+
+def remat_active(on: bool, module: nn.Module, x: torch.Tensor) -> bool:
+    """Whether a ``remat`` setting takes effect on this call: grads are
+    recorded and the input or a param of ``module`` requires them."""
+    return on and torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
+
+
 class StackedRNN(nn.Module):
     """Multi-layer (optionally bidirectional) RNN, batch first.  Layer l of
     direction d is ``fwd[l]`` / ``bwd[l]``.  Inter-layer dropout goes on the
     input of layers 1..L-1 (torch's dropout on every layer's output but the
-    last), never on the last layer's output."""
+    last), never on the last layer's output.  ``remat``: each layer is
+    recomputed in the backward pass (:func:`remat_call`)."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
                  rnn_type: str = "lstm", bidirectional: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.dropout = dropout
+        self.remat = remat
         self.num_layers = num_layers
         self.rnn_type = rnn_type
         self.bidirectional = bidirectional
@@ -230,17 +256,18 @@ class StackedRNN(nn.Module):
         B, T = x.shape[0], x.shape[1]
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.int64, device=x.device)
+        call = remat_call if remat_active(self.remat, self, x) else nn.Module.__call__
         out = x
         finals = []
         for layer in range(self.num_layers):
             if layer > 0:
                 out = fast_dropout(out, self.dropout, generator)
-            f_out, f_fin = self.fwd[layer](
-                out, lengths,
+            f_out, f_fin = call(
+                self.fwd[layer], out, lengths,
                 self._layer_state(initial_state, layer, 0, B, x.dtype, x.device))
             if self.bidirectional:
-                b_out, b_fin = self.bwd[layer](
-                    out, lengths,
+                b_out, b_fin = call(
+                    self.bwd[layer], out, lengths,
                     self._layer_state(initial_state, layer, 1, B, x.dtype, x.device))
                 out = torch.cat([f_out, b_out], dim=-1)
                 finals.append((f_fin, b_fin))

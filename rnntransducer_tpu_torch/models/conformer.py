@@ -47,7 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from rnntransducer_tpu_torch.config import TransNetConfig
-from rnntransducer_tpu_torch.models.cells import RNNState, fast_dropout
+from rnntransducer_tpu_torch.models.cells import RNNState, fast_dropout, remat_active
 from rnntransducer_tpu_torch.models.encoder import stack_frames
 from rnntransducer_tpu_torch.utils.masking import length_mask
 
@@ -345,8 +345,7 @@ class ConformerEncoder(nn.Module):
         x, valid = self._project_in(inputs, lengths, generator)
         cm = self._chunk_mask(x.shape[1], x.device)
         mask = valid[:, None, :] if cm is None else (cm & valid[:, None, :])
-        remat = cfg.remat and torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        remat = remat_active(cfg.remat, self, x)
         for blk in self.blocks:
             x = (_remat_block(blk, x, valid, mask, generator) if remat
                  else blk(x, valid, mask, generator))

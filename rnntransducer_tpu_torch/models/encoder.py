@@ -50,7 +50,7 @@ class AudioEncoder(nn.Module):
 
         def make_stack(input_size, num_layers):
             return StackedRNN(input_size, cfg.hidden_size, num_layers, rnn_type,
-                              cfg.bidirectional, cfg.dropout)
+                              cfg.bidirectional, cfg.dropout, cfg.remat)
 
         # "rnn" = layers before the reduction point, "rnn_post" = after it
         if stride > 1 and 0 < k < cfg.num_layers:

@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from rnntransducer_tpu_torch.config import Config, ModelConfig
-from rnntransducer_tpu_torch.models.cells import RNNState
+from rnntransducer_tpu_torch.models.cells import RNNState, remat_active, remat_call
 from rnntransducer_tpu_torch.models.conformer import ConformerEncoder
 from rnntransducer_tpu_torch.models.encoder import AudioEncoder
 from rnntransducer_tpu_torch.models.joint import JointNetwork
@@ -30,9 +30,14 @@ class RNNTransducer(nn.Module):
     def forward(self, audio, audio_lengths, text, text_lengths,
                 generator: Optional[torch.Generator] = None):
         """audio: (B, T, n_mels); text: (B, U+1) blank-prepended labels.
-        Returns (B, T', U+1, V) logits.  ``generator`` turns dropout on."""
+        Returns (B, T', U+1, V) logits.  ``generator`` turns dropout on.
+        ``jointnet.remat``: the joint's (B, T', U+1, De+Dd) lattice is
+        recomputed in the backward pass instead of kept, as in the JAX
+        model."""
         enc, _ = self.encoder(audio, audio_lengths, generator=generator)
         dec, _ = self.prednet(text, text_lengths, generator=generator)
+        if remat_active(self.cfg.jointnet.remat, self.joint, enc):
+            return remat_call(self.joint, enc, dec)
         return self.joint(enc, dec)
 
     def encode(self, audio, audio_lengths=None, initial_state: Optional[RNNState] = None,

@@ -265,6 +265,26 @@ def mesh_of(train_cfg) -> Mesh:
                      sequence_parallel=train_cfg.sequence_parallel)
 
 
+def lane_devices(devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The devices of a lane-sharded ``BatchedStreamingRunner``, one lane
+    group each: the serving counterpart of the JAX package's 1-D
+    ``make_mesh()`` over the local devices.  One process drives them all;
+    it has nothing to do with the process-group :class:`Mesh` of training.
+
+    By default every visible CUDA device; without CUDA it raises unless
+    ``devices`` names them.  A list may repeat a device (two lane groups on
+    one card, or CPU entries)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("lane_devices() takes every visible CUDA device and "
+                               "there is none: pass the devices")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    out = [torch.device(d) for d in devices]
+    if not out:
+        raise ValueError("lane_devices: no device given")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # autograd regions of the model axis (Megatron's f / g operators)
 # ---------------------------------------------------------------------------
@@ -499,6 +519,6 @@ def moment_bytes(optimizer) -> int:
 
 __all__ = ["BUCKET_BYTES", "DATA_AXIS", "MODEL_AXIS", "Mesh", "STAGE_AXIS", "TIME_AXIS",
            "TP_LEAVES", "VocabShard", "vocab_sizes", "all_gather_shards", "all_reduce_mean",
-           "all_reduce_sum", "broadcast_state", "copy_to", "gather_rows", "gather_vocab", "local_rows",
-           "make_mesh", "mesh_of", "mesh_shape", "moment_bytes", "reduce_from", "vocab_slice",
+           "all_reduce_sum", "broadcast_state", "copy_to", "gather_rows", "gather_vocab", "lane_devices",
+           "local_rows", "make_mesh", "mesh_of", "mesh_shape", "moment_bytes", "reduce_from", "vocab_slice",
            "zero_split_dims"]

@@ -18,7 +18,8 @@ Concurrency: sessions run on threads of their own.  Per-connection sessions
 the device under one process-wide lock.  With ``batch_sessions > 0`` the
 connections share a ``decode.session_batch.BatchedStreamingRunner``: one
 tick serves every lane, and the runner's own tick / state locks order the
-work, so a connection keeps buffering and polling while a tick runs.
+work, so a connection keeps buffering and polling while a tick runs.  With
+a ``mesh`` (``--shard_sessions``) the lanes shard over several devices.
 
     server = StreamingServer(recognizer, port=0)        # 0 = ephemeral
     server.start()                                      # background thread
@@ -27,7 +28,8 @@ work, so a connection keeps buffering and polling while a tick runs.
 
 CLI, on the card unless ``--device cpu``:
 ``python -m rnntransducer_tpu_torch.serve_socket --checkpoint_dir ckpts
---port 7070 [--decoder greedy|beam] [--batch_sessions 64]``.  SIGTERM or
+--port 7070 [--decoder greedy|beam] [--batch_sessions 64
+[--shard_sessions]]``.  SIGTERM or
 SIGINT drains the sessions in flight, then the process exits 0.
 """
 
@@ -67,15 +69,12 @@ class StreamingServer:
         (``decode/session_batch``) instead of a batch-1 encoder call per
         session; it follows the recognizer's decoder (greedy or beam) and
         its fusion (host LM / hotwords, or the device char LM).
-        ``mesh``: lane sharding over several devices is not ported and
-        raises ``NotImplementedError``.
+        ``mesh``: a list of devices (``parallel.mesh.lane_devices``) the
+        batched lanes shard over, a lane group each; ignored without
+        ``batch_sessions``, as in the JAX server.
         ``warmup``: build the kernels and run the batched tick / reset /
         fetch (or a throwaway session) in ``start()``, before the socket
         binds, so no client waits for them."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding sessions over a device mesh is not ported: the "
-                "port serves on one device")
         self.recognizer = recognizer
         self.host = host
         self._requested_port = port
@@ -115,7 +114,8 @@ class StreamingServer:
                 max_symbols=rec.cfg.train.greedy_max_symbols,
                 max_output_len=rec.max_output_len,
                 decoder="beam" if rec.decoder != "greedy" else "greedy",
-                beam_width=rec.beam_width, device_lm=rec.device_lm, **fused_kw)
+                beam_width=rec.beam_width, mesh=mesh, device_lm=rec.device_lm,
+                **fused_kw)
 
     # ------------------------------------------------------------- session
     def _open(self):
@@ -322,8 +322,9 @@ def parse_args(argv=None):
                         "sessions with one device tick (greedy, beam, or "
                         "beam + LM/hotword fusion)")
     p.add_argument("--shard_sessions", action="store_true",
-                   help="shard --batch_sessions lanes across devices (not "
-                        "ported: the port serves on one device; raises)")
+                   help="shard --batch_sessions lanes across every visible "
+                        "card, a lane group each (lanes must divide evenly; "
+                        "--device cpu: one CPU group)")
     p.add_argument("--lm_path", type=str, default=None,
                    help="ARPA / kenlm-binary / pyctcdecode-dir LM for "
                         "shallow fusion (requires --decoder beam; composes "
@@ -362,9 +363,6 @@ def main(argv=None) -> None:
     from rnntransducer_tpu_torch.serve import Recognizer
 
     args = parse_args(argv)
-    if args.shard_sessions:
-        raise NotImplementedError(
-            "--shard_sessions is not ported: the port serves on one device")
     rec = Recognizer.from_checkpoint(
         args.checkpoint_dir, decoder=args.decoder, beam_width=args.beam_width,
         lm_path=args.lm_path, lm_weight=args.lm_weight, hotwords=args.hotwords,
@@ -374,12 +372,17 @@ def main(argv=None) -> None:
         device_lm_order=args.device_lm_order, precision=args.precision,
         device=args.device)
     kw = {"normalize": args.normalize} if args.normalize else {}
+    mesh = None
+    if args.shard_sessions:
+        from rnntransducer_tpu_torch.parallel.mesh import lane_devices
+        mesh = lane_devices([rec.device] if rec.device.type == "cpu" else None)
     server = StreamingServer(rec, host=args.host, port=args.port,
                              chunk_frames=args.chunk_frames,
-                             batch_sessions=args.batch_sessions, **kw)
+                             batch_sessions=args.batch_sessions, mesh=mesh, **kw)
     server.start()
+    lanes = "" if mesh is None else f", {len(mesh)} lane groups"
     print(f"streaming on {args.host}:{server.port} (decoder={args.decoder}, "
-          f"device={rec.device})", flush=True)
+          f"device={rec.device}{lanes})", flush=True)
 
     # graceful preemption: SIGTERM (an orchestrator's replace-me signal) and
     # SIGINT stop the accept loop and drain the sessions in flight, so their

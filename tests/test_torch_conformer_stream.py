@@ -156,9 +156,9 @@ def test_staggered_lanes_equal_independent_jax_sessions(models):
     ticks = []
     step = runner._step
 
-    def recording_step(feats, n_valid):
+    def recording_step(feats, n_valid, group=None):
         ticks.append((n_valid.tolist(), sorted(runner._live)))
-        return step(feats, n_valid)
+        return step(feats, n_valid, group)
 
     runner._step = recording_step
     sessions, got, pos, rounds = [], [[] for _ in wavs], [0] * len(wavs), 0

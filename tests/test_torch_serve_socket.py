@@ -3,7 +3,8 @@ package's on the same weights and audio, on the CPU: per-connection
 sessions (greedy, beam), batched sessions (greedy, beam) and LM + hotword
 fusion give the JAX server's partials and finals; an abnormal client frees
 its batched slot; drain() waits for sessions in flight and reports a
-timeout; the CLI drains on SIGTERM and exits 0; the mesh options raise."""
+timeout; the CLI drains on SIGTERM and exits 0; the mesh options keep the
+JAX runner's refusals."""
 
 import dataclasses
 import json
@@ -19,6 +20,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import rnntransducer_tpu.config as jcfg
 from rnntransducer_tpu.serve import Recognizer as JaxRecognizer
@@ -27,7 +29,6 @@ from rnntransducer_tpu.serve_socket import stream_wav as jax_stream_wav
 from rnntransducer_tpu.tokenizer import GraphemeTokenizer as JaxTokenizer
 
 import rnntransducer_tpu_torch.config as pcfg
-from rnntransducer_tpu_torch import serve_socket
 from rnntransducer_tpu_torch.serve import Recognizer
 from rnntransducer_tpu_torch.serve_socket import StreamingServer, stream_wav
 from rnntransducer_tpu_torch.tokenizer import GraphemeTokenizer
@@ -269,12 +270,17 @@ def test_cli_drains_on_sigterm_and_exits_0(setup):
 
 
 def test_mesh_options_raise(setup):
+    """The mesh reaches the batched runner, which keeps the JAX runner's
+    refusals; without batched sessions it is ignored, as in the JAX server
+    (the sharded server is ``test_torch_lane_sharding.py``'s)."""
     _, prec = _recognizers(setup, "greedy")
-    with pytest.raises(NotImplementedError, match="one device"):
-        StreamingServer(prec, batch_sessions=2, mesh=object(), warmup=False)
-    with pytest.raises(NotImplementedError, match="one device"):
-        serve_socket.main(["--checkpoint_dir", "unused", "--shard_sessions",
-                           "--device", "cpu"])
+    cpus = [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="divide evenly"):
+        StreamingServer(prec, batch_sessions=3, mesh=cpus, warmup=False)
+    _, fused = _recognizers(setup, "beam", fused=True)
+    with pytest.raises(ValueError, match="lane sharding is unsupported"):
+        StreamingServer(fused, batch_sessions=2, mesh=cpus, warmup=False)
+    assert StreamingServer(prec, mesh=cpus, warmup=False)._runner is None
     bidi_cfg = pcfg.Config(model=pcfg.ModelConfig.from_dict(
         model_dict(rnn_type="lstm", layers=1, bidirectional=True, n_mels=80, vocab=7)))
     _, v = jax_model(model_dict(rnn_type="lstm", layers=1, bidirectional=True,

@@ -6,7 +6,8 @@ beam scores within 1e-5 relative, for greedy lanes, beam lanes, beam lanes
 with the device char LM or word LM, and host-fused lanes (n-gram LM +
 hotwords).  Idle lanes leave the state bit-identical, slots recycle, the
 slot limit raises, concurrent feeds stay exact, warmup leaves the state as
-it was, and a mesh raises."""
+it was, and a mesh keeps the JAX runner's refusals (the sharded lanes are
+``test_torch_lane_sharding.py``'s)."""
 
 import textwrap
 import threading
@@ -315,12 +316,17 @@ def test_warmup_leaves_the_state_unchanged(models, lm_paths, decoder, fusion):
 
 
 def test_refusals(models, lm_paths):
-    """The mesh raises (one device); the JAX package's argument checks."""
+    """The JAX package's argument checks, the mesh's two among them: lanes
+    that do not divide evenly across its devices, and host fusion with a
+    mesh."""
     _, _, pm = models
     audio = pcfg.AudioConfig(**AUDIO)
-    with pytest.raises(NotImplementedError, match="one device"):
-        BatchedStreamingRunner(pm, audio, mesh=object())
+    cpus = [torch.device("cpu")] * 4
+    with pytest.raises(ValueError, match="divide evenly"):
+        BatchedStreamingRunner(pm, audio, max_sessions=6, mesh=cpus)
     _, fused = _fusion_kw("lm+hotwords", lm_paths)
+    with pytest.raises(ValueError, match="lane sharding is unsupported"):
+        BatchedStreamingRunner(pm, audio, decoder="beam", mesh=cpus, **fused)
     with pytest.raises(ValueError, match="requires decoder='beam'"):
         BatchedStreamingRunner(pm, audio, **fused)
     _, dlm = _fusion_kw("device_lm", lm_paths)
