@@ -1,0 +1,8 @@
+"""Share of the traced transcription window in which no device activity
+ran (%)."""
+
+from benchmark.harness.trace import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx.get("trace")) if ctx.get("kind") == "infer" else None
