@@ -1,0 +1,13 @@
+"""Device milliseconds a window step spent in the program's
+``train/optimizer`` span (``train/state.train_step``): the global norm,
+the clip, the optimizer's step and the EMA.
+None where the program records no such span."""
+
+
+def read(ctx):
+    from rnntransducer_tpu_torch.utils import profiling
+    recorded = getattr(profiling, "recorded", None)
+    if ctx.get("kind") != "train" or not ctx["steps"] or recorded is None:
+        return None
+    total = recorded().get("train/optimizer")
+    return 1e3 * total["device_s"] / len(ctx["steps"]) if total else None

@@ -1327,6 +1327,15 @@ def _encode_plain(model, feats, lengths):
         return model.encode(feats, lengths)[0]
 
 
+def _device_rows(prof) -> list:
+    """(device us, calls, name) of each kernel and copy the profiler saw.  A
+    ``record_function`` range (the program's spans) is mirrored on the device
+    timeline as a user annotation as long as the range: not device work."""
+    return [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def phase_profile(rec, waves):
     """Device busy share and device time by kernel over one request."""
     from torch.profiler import ProfilerActivity, profile
@@ -1336,9 +1345,7 @@ def phase_profile(rec, waves):
         rec.transcribe_batch(waves)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = _device_rows(prof)
     device_ms = sum(r[0] for r in rows) / 1e3
     if device_ms == 0.0:
         print("profile: the profiler saw no device time (not measured)", flush=True)
@@ -1468,9 +1475,7 @@ def phase_profile_step(state, batch, rows_out=None):
         train_step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = _device_rows(prof)
     device_ms = sum(r[0] for r in rows) / 1e3
     if rows_out is not None:
         rows_out.extend(rows)
@@ -1813,8 +1818,7 @@ def _recording_trainer(trainer, seen):
 
 
 def _device_busy_ms(prof) -> float:
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return sum(r[0] for r in _device_rows(prof)) / 1e3
 
 
 def phase_trainer(flax_params, waves, bare_busy):

@@ -109,7 +109,17 @@ def parse_args(argv=None):
     p.add_argument("--eval_only", action="store_true",
                    help="restore the best checkpoint and evaluate instead of training")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of steps 10-15 here")
+                   help="write a torch.profiler trace of steps 10-15 here "
+                        "(trace_<pid>_<ms>.json), and beside it the totals of the "
+                        "step's spans (spans_<pid>_<ms>.json): for each of "
+                        "train/step, train/forward, train/frontend, train/encoder, "
+                        "train/prednet, train/joint_loss, train/backward, "
+                        "train/allreduce, train/optimizer and data/prefetch_wait "
+                        "its count, host_s, device_s and self_device_s (seconds "
+                        "summed over the window), and the counts of data/batches "
+                        "and data/prefetch_empty; the profile_written log line "
+                        "gives train/step_ms (device ms per step) and "
+                        "data/prefetch_wait_ms (host ms per step)")
     p.add_argument("--debug_nans", action="store_true",
                    help="fail at the first non-finite value: autograd anomaly "
                         "detection and forward hooks (utils.debugging.debug_nans)")

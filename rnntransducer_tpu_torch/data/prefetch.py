@@ -6,7 +6,10 @@ the device on a background thread while the current step runs.  On a CUDA
 device every batch is pinned and copied with ``non_blocking=True`` on a side
 stream, an event is recorded there, and the consumer's stream waits on that
 event before the batch is handed out, so copies overlap compute and a step
-never reads a batch before it has landed.
+never reads a batch before it has landed.  While a profiler records, the
+consumer's wait is the span ``data/prefetch_wait``, and the counters
+``data/batches`` and ``data/prefetch_empty`` count the batches handed out
+and the fetches that found the queue empty (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Callable, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+
+from rnntransducer_tpu_torch.utils import profiling
 
 
 def ordered_readahead(thunks: Iterable[Callable], workers: int = 2,
@@ -118,7 +123,12 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with profiling.annotate("data/prefetch_wait"):
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                profiling.count("data/prefetch_empty")
+                item = self._q.get()
         if item is self._SENTINEL:
             if self._err is not None:
                 raise self._err
@@ -130,6 +140,7 @@ class DevicePrefetcher:
             for t in batch.values():
                 # the side stream's allocation is now used on this stream
                 t.record_stream(stream)
+        profiling.count("data/batches")
         return batch
 
     def close(self) -> None:

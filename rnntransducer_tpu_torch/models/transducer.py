@@ -36,9 +36,7 @@ class RNNTransducer(nn.Module):
         model."""
         enc, _ = self.encoder(audio, audio_lengths, generator=generator)
         dec, _ = self.prednet(text, text_lengths, generator=generator)
-        if remat_active(self.cfg.jointnet.remat, self.joint, enc):
-            return remat_call(self.joint, enc, dec)
-        return self.joint(enc, dec)
+        return self.joint_lattice(enc, dec)
 
     def encode(self, audio, audio_lengths=None, initial_state: Optional[RNNState] = None,
                generator: Optional[torch.Generator] = None):
@@ -54,6 +52,13 @@ class RNNTransducer(nn.Module):
     def joint_step(self, enc_t, dec_u):
         """enc_t (B, De), dec_u (B, Dd) -> (B, V) logits."""
         return self.joint(enc_t, dec_u)
+
+    def joint_lattice(self, enc, dec):
+        """enc (B, T', De), dec (B, U+1, Dd) -> (B, T', U+1, V) logits, the
+        lattice recomputed in the backward pass under ``jointnet.remat``."""
+        if remat_active(self.cfg.jointnet.remat, self.joint, enc):
+            return remat_call(self.joint, enc, dec)
+        return self.joint(enc, dec)
 
     def joint_factors(self, enc, dec, shard=None):
         return self.joint.factors(enc, dec, shard)

@@ -53,7 +53,20 @@ from rnntransducer_tpu_torch.train.state import (TrainState, dequantize_wav,
                                                  watch_step)
 from rnntransducer_tpu_torch.utils.device import resolve_device
 from rnntransducer_tpu_torch.utils.logging import MetricsLogger
-from rnntransducer_tpu_torch.utils.profiling import trace
+from rnntransducer_tpu_torch.utils.profiling import reset as reset_spans, spans, trace
+
+
+def _span_ms_per_step() -> dict:
+    """Milliseconds per train step of each outermost span recorded, the
+    profile window's log line: ``train/step_ms`` on the device's clock,
+    ``data/prefetch_wait_ms`` on the host's (a span timed on the host)."""
+    rows = spans()
+    steps = max(sum(s["name"] == "train/step" for s in rows), 1)
+    total: dict = {}
+    for s in rows:
+        if s["parent"] is None:
+            total[s["name"]] = total.get(s["name"], 0.0) + s["device_s"]
+    return {f"{name}_ms": round(1e3 * t / steps, 3) for name, t in total.items()}
 
 
 class Trainer:
@@ -287,7 +300,9 @@ class Trainer:
                     self.profile_wall_s = time.perf_counter() - profile_t0
                     profile.close()
                     profiling = False
-                    self.logger.log(step, event="profile_written", dir=self.profile_dir)
+                    self.logger.log(step, event="profile_written", dir=self.profile_dir,
+                                    **_span_ms_per_step())
+                    reset_spans()
                 if self.val_ds is not None and step % cfg.train.val_every_steps == 0:
                     val = self.validate()
                     # the state is copied to the host before save returns;

@@ -53,6 +53,11 @@ from rnntransducer_tpu_torch.train.optim import (clip_by_global_norm, global_nor
                                                  make_schedule, make_train_optimizer)
 from rnntransducer_tpu_torch.utils.device import resolve_device
 from rnntransducer_tpu_torch.utils.precision import train_compute_dtype
+from rnntransducer_tpu_torch.utils.profiling import annotate
+
+# the model parts' spans: of train_step's forward alone, not of the
+# evaluation and watch steps that call loss_fn too
+_FWD = "train/forward"
 
 
 class _Bound(nn.Module):
@@ -236,17 +241,20 @@ def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor
     audio = cfg.data.audio
     shard = None if mesh is None else mesh.vocab_shard(cfg.model.jointnet.num_classes)
     pp_sp = cfg.train.pipeline_stages > 1 or cfg.train.sequence_parallel > 1
-    if "feats" in batch:
-        feats, feat_lengths = batch["feats"], batch["feat_lengths"]
-    else:
-        feats, feat_lengths = device_frontend(audio, dequantize_wav(batch),
-                                              batch["wav_lengths"])
-    if not deterministic and audio.spec_augment:
-        feats = spec_augment(feats, generator, feat_lengths,
-                             freq_para=audio.freq_mask_para,
-                             time_para=audio.time_mask_para,
-                             freq_cnt=audio.freq_mask_cnt,
-                             time_cnt=audio.time_mask_cnt)
+    text_in, text_lengths = batch["text_in"], batch["text_lengths"]
+    dev = text_in.device
+    with annotate("train/frontend", dev, _FWD):
+        if "feats" in batch:
+            feats, feat_lengths = batch["feats"], batch["feat_lengths"]
+        else:
+            feats, feat_lengths = device_frontend(audio, dequantize_wav(batch),
+                                                  batch["wav_lengths"])
+        if not deterministic and audio.spec_augment:
+            feats = spec_augment(feats, generator, feat_lengths,
+                                 freq_para=audio.freq_mask_para,
+                                 time_para=audio.time_mask_para,
+                                 freq_cnt=audio.freq_mask_cnt,
+                                 time_cnt=audio.time_mask_cnt)
     p = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
     std = cfg.train.weight_noise_std
     if not deterministic and std > 0:
@@ -266,26 +274,30 @@ def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor
     blank = cfg.data.text.pad_token_id
     enc_lengths = cfg.model.transnet.output_lengths(feat_lengths)
     fastemit = cfg.train.fastemit_lambda
-    text_in, text_lengths = batch["text_in"], batch["text_lengths"]
 
     def encode_predict(m):
-        if pp_sp:
-            enc = _parallel_encode(cfg, mesh, p, feats, feat_lengths, gen)
-        else:
-            enc, _ = m.encode(feats, feat_lengths, generator=gen)
-        dec, _ = m.predict(text_in, text_lengths, generator=gen)
+        with annotate("train/encoder", dev, _FWD):
+            if pp_sp:
+                enc = _parallel_encode(cfg, mesh, p, feats, feat_lengths, gen)
+            else:
+                enc, _ = m.encode(feats, feat_lengths, generator=gen)
+        with annotate("train/prednet", dev, _FWD):
+            dec, _ = m.predict(text_in, text_lengths, generator=gen)
         return enc, dec
 
     chunk_frames = cfg.train.joint_chunk_frames
     if chunk_frames > 0 and cfg.model.jointnet.combine == "concat":
         # factored GEMM form: no (T, U) lattice of any width, no recompute;
         # under a model axis each rank takes its V columns
-        A, C = with_params(model, p,
-                           lambda m: m.joint_factors(*encode_predict(m), shard))
-        return rnnt_loss_factored(A, C, batch["targets"], enc_lengths,
-                                  batch["target_lengths"], blank=blank,
-                                  reduction=reduction, fastemit_lambda=fastemit,
-                                  shard=shard)
+        def factored(m):
+            enc, dec = encode_predict(m)
+            with annotate("train/joint_loss", dev, _FWD):
+                A, C = m.joint_factors(enc, dec, shard)
+                return rnnt_loss_factored(A, C, batch["targets"], enc_lengths,
+                                          batch["target_lengths"], blank=blank,
+                                          reduction=reduction, fastemit_lambda=fastemit,
+                                          shard=shard)
+        return with_params(model, p, factored)
     if shard is not None:
         # the lattice paths take the whole fc, gathered (each rank keeps its
         # rows of the grads)
@@ -297,21 +309,26 @@ def loss_fn(model: RNNTransducer, cfg: Config, params: Mapping[str, torch.Tensor
 
         def joint_fn(e, d):
             return with_params(model, p, lambda m: m.joint_step(e, d))
-        return rnnt_loss_fused(joint_fn, enc, dec, batch["targets"], enc_lengths,
-                               batch["target_lengths"], blank=blank,
-                               reduction=reduction,
-                               chunk_frames=min(chunk_frames, 64),
-                               fastemit_lambda=fastemit)
+        with annotate("train/joint_loss", dev, _FWD):
+            return rnnt_loss_fused(joint_fn, enc, dec, batch["targets"], enc_lengths,
+                                   batch["target_lengths"], blank=blank,
+                                   reduction=reduction,
+                                   chunk_frames=min(chunk_frames, 64),
+                                   fastemit_lambda=fastemit)
     if pp_sp:
         raise ValueError(
             "pipeline_stages/sequence_parallel need a factored or fused "
             "joint+loss path (train.joint_chunk_frames > 0 — the "
             "default); the unfused full-lattice path does not route the "
             "encoder separately")
-    logits = with_params(model, p, lambda m: m(feats, feat_lengths, text_in,
-                                               text_lengths, generator=gen))
-    return rnnt_loss(logits, batch["targets"], enc_lengths, batch["target_lengths"],
-                     blank=blank, reduction=reduction, fastemit_lambda=fastemit)
+
+    def unfused(m):
+        enc, dec = encode_predict(m)
+        with annotate("train/joint_loss", dev, _FWD):
+            return rnnt_loss(m.joint_lattice(enc, dec), batch["targets"], enc_lengths,
+                             batch["target_lengths"], blank=blank, reduction=reduction,
+                             fastemit_lambda=fastemit)
+    return with_params(model, p, unfused)
 
 
 def _grads(loss: torch.Tensor, mesh: Mesh, names, masters) -> list:
@@ -343,50 +360,61 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]
     contiguous microbatches of ``batch`` (this rank's rows of the global
     batch), updating ``state`` in place.  Returns {'loss' (the global mean),
     'grad_norm' (before clipping), 'nonfinite_grad'} as device tensors."""
+    names, masters = zip(*state.model.named_parameters())
+    with annotate("train/step", masters[0].device):
+        return _train_step(state, batch, names, masters)
+
+
+def _train_step(state: TrainState, batch: Mapping[str, torch.Tensor], names, masters
+                ) -> Dict[str, torch.Tensor]:
     cfg = state.cfg
     mesh = state.mesh
+    dev = masters[0].device
     accum = max(cfg.train.accumulate_grad_batches, 1)
-    names, masters = zip(*state.model.named_parameters())
     params = dict(zip(names, masters))
     B = next(iter(batch.values())).shape[0]
     mb = B // accum
-    loss = torch.zeros((), dtype=torch.float32, device=masters[0].device)
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
     grads = None
     for i in range(accum):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        loss_i = loss_fn(state.model, cfg, params, part, state.generator,
-                         deterministic=False, noise_generator=state.noise_generator,
-                         mesh=mesh)
-        g_i = _grads(loss_i, mesh, names, masters)
-        grads = g_i if grads is None else [a + b for a, b in zip(grads, g_i)]
+        with annotate(_FWD, dev):
+            loss_i = loss_fn(state.model, cfg, params, part, state.generator,
+                             deterministic=False, noise_generator=state.noise_generator,
+                             mesh=mesh)
+        with annotate("train/backward", dev):
+            g_i = _grads(loss_i, mesh, names, masters)
+            grads = g_i if grads is None else [a + b for a, b in zip(grads, g_i)]
         loss = loss + loss_i.detach().float()
     if accum > 1:
         loss = loss / accum
         grads = [g / accum for g in grads]
-    _stage_sum(mesh, names, grads)
-    # the one all-reduce of the step over the data group (a no-op without one)
-    *grads, loss = all_reduce_mean(grads + [loss.reshape(1)], mesh)
-    loss = loss[0]
+    with annotate("train/allreduce", dev):
+        _stage_sum(mesh, names, grads)
+        # the one all-reduce of the step over the data group (a no-op without one)
+        *grads, loss = all_reduce_mean(grads + [loss.reshape(1)], mesh)
+        loss = loss[0]
 
-    grad_norm = global_norm(grads, [i for i, n in enumerate(names) if n in TP_LEAVES],
-                            mesh)
-    nonfinite = ~torch.isfinite(grad_norm)
-    if cfg.train.grad_clip_norm is not None:
-        grads = clip_by_global_norm(grads, cfg.train.grad_clip_norm, grad_norm)
-    if not (cfg.train.skip_nonfinite_grads and bool(nonfinite)):
-        with torch.no_grad():
-            for p, g in zip(masters, grads):
-                p.grad = g
-            for group in state.optimizer.param_groups:
-                group["lr"] = state.schedule(state.updates)
-            state.optimizer.step()
-            state.optimizer.zero_grad(set_to_none=True)
-        state.updates += 1
-    if state.ema is not None:
-        d = cfg.train.ema_decay
-        with torch.no_grad():
-            for n, p in zip(names, masters):
-                state.ema[n].mul_(d).add_(p, alpha=1.0 - d)
+    with annotate("train/optimizer", dev):
+        grad_norm = global_norm(grads, [i for i, n in enumerate(names) if n in TP_LEAVES],
+                                mesh)
+        nonfinite = ~torch.isfinite(grad_norm)
+        if cfg.train.grad_clip_norm is not None:
+            grads = clip_by_global_norm(grads, cfg.train.grad_clip_norm, grad_norm)
+        if not (cfg.train.skip_nonfinite_grads and bool(nonfinite)):
+            with torch.no_grad():
+                for p, g in zip(masters, grads):
+                    p.grad = g
+                for group in state.optimizer.param_groups:
+                    group["lr"] = state.schedule(state.updates)
+                state.optimizer.step()
+                state.optimizer.zero_grad(set_to_none=True)
+            state.updates += 1
+        if state.ema is not None:
+            d = cfg.train.ema_decay
+            with torch.no_grad():
+                for n, p in zip(names, masters):
+                    state.ema[n].mul_(d).add_(p, alpha=1.0 - d)
     state.step += 1
     return {"loss": loss, "grad_norm": grad_norm,
             "nonfinite_grad": nonfinite.to(torch.int32)}
