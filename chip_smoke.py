@@ -16,9 +16,12 @@ Phases (each raises, and the script exits non-zero, on failure):
    per backward scan) at H=1024, T=512, B in {1, 8, 64, 100}, both
    directions, fp32 and bf16 (K2 also against autograd through the plain
    forward loop, its gates GEMM alone against the plain product and, for
-   timing only, beside cuBLAS's GEMM of the same shape), and their limit
-   on this card (the largest H runs persistent, 1 + 2 launches, the next on
-   the per-step kernels, T + T+1, both against the plain versions, and
+   timing only, beside cuBLAS's GEMM of the same shape; its paired launch,
+   both directions of a bidirectional layer at once, against two single
+   launches bit for bit at B in {1, 64, 96}, T in {1, 512}, and timed
+   beside them), and their limit on this card (the largest H runs
+   persistent, 1 + 2 launches, the next on the per-step kernels, T + T+1,
+   both against the plain versions, and
    ``GRUScanFunction`` there against autograd of the plain loop); K3 and
    K4 (persistent in the same way) at the flagship prediction network
    (T=49, H=1024, B in {1, 64, 100}) and tiny_config's encoder (B in
@@ -68,7 +71,7 @@ Phases (each raises, and the script exits non-zero, on failure):
    ``SyntheticAudioDataset`` (1-5.11 s, 4-48 labels), global batch 64, to
    step 8 with validation and a checkpoint at steps 4 and 8, then
    ``fit(resume=True)`` to step 10 (it must continue the data schedule at
-   step 8), every train step's launches checked (16 K1, 32 K2, 2 K3, 4 K4,
+   step 8), every train step's launches checked (16 K1, 16 K2, 2 K3, 4 K4,
    1 K5, 1 K6); then ``Recognizer.from_checkpoint`` transcribes 8 waves.
    The logged step time, the host feed per batch, the device-busy share of
    a profiled window of 2 steps beside 4a's, validation and checkpoint
@@ -157,7 +160,7 @@ Phases (each raises, and the script exits non-zero, on failure):
     (ids equal the labels, PCM equals ``read_wav`` of the file), then
     ``cli.train.main`` in-process with ``--hf_data_dirs``: log-mel shards
     equal to ``logmel_np`` of the raw rows, ledger and ``_PREPARED``
-    written, 4 steps at global batch 64 (16 K1, 32 K2, 2 K3, 4 K4, 1 K5,
+    written, 4 steps at global batch 64 (16 K1, 16 K2, 2 K3, 4 K4, 1 K5,
     0 K6 a step), validation at step 4; a second run with ``--eval_only``
     prepares nothing (the marker holds) and scores eval_clean; the same
     corpus through ``save_waveform_dataset`` and ``Trainer.fit`` on
@@ -188,7 +191,7 @@ Phases (each raises, and the script exits non-zero, on failure):
     device; gloo's send / recv stage through host copies), every rank's
     launches checked at every step, step times and the card's name and
     power limit printed.  Two ranks, in turn: (a) model 2, the flagship
-    on int16 raw PCM, bf16, B=64 (16 K1, 32 K2, 2 K3, 4 K4, 1 K5, 1 K6 a
+    on int16 raw PCM, bf16, B=64 (16 K1, 16 K2, 2 K3, 4 K4, 1 K5, 1 K6 a
     step), the first loss against this process's single-device step
     within 2 (T + U) 2^-8 max(|A| + |C|), then fp32 at 2 encoder layers
     and 8 rows: the params after 2 steps against one process (1e-5
@@ -651,6 +654,71 @@ def phase_gru_bwd(gen):
                   f"us/step), bound {bound:.4f} ms by {bound_by}", flush=True)
     times["gates_yardstick"] = gates_yardstick(T * TRAIN_B, H, gen)
     return worst, times
+
+
+def _pair_case(T, B, H, dtype, gen):
+    """The backward scans' arguments of both directions of one bidirectional
+    layer, (xw, h_prev, w_hh, b_hh, g_hall, g_hfin) each from its own forward
+    scan, and their shared ragged lengths."""
+    dirs, lengths = [], None
+    for reverse in (False, True):
+        xw, w, b, h0, lens = _gru_inputs(T, B, H, dtype, gen)
+        lengths = lens if lengths is None else lengths
+        h_all, _ = rnn_kernels.gru_scan(xw, w, b, h0, lengths, reverse)
+        dirs.append((xw, rnn_kernels.prev_all(h_all, h0, lengths, reverse), w, b,
+                     torch.randn(T, B, H, device=DEVICE, generator=gen).to(dtype),
+                     torch.randn(B, H, device=DEVICE, generator=gen).to(dtype)))
+    return dirs[0], dirs[1], lengths
+
+
+def _singles(fwd, bwd, lengths):
+    """Both directions through K2 one at a time, as two single launches."""
+    return tuple(rnn_kernels.gru_scan_backward(*d[:4], lengths, *d[4:], reverse)
+                 for d, reverse in ((fwd, False), (bwd, True)))
+
+
+def phase_gru_pair(gen):
+    """K2's paired launch (both directions of a bidirectional layer, each
+    chain on its own half of the SMs) against two single launches of K2, bit
+    for bit: H=1024, fp32 and bf16, B in {1, 64, 96} (96: two 64-row
+    chunks), T in {1, 512}, ragged lengths; then its time at T=512, B=64
+    beside the two single calls'.  Returns the times."""
+    H = 1024
+    for dtype in (torch.float32, torch.bfloat16):
+        for T in (1, T_FRAMES):
+            for B in (1, 64, 96):
+                fwd, bwd, lengths = _pair_case(T, B, H, dtype, gen)
+                before = rnn_kernels.gru_scan_backward_pair.launches
+                got = rnn_kernels.gru_scan_backward_pair(fwd, bwd, lengths)
+                launched = rnn_kernels.gru_scan_backward_pair.launches - before
+                want = _singles(fwd, bwd, lengths)
+                torch.cuda.synchronize()
+                differ = [f"{d}.{name}" for d, g3, w3 in zip(("fwd", "bwd"), got, want)
+                          for name, g, w in zip(("dxw", "dnr", "dh0"), g3, w3)
+                          if not torch.equal(g, w)]
+                print(f"gru_bwd pair check dtype={str(dtype)[6:]} B={B} T={T} H={H}: "
+                      f"{launched} launches, bit-equal to two single launches "
+                      f"{not differ}{' (differ: ' + ', '.join(differ) + ')' if differ else ''}",
+                      flush=True)
+                if differ or launched != 2:
+                    raise AssertionError(f"gru_bwd pair: {launched} launches, {differ} "
+                                         "differ from two single launches")
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        fwd, bwd, lengths = _pair_case(T_FRAMES, TRAIN_B, H, dtype, gen)
+        pair_ms = _sync_time(lambda: rnn_kernels.gru_scan_backward_pair(fwd, bwd, lengths), 5)
+        single_ms = _sync_time(lambda: _singles(fwd, bwd, lengths), 5)
+        gates_ms = _sync_time(lambda: [rnn_kernels.gru_bwd_gates(d[1], d[2], d[3])
+                                       for d in (fwd, bwd)], 5)
+        times[str(dtype)[6:]] = {"pair_ms": pair_ms, "two_singles_ms": single_ms,
+                                 "two_gates_ms": gates_ms}
+        print(f"gru_bwd pair time dtype={str(dtype)[6:]} B={TRAIN_B} T={T_FRAMES} H={H}: "
+              f"pair {pair_ms:.3f} ms, two single calls {single_ms:.3f} ms "
+              f"({single_ms / pair_ms:.2f}x); chain per step: pair "
+              f"{(pair_ms - gates_ms) / T_FRAMES * 1e3:.2f} us, single "
+              f"{(single_ms - gates_ms) / (2 * T_FRAMES) * 1e3:.2f} us (two gates GEMMs "
+              f"{gates_ms:.3f} ms)", flush=True)
+    return times
 
 
 def gates_yardstick(M, H, gen) -> dict:
@@ -1394,21 +1462,25 @@ def _train_batch(cfg, B, T, U, seed=SEED):
     return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
 
 
-KERNEL_WRAPPERS = {"gru_fwd": rnn_kernels.gru_scan,
-                   "gru_bwd": rnn_kernels.gru_scan_backward,
-                   "lstm_fwd": rnn_kernels.lstm_scan,
-                   "lstm_bwd": rnn_kernels.lstm_scan_backward,
-                   "rnnt_sweep": rnnt_kernels.sweep,
-                   "logmel": fused_frontend.logmel_fused}
+# each kernel's wrappers: K2 runs a scan alone or both directions of a
+# bidirectional layer as a pair
+KERNEL_WRAPPERS = {"gru_fwd": (rnn_kernels.gru_scan,),
+                   "gru_bwd": (rnn_kernels.gru_scan_backward,
+                               rnn_kernels.gru_scan_backward_pair),
+                   "lstm_fwd": (rnn_kernels.lstm_scan,),
+                   "lstm_bwd": (rnn_kernels.lstm_scan_backward,),
+                   "rnnt_sweep": (rnnt_kernels.sweep,),
+                   "logmel": (fused_frontend.logmel_fused,)}
 
 
 def _counts():
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    return {name: sum(fn.launches for fn in fns) for name, fns in KERNEL_WRAPPERS.items()}
 
 
 def _zero_counts():
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    for fns in KERNEL_WRAPPERS.values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def scan_launches(rnn_type: str, steps: int, hidden: int = 1024,
@@ -1425,12 +1497,21 @@ def scan_launches(rnn_type: str, steps: int, hidden: int = 1024,
     return 1, 2
 
 
+def paired_backward(tn, batch: int = TRAIN_B, dtype=torch.bfloat16, device=None) -> bool:
+    """Whether a ``StackedRNN`` encoder's layers run their backward scans as
+    pairs: bidirectional GRU layers whose H fits the paired kernel on the
+    card of ``device`` (2 launches a layer for both directions)."""
+    return (tn.arch == "rnn" and tn.bidirectional and tn.rnn_type.lower() == "gru"
+            and rnn_kernels.gru_pair_fits(tn.hidden_size, batch, dtype, device))
+
+
 def step_launches(cfg, T: int, U: int, raw_pcm: bool = False, device=None) -> dict:
     """Kernel launches of one train_step: every directional scan of an RNN
     encoder (T steps) and of the prediction network (U+1 steps) takes
     ``scan_launches`` in its cell type's kernels (no RNN config here
-    reduces time; a Conformer encoder launches none); the loss one sweep; a
-    raw-PCM batch one log-mel."""
+    reduces time; a Conformer encoder launches none), but a bidirectional
+    GRU layer's two backward scans take 2 launches as a pair where
+    ``paired_backward``; the loss one sweep; a raw-PCM batch one log-mel."""
     tn, pn = cfg.model.transnet, cfg.model.prednet
     want = dict.fromkeys(KERNELS, 0)
     nets = [(pn, pn.num_layers, U + 1)]
@@ -1438,6 +1519,8 @@ def step_launches(cfg, T: int, U: int, raw_pcm: bool = False, device=None) -> di
         nets.append((tn, tn.num_layers * (2 if tn.bidirectional else 1), T))
     for net, scans, steps in nets:
         fwd, bwd = scan_launches(net.rnn_type, steps, net.hidden_size, device=device)
+        if net is tn and paired_backward(tn, device=device):
+            bwd = 1  # 2 launches a pair of scans
         want[f"{net.rnn_type.lower()}_fwd"] += scans * fwd
         want[f"{net.rnn_type.lower()}_bwd"] += scans * bwd
     want["rnnt_sweep"] = 1
@@ -1450,10 +1533,12 @@ def _plain_kernels():
     """Every kernel of the training and serving paths swapped for its plain
     version (comparison only)."""
     saved = (cells.gru_scan, rnn_kernels.gru_scan, rnn_kernels.gru_scan_backward,
+             rnn_kernels.gru_scan_backward_pair,
              cells.lstm_scan, rnn_kernels.lstm_scan, rnn_kernels.lstm_scan_backward,
              rnnt_kernels.sweep)
     cells.gru_scan = rnn_kernels.gru_scan = rnn_kernels.gru_scan_reference
     rnn_kernels.gru_scan_backward = rnn_kernels.gru_scan_backward_reference
+    rnn_kernels.gru_scan_backward_pair = rnn_kernels.gru_scan_backward_pair_reference
     cells.lstm_scan = rnn_kernels.lstm_scan = rnn_kernels.lstm_scan_reference
     rnn_kernels.lstm_scan_backward = rnn_kernels.lstm_scan_backward_reference
     rnnt_kernels.sweep = rnnt_kernels.sweep_reference
@@ -1461,6 +1546,7 @@ def _plain_kernels():
         yield
     finally:
         (cells.gru_scan, rnn_kernels.gru_scan, rnn_kernels.gru_scan_backward,
+         rnn_kernels.gru_scan_backward_pair,
          cells.lstm_scan, rnn_kernels.lstm_scan, rnn_kernels.lstm_scan_backward,
          rnnt_kernels.sweep) = saved
 
@@ -3978,11 +4064,15 @@ def _mp_weights(cfg, seed):
         cfg.model, torch.Generator().manual_seed(seed)), cfg.model)
 
 
-def axis_launches(cfg, T, U, B, enc_scans, enc_steps, enc_batch) -> dict:
+def axis_launches(cfg, T, U, B, enc_scans, enc_steps, enc_batch,
+                  stacked: bool = False) -> dict:
     """Launches of one train_step on one rank: ``enc_scans`` directional
     encoder scans of ``enc_steps`` steps at ``enc_batch`` rows (a stage's
     layers times its microbatches, a time rank's chunk scans), the
-    prediction network's scans at B rows, one sweep."""
+    prediction network's scans at B rows, one sweep.  ``stacked``: the
+    encoder is the ``StackedRNN`` itself (the model axis), whose
+    bidirectional GRU layers take the paired backward; the pipeline and the
+    wavefront run one direction at a time."""
     tn, pn = cfg.model.transnet, cfg.model.prednet
     dtype = torch.bfloat16 if cfg.train.precision == "bf16" else torch.float32
     want = dict.fromkeys(KERNELS, 0)
@@ -3990,6 +4080,8 @@ def axis_launches(cfg, T, U, B, enc_scans, enc_steps, enc_batch) -> dict:
                                      (tn, enc_scans, enc_steps, enc_batch)):
         fwd, bwd = scan_launches(net.rnn_type, steps, net.hidden_size, batch=batch,
                                  dtype=dtype, device=DEVICE)
+        if net is tn and stacked and paired_backward(tn, batch, dtype, DEVICE):
+            bwd = 1  # 2 launches a pair of scans
         want[f"{net.rnn_type.lower()}_fwd"] += scans * fwd
         want[f"{net.rnn_type.lower()}_bwd"] += scans * bwd
     want["rnnt_sweep"] = 1
@@ -4178,7 +4270,7 @@ def _mp_pair(rank_, out_dir) -> dict:
     cfg = _mp_config(base, "bf16", model_parallel=2)
     tn = cfg.model.transnet
     want = axis_launches(cfg, T_FRAMES, TRAIN_U, TRAIN_B, tn.num_layers * 2, T_FRAMES,
-                         TRAIN_B)
+                         TRAIN_B, stacked=True)
     want["logmel"] = 1  # raw PCM: the frontend kernel in every step
     bf16_steps("model", cfg, _mp_weights(cfg, SEED),
                _raw_batch(cfg, TRAIN_B, T_FRAMES, TRAIN_U), tp, want)
@@ -5412,6 +5504,7 @@ def main() -> int:
     fwd_err, fwd_times = _timed("kernels", phase_kernels, gen)
     _timed("gru_limits", phase_gru_limits, gen)
     bwd_err, bwd_times = _timed("gru_bwd", phase_gru_bwd, gen)
+    print("gru_pair " + json.dumps(_timed("gru_pair", phase_gru_pair, gen)), flush=True)
     _timed("lstm_limits", phase_lstm_limits, gen)
     lstm_fwd_err, lstm_bwd_err, lstm_times = _timed("lstm", phase_lstm, gen)
     print("lstm_tick " + json.dumps(_timed("lstm_tick", phase_lstm_tick, gen)), flush=True)

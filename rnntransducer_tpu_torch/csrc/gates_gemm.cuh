@@ -35,10 +35,10 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                : "memory");
 }
 
-static __global__ void __launch_bounds__(256)
-gates_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Bt,
-                const __nv_bfloat16* __restrict__ bias, float* __restrict__ hw, int M,
-                int N, int K) {
+__device__ __forceinline__ void gemm_bf16(const __nv_bfloat16* __restrict__ A,
+                                          const __nv_bfloat16* __restrict__ Bt,
+                                          const __nv_bfloat16* __restrict__ bias,
+                                          float* __restrict__ hw, int M, int N, int K) {
   __shared__ __align__(128) __nv_bfloat16 As[kGemmStages][kGemmM * 32];
   __shared__ __align__(128) __nv_bfloat16 Bs[kGemmStages][kGemmN * 32];
   const int m0 = blockIdx.x * kGemmM, n0 = blockIdx.y * kGemmN;
@@ -119,10 +119,10 @@ gates_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __rest
 
 // fp32: 256 threads, 64 x 64 tile, 16-wide K slabs held k-major in shared
 // memory; each thread a 4 x 4 block of outputs.
-static __global__ void __launch_bounds__(256)
-gates_gemm_f32(const float* __restrict__ A, const float* __restrict__ Bt,
-               const float* __restrict__ bias, float* __restrict__ hw, int M, int N,
-               int K) {
+__device__ __forceinline__ void gemm_f32(const float* __restrict__ A,
+                                         const float* __restrict__ Bt,
+                                         const float* __restrict__ bias,
+                                         float* __restrict__ hw, int M, int N, int K) {
   constexpr int BK = 16, LD = kGemmTile + 4;
   __shared__ __align__(16) float As[BK * LD];
   __shared__ __align__(16) float Bs[BK * LD];
@@ -170,6 +170,45 @@ gates_gemm_f32(const float* __restrict__ A, const float* __restrict__ Bt,
   }
 }
 
+// One product: hw = A @ Bt^T + bias.
+static __global__ void __launch_bounds__(256)
+gates_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ Bt,
+                const __nv_bfloat16* __restrict__ bias, float* __restrict__ hw, int M,
+                int N, int K) {
+  gemm_bf16(A, Bt, bias, hw, M, N, K);
+}
+
+static __global__ void __launch_bounds__(256)
+gates_gemm_f32(const float* __restrict__ A, const float* __restrict__ Bt,
+               const float* __restrict__ bias, float* __restrict__ hw, int M, int N,
+               int K) {
+  gemm_f32(A, Bt, bias, hw, M, N, K);
+}
+
+// The operands of one product.
+template <typename T>
+struct GemmArgs {
+  const T* A;
+  const T* Bt;
+  const T* bias;
+  float* hw;
+};
+
+// Two products of one shape in one launch, blockIdx.z choosing the operands:
+// the gates of both directions of a bidirectional layer (gru_bwd.cu's pair).
+static __global__ void __launch_bounds__(256)
+gates_gemm_bf16_pair(GemmArgs<__nv_bfloat16> p0, GemmArgs<__nv_bfloat16> p1, int M, int N,
+                     int K) {
+  const GemmArgs<__nv_bfloat16> p = blockIdx.z ? p1 : p0;
+  gemm_bf16(p.A, p.Bt, p.bias, p.hw, M, N, K);
+}
+
+static __global__ void __launch_bounds__(256)
+gates_gemm_f32_pair(GemmArgs<float> p0, GemmArgs<float> p1, int M, int N, int K) {
+  const GemmArgs<float> p = blockIdx.z ? p1 : p0;
+  gemm_f32(p.A, p.Bt, p.bias, p.hw, M, N, K);
+}
+
 template <typename T>
 cudaError_t launch_gemm(const T* A, const T* Bt, const T* bias, float* hw, int M, int N,
                         int K, cudaStream_t stream);
@@ -190,6 +229,27 @@ inline cudaError_t launch_gemm<float>(const float* A, const float* Bt, const flo
                                       cudaStream_t stream) {
   const dim3 grid((M + kGemmTile - 1) / kGemmTile, (N + kGemmTile - 1) / kGemmTile);
   gates_gemm_f32<<<grid, 256, 0, stream>>>(A, Bt, bias, hw, M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gemm_pair(GemmArgs<T> p0, GemmArgs<T> p1, int M, int N, int K,
+                             cudaStream_t stream);
+
+template <>
+inline cudaError_t launch_gemm_pair<__nv_bfloat16>(GemmArgs<__nv_bfloat16> p0,
+                                                   GemmArgs<__nv_bfloat16> p1, int M, int N,
+                                                   int K, cudaStream_t stream) {
+  const dim3 grid((M + kGemmM - 1) / kGemmM, (N + kGemmN - 1) / kGemmN, 2);
+  gates_gemm_bf16_pair<<<grid, 256, 0, stream>>>(p0, p1, M, N, K);
+  return cudaGetLastError();
+}
+
+template <>
+inline cudaError_t launch_gemm_pair<float>(GemmArgs<float> p0, GemmArgs<float> p1, int M,
+                                           int N, int K, cudaStream_t stream) {
+  const dim3 grid((M + kGemmTile - 1) / kGemmTile, (N + kGemmTile - 1) / kGemmTile, 2);
+  gates_gemm_f32_pair<<<grid, 256, 0, stream>>>(p0, p1, M, N, K);
   return cudaGetLastError();
 }
 

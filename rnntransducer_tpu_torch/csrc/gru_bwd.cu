@@ -1,5 +1,6 @@
 // Masked GRU recurrence, backward through time, written by hand for Hopper
-// (sm_90a): one GEMM launch and one persistent launch per scan.
+// (sm_90a): one GEMM launch and one persistent launch per scan, or per pair
+// of scans (both directions of a bidirectional layer).
 //
 // Replaces the TPU kernel rnntransducer_tpu/ops/rnn_pallas.py::_gru_bwd_kernel
 // (called through _gru_bwd_call, the custom VJP of gru_scan).  Semantics kept
@@ -49,20 +50,38 @@
 //     block closes the chain into dh0;
 //   * the gates' inputs of the next step (hw, xw, h_prev, g_out, lengths,
 //     the rest) are loaded into registers before the grid barrier;
-//   * batches over 64 rows are walked in 64-row chunks inside a step.
+//   * batches over 64 rows are walked in 64-row chunks inside a step;
+//   * the paired scan (gru_bwd_pair): the two directions of a bidirectional
+//     layer are independent chains of the same T, B and lengths, so one
+//     cooperative launch runs both, each on its own half of the SMs: blocks
+//     [0, n) walk the forward direction's backward (t = T-1 .. 0), blocks
+//     [n, 2n) the reversed one's (t = 0 .. T-1), n = ceil(H / 16).  A block
+//     owns 16 units (its 16 x 3H slice: 96 KB in bf16, 192 KB in fp32 at
+//     H = 1024), and each direction has its own dhw ping-pong, rest carry
+//     and barrier counter, so neither waits on the other.  Every SM still
+//     takes in one dhw row a step, and a layer takes T serial steps instead
+//     of 2 T.  A unit's dh sum runs over K in the order of the 8-unit block
+//     (the warps' split of K depends on the rows alone, and each column of
+//     the slice accumulates on its own), so the pair equals two single
+//     launches bit for bit.  Its gates GEMM is one launch of both products
+//     (gates_gemm.cuh, *_pair) just before the chain on the same stream.
 //
 // Co-residency limit: one block per SM, so H <= 8 * (the card's SMs), 1056
 // on an H100 SXM (ops/rnn_kernels.py::gru_route reads the card before any
-// launch).  A larger H takes the per-step route at the end of this file (the
-// first design: T + 1 launches per scan, both slices copied into shared
-// memory every launch, CUDA-core FMAs).
+// launch); a pair needs 2 ceil(H / 16) blocks, so H <= 16 * (SMs / 2),
+// also 1056 (ops/rnn_kernels.py::gru_pair_fits).  A larger H takes the
+// per-step route at the end of this file (the first design: T + 1 launches
+// per scan, both slices copied into shared memory every launch, CUDA-core
+// FMAs), one direction at a time.
 //
 // What bounds it on this card: the step chain, not the operations.  At
 // B = 1 a chain step takes ~5 us (L2 round trips, the gates, the grid
 // barrier); at B = 64 ~16 us, most of it every SM taking in the whole
 // 384 KB dhw row from L2 (~48 MB per step over 128 SMs).  The chain product
-// is ~0.4 us of tensor-core time per step.  The gates GEMM (~1 ms at
-// T = 512, B = 64, H = 1024) writes 403 MB of fp32 hw, ~0.12 ms of HBM time.
+// is ~0.4 us of tensor-core time per step, ~0.8 us in a paired block, whose
+// SM takes in the same one row a step: the pair's step should cost about a
+// single one's, over half as many steps.  The gates GEMM (~1 ms at T = 512,
+// B = 64, H = 1024) writes 403 MB of fp32 hw, ~0.12 ms of HBM time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,34 +94,38 @@ namespace {
 
 using namespace rnnp;
 
-constexpr int CC = kJT;      // chain rows of the block
-constexpr int kUnroll = 8;   // K slabs of A in flight per warp (12 and 16 were no faster)
-// Inputs of the first 64-row chunk a thread prefetches: its items
-// p = threadIdx.x + i kThreads all have the unit j0 + threadIdx.x % kJT.
-constexpr int kPre = kRowChunk * kJT / kThreads;
+constexpr int CC = kJT;       // chain rows of a single scan's block
+constexpr int kPairJT = 16;   // chain rows of a paired block (gru_bwd_pair)
+constexpr int kUnroll = 8;    // K slabs of A in flight per warp (12 and 16 were no faster)
 
 // ---------------------------------------------------------------------------
 // the persistent chain
 // ---------------------------------------------------------------------------
 
-// Shapes: xw (T, B, 3H); hw (T, B, 3H) fp32; hprev (T, B, Hk); gout
-// (T, B, H); chain_tiles (ceil(H/kJT), CC, Kc) zero padded; dhw (2, B, Kc)
-// of T, zero; rest (B, H) fp32 = g_hfin; dxw (T, B, 3H); dnr (T, B, H);
-// dh0 (B, H); count a zeroed barrier counter.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-gru_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
-                   const T* __restrict__ hprev, const T* __restrict__ gout,
-                   const T* __restrict__ chain_tiles, const int* __restrict__ lengths,
-                   T* dhw, float* rest, T* __restrict__ dxw, T* __restrict__ dnr,
-                   T* __restrict__ dh0, unsigned int* count, int T_len, int B, int H,
-                   int Hk, int Kc, int reverse) {
+// The chain of one direction, walked by nblk blocks of C units each, this
+// block being the blk-th.  Shapes: xw (T, B, 3H); hw (T, B, 3H) fp32; hprev
+// (T, B, Hk); gout (T, B, H); chain_tiles (ceil(H/C), C, Kc) zero padded;
+// dhw (2, B, Kc) of T, zero; rest (B, H) fp32 = g_hfin; dxw (T, B, 3H); dnr
+// (T, B, H); dh0 (B, H); count a zeroed barrier counter of this direction's
+// blocks alone.  A unit's dh sum is the same whatever C is: dots_of splits K
+// among the warps by the rows of the chunk alone, and each column of the
+// slice accumulates on its own.
+template <typename T, int C>
+__device__ __forceinline__ void chain_scan(
+    const T* __restrict__ xw, const float* __restrict__ hw, const T* __restrict__ hprev,
+    const T* __restrict__ gout, const T* __restrict__ chain_tiles,
+    const int* __restrict__ lengths, T* dhw, float* rest, T* __restrict__ dxw,
+    T* __restrict__ dnr, T* __restrict__ dh0, unsigned int* count, int T_len, int B,
+    int H, int Hk, int Kc, int reverse, int blk, int nblk) {
+  // Inputs of the first 64-row chunk a thread prefetches: its items
+  // p = threadIdx.x + i kThreads all have the unit j0 + threadIdx.x % C.
+  constexpr int kPre = kRowChunk * C / kThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* wc_s = reinterpret_cast<T*>(smem_raw);
   const int ldw = slice_ld<T>(Kc);
-  float* dots = reinterpret_cast<float*>(wc_s + (size_t)CC * ldw);
-  const int j0 = blockIdx.x * kJT;
-  load_slice(wc_s, chain_tiles + (size_t)blockIdx.x * CC * Kc, CC, Kc);
+  float* dots = reinterpret_cast<float*>(wc_s + (size_t)C * ldw);
+  const int j0 = blk * C;
+  load_slice(wc_s, chain_tiles + (size_t)blk * C * Kc, C, Kc);
   __syncthreads();
 
   // Step s < T_len closes the chain of step s-1 (dh for the block's units
@@ -110,7 +133,7 @@ gru_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
   // T_len closes the chain of the last step into dh0.  The inputs of the
   // first chunk are loaded for the next step before the grid barrier, so
   // their latency hides behind it.
-  const int jj = threadIdx.x % kJT, j = j0 + jj;
+  const int jj = threadIdx.x % C, j = j0 + jj;
   const bool j_ok = j < H;
   struct In {
     float hr, hz, hn, xr, xz, xn, hp, go, rest;
@@ -139,7 +162,7 @@ gru_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
   auto prefetch = [&](int s) {
 #pragma unroll
     for (int i = 0; i < kPre; ++i) {
-      const int b = (threadIdx.x + i * kThreads) / kJT;
+      const int b = (threadIdx.x + i * kThreads) / C;
       if (j_ok && b < min(B, kRowChunk)) pre[i] = load_in(s, b);
     }
   };
@@ -153,7 +176,7 @@ gru_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
     // one unit of one row: its chain dots (chunk row rl) and its inputs
     auto item = [&](const Split& sp, int b, int rl, const In& v) {
       float chain = 0.0f;
-      for (int ks = 0; ks < sp.ksplit; ++ks) chain += dots[(ks * sp.npad + rl) * CC + jj];
+      for (int ks = 0; ks < sp.ksplit; ++ks) chain += dots[(ks * sp.npad + rl) * C + jj];
       const float dh = chain + v.rest;
       if (last) {
         dh0[(size_t)b * H + j] = from_f<T>(dh);
@@ -183,27 +206,71 @@ gru_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
     for (int r0 = 0; r0 < B; r0 += kRowChunk) {
       const int nrows = min(kRowChunk, B - r0);
       Split sp = {0, 0, 0, 0};
-      if (s > 0) sp = dots_of<CC, kUnroll>(wc_s, ldw, dhw_in, Kc, Kc, r0, nrows, dots);
+      if (s > 0) sp = dots_of<C, kUnroll>(wc_s, ldw, dhw_in, Kc, Kc, r0, nrows, dots);
       __syncthreads();
       if (j_ok && r0 == 0) {
 #pragma unroll
         for (int i = 0; i < kPre; ++i) {
           const int p = threadIdx.x + i * kThreads;
-          if (p < nrows * kJT) item(sp, p / kJT, p / kJT, pre[i]);
+          if (p < nrows * C) item(sp, p / C, p / C, pre[i]);
         }
       } else if (j_ok) {
-        for (int p = threadIdx.x; p < nrows * kJT; p += kThreads)
-          item(sp, r0 + p / kJT, p / kJT, load_in(s, r0 + p / kJT));
+        for (int p = threadIdx.x; p < nrows * C; p += kThreads)
+          item(sp, r0 + p / C, p / C, load_in(s, r0 + p / C));
       }
       __syncthreads();
     }
     if (!last) {
       prefetch(s + 1);
-      grid_sync(count, (unsigned int)(s + 1) * gridDim.x);
+      grid_sync(count, (unsigned int)(s + 1) * nblk);
     }
   }
 }
 
+// One direction: ceil(H / kJT) blocks, one per SM.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_persistent(const T* __restrict__ xw, const float* __restrict__ hw,
+                   const T* __restrict__ hprev, const T* __restrict__ gout,
+                   const T* __restrict__ chain_tiles, const int* __restrict__ lengths,
+                   T* dhw, float* rest, T* __restrict__ dxw, T* __restrict__ dnr,
+                   T* __restrict__ dh0, unsigned int* count, int T_len, int B, int H,
+                   int Hk, int Kc, int reverse) {
+  chain_scan<T, CC>(xw, hw, hprev, gout, chain_tiles, lengths, dhw, rest, dxw, dnr, dh0,
+                    count, T_len, B, H, Hk, Kc, reverse, blockIdx.x, gridDim.x);
+}
+
+// The buffers of one direction's chain (chain_scan's arguments).
+template <typename T>
+struct Chain {
+  const T* xw;
+  const float* hw;
+  const T* hprev;
+  const T* gout;
+  const T* tiles;
+  T* dhw;
+  float* rest;
+  T* dxw;
+  T* dnr;
+  T* dh0;
+  unsigned int* count;
+};
+
+// Both directions of a bidirectional layer: blocks [0, n) walk the forward
+// direction's chain (t = T-1 .. 0), blocks [n, 2n) the reversed one's
+// (t = 0 .. T-1), n = ceil(H / kPairJT) each.  Each direction barriers on
+// its own counter, so neither waits on the other.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_pair(Chain<T> fwd, Chain<T> rev, const int* __restrict__ lengths, int T_len,
+             int B, int H, int Hk, int Kc) {
+  const int n = gridDim.x / 2;
+  const int second = blockIdx.x >= n;
+  const Chain<T> c = second ? rev : fwd;
+  chain_scan<T, kPairJT>(c.xw, c.hw, c.hprev, c.gout, c.tiles, lengths, c.dhw, c.rest,
+                         c.dxw, c.dnr, c.dh0, c.count, T_len, B, H, Hk, Kc, second,
+                         blockIdx.x - second * n, n);
+}
 
 template <typename T>
 int launch_bwd(const void* xw, const void* hprev, const void* gout, const void* w_t,
@@ -222,6 +289,39 @@ int launch_bwd(const void* xw, const void* hprev, const void* gout, const void* 
   void* args[] = {&xw, &hw, &hprev, &gout, &chain_tiles, &lengths, &dhw, &rest,
                   &dxw, &dnr, &dh0, &count, &T_len, &B, &H, &Hk, &Kc, &reverse};
   err = cudaLaunchCooperativeKernel((const void*)gru_bwd_persistent<T>, dim3(blocks),
+                                    dim3(kThreads), args, smem, stream);
+  return (int)err;
+}
+
+// p[d * kPairPtrs + i]: the i-th buffer of direction d (0 forward, 1
+// reversed), in the order xw, hprev, gout, w_t, chain_tiles, b_hh, hw, dhw,
+// rest, dxw, dnr, dh0.
+constexpr int kPairPtrs = 12;
+
+template <typename T>
+int launch_pair(void* const* p, const void* lengths, unsigned int* count, int T_len, int B,
+                int H, int Hk, int Kc, cudaStream_t stream) {
+  const int blocks = 2 * ((H + kPairJT - 1) / kPairJT);
+  const size_t smem = slice_smem<T>(kPairJT, Kc);
+  cudaError_t err = check_coresident(gru_bwd_pair<T>, blocks, smem);
+  if (err != cudaSuccess) return (int)err;
+  GemmArgs<T> gemm[2];
+  Chain<T> chain[2];
+  for (int d = 0; d < 2; ++d) {
+    void* const* q = p + d * kPairPtrs;
+    gemm[d] = {static_cast<const T*>(q[1]), static_cast<const T*>(q[3]),
+               static_cast<const T*>(q[5]), static_cast<float*>(q[6])};
+    chain[d] = {static_cast<const T*>(q[0]), static_cast<const float*>(q[6]),
+                static_cast<const T*>(q[1]), static_cast<const T*>(q[2]),
+                static_cast<const T*>(q[4]), static_cast<T*>(q[7]),
+                static_cast<float*>(q[8]), static_cast<T*>(q[9]),
+                static_cast<T*>(q[10]), static_cast<T*>(q[11]), count + d};
+  }
+  err = launch_gemm_pair<T>(gemm[0], gemm[1], T_len * B, 3 * H, Hk, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int* lens = static_cast<const int*>(lengths);
+  void* args[] = {&chain[0], &chain[1], &lens, &T_len, &B, &H, &Hk, &Kc};
+  err = cudaLaunchCooperativeKernel((const void*)gru_bwd_pair<T>, dim3(blocks),
                                     dim3(kThreads), args, smem, stream);
   return (int)err;
 }
@@ -516,6 +616,27 @@ extern "C" int gru_scan_bwd(const void* xw, const void* hprev, const void* gout,
   return (int)cudaErrorInvalidValue;
 }
 
+// Both directions of a bidirectional layer's backward scan in two launches
+// on `stream`, no sync: the gates GEMM of both into their hw, then one
+// cooperative launch of both chains, ceil(H / 16) blocks each (gru_bwd_pair).
+// p holds 2 x 12 buffers, direction-major (forward, then reversed), each as
+// gru_scan_bwd takes them: xw, hprev, gout, w_t, chain_tiles (16 rows a
+// block), b_hh, hw, dhw, rest, dxw, dnr, dh0.  lengths are shared; count is
+// two zeroed uint32, one per direction.  jt must be 16.  Returns 0 or the
+// first cudaError_t met.
+extern "C" int gru_scan_bwd_pair(void* const* p, const void* lengths, void* count, int T_len,
+                                 int B, int H, int Hk, int Kc, int jt, int dtype,
+                                 void* stream) {
+  if (T_len <= 0 || B <= 0) return 0;
+  if (jt != kPairJT || Hk % 64 != 0 || Hk < H || Kc % 64 != 0 || Kc < 3 * H)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* c = static_cast<unsigned int*>(count);
+  if (dtype == 0) return launch_pair<float>(p, lengths, c, T_len, B, H, Hk, Kc, s);
+  if (dtype == 1) return launch_pair<__nv_bfloat16>(p, lengths, c, T_len, B, H, Hk, Kc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The gates GEMM alone, hw = hprev @ w_t^T + b_hh over M rows: for checking
 // it against its plain version.
 extern "C" int gru_bwd_gates(const void* hprev, const void* w_t, const void* b_hh,
@@ -552,6 +673,23 @@ extern "C" int gru_scan_bwd_max_blocks(int Kc, int dtype) {
       dtype == 0 ? max_coresident(gru_bwd_persistent<float>, slice_smem<float>(CC, Kc), &blocks)
                  : max_coresident(gru_bwd_persistent<__nv_bfloat16>,
                                   slice_smem<__nv_bfloat16>(CC, Kc), &blocks);
+  return err == cudaSuccess ? blocks : -1;
+}
+
+// Dynamic shared memory of one paired block, for the wrapper's limit.
+extern "C" int gru_scan_bwd_pair_smem(int Kc, int dtype) {
+  return (int)(dtype == 0 ? slice_smem<float>(kPairJT, Kc)
+                          : slice_smem<__nv_bfloat16>(kPairJT, Kc));
+}
+
+// The most paired blocks that can be co-resident on this card at width Kc,
+// or -1.
+extern "C" int gru_scan_bwd_pair_max_blocks(int Kc, int dtype) {
+  int blocks = -1;
+  const cudaError_t err =
+      dtype == 0 ? max_coresident(gru_bwd_pair<float>, slice_smem<float>(kPairJT, Kc), &blocks)
+                 : max_coresident(gru_bwd_pair<__nv_bfloat16>,
+                                  slice_smem<__nv_bfloat16>(kPairJT, Kc), &blocks);
   return err == cudaSuccess ? blocks : -1;
 }
 

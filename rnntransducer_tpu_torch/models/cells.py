@@ -15,7 +15,11 @@
 GRU and LSTM layers run through ``ops.rnn_kernels.gru_scan`` /
 ``lstm_scan`` (the CUDA kernels on the card, their plain versions on the
 CPU); when autograd records, through ``GRUScanFunction`` /
-``LSTMScanFunction``, whose backward is the backward kernel.  Both keep an
+``LSTMScanFunction``, whose backward is the backward kernel.  A
+bidirectional GRU layer whose input lies on a card where the paired
+backward fits (``rnn_kernels.gru_pair_applies``) runs both directions
+through ``GRUPairScanFunction`` when autograd records: the same forward
+scans, and one paired backward launch for both.  Both keep an
 fp32 carry, as the JAX package's Pallas kernels do (its XLA scan carries
 the activation dtype).  Vanilla RNN layers, which have no kernel in the JAX
 package either, use a plain masked loop in the activation dtype that
@@ -43,7 +47,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from rnntransducer_tpu_torch.ops.rnn_kernels import (GRUScanFunction,
+from rnntransducer_tpu_torch.ops import rnn_kernels
+from rnntransducer_tpu_torch.ops.rnn_kernels import (GRUPairScanFunction,
+                                                    GRUScanFunction,
                                                     LSTMScanFunction, gru_scan,
                                                     lstm_scan)
 from rnntransducer_tpu_torch.utils.masking import length_mask
@@ -165,6 +171,11 @@ class RNNLayer(nn.Module):
         z = torch.zeros((batch, self.hidden_size), dtype=dtype, device=device)
         return z, z
 
+    def project(self, x):
+        """The input pre-activations of every step, time major: x (B, T, in)
+        -> (T, B, G*H)."""
+        return (torch.matmul(x, self.w_ih) + self.b_ih).transpose(0, 1).contiguous()
+
     def forward(self, x, lengths, initial_state=None):
         """x: (B, T, input_size); lengths: (B,) int.
         Returns (outputs (B, T, H), final (h, c))."""
@@ -172,7 +183,7 @@ class RNNLayer(nn.Module):
         if initial_state is None:
             initial_state = self.init_state(B, x.dtype, x.device)
         h, c = initial_state
-        xw_t = (torch.matmul(x, self.w_ih) + self.b_ih).transpose(0, 1).contiguous()
+        xw_t = self.project(x)
         outs, h, c = layer_scan(self.rnn_type, xw_t, self.w_hh, self.b_hh, h, c,
                                 lengths.clamp(0, T), self.reverse)
         return outs.transpose(0, 1), (h, c)
@@ -184,6 +195,30 @@ class RNNLayer(nn.Module):
         ones = torch.ones((x_t.shape[0], 1), dtype=torch.bool, device=x_t.device)
         h, c, out = self._cell(h, c, xw, ones)
         return out, (h, c)
+
+
+class GRUPair(nn.Module):
+    """Both directions of one bidirectional GRU layer, run together through
+    ``GRUPairScanFunction``: their input projections, then their scans, whose
+    backward is one paired kernel launch.  Built around a ``StackedRNN``'s
+    own two layers for one call; its outputs equal theirs run one by one."""
+
+    def __init__(self, fwd: RNNLayer, bwd: RNNLayer):
+        super().__init__()
+        self.fwd, self.bwd = fwd, bwd
+
+    def forward(self, x, lengths, f_state, b_state):
+        """x: (B, T, input_size); lengths: (B,); f_state / b_state: each
+        direction's (h, c).  Returns ((outputs, (h, c)) of the forward
+        direction, the same of the reversed one), as ``RNNLayer`` returns."""
+        (hf, cf), (hb, cb) = f_state, b_state
+        xw_f, xw_b = self.fwd.project(x), self.bwd.project(x)
+        f_all, f_fin, b_all, b_fin = GRUPairScanFunction.apply(
+            xw_f, self.fwd.w_hh, self.fwd.b_hh, hf.to(xw_f.dtype),
+            xw_b, self.bwd.w_hh, self.bwd.b_hh, hb.to(xw_b.dtype),
+            lengths.clamp(0, x.shape[1]))
+        return ((f_all.transpose(0, 1), (f_fin.to(hf.dtype), cf)),
+                (b_all.transpose(0, 1), (b_fin.to(hb.dtype), cb)))
 
 
 def remat_call(module: nn.Module, *args):
@@ -208,7 +243,8 @@ class StackedRNN(nn.Module):
     direction d is ``fwd[l]`` / ``bwd[l]``.  Inter-layer dropout goes on the
     input of layers 1..L-1 (torch's dropout on every layer's output but the
     last), never on the last layer's output.  ``remat``: each layer is
-    recomputed in the backward pass (:func:`remat_call`)."""
+    recomputed in the backward pass (:func:`remat_call`); a layer whose
+    directions run as a :class:`GRUPair` is recomputed as one unit."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int,
                  rnn_type: str = "lstm", bidirectional: bool = False,
@@ -262,9 +298,15 @@ class StackedRNN(nn.Module):
         for layer in range(self.num_layers):
             if layer > 0:
                 out = fast_dropout(out, self.dropout, generator)
-            f_out, f_fin = call(
-                self.fwd[layer], out, lengths,
-                self._layer_state(initial_state, layer, 0, B, x.dtype, x.device))
+            f_state = self._layer_state(initial_state, layer, 0, B, x.dtype, x.device)
+            if self._paired(layer, out):
+                (f_out, f_fin), (b_out, b_fin) = call(
+                    GRUPair(self.fwd[layer], self.bwd[layer]), out, lengths, f_state,
+                    self._layer_state(initial_state, layer, 1, B, x.dtype, x.device))
+                out = torch.cat([f_out, b_out], dim=-1)
+                finals.append((f_fin, b_fin))
+                continue
+            f_out, f_fin = call(self.fwd[layer], out, lengths, f_state)
             if self.bidirectional:
                 b_out, b_fin = call(
                     self.bwd[layer], out, lengths,
@@ -275,6 +317,19 @@ class StackedRNN(nn.Module):
                 out = f_out
                 finals.append((f_fin,))
         return out, self._pack_state(finals)
+
+    def _paired(self, layer: int, x) -> bool:
+        """Whether layer ``layer`` runs its two directions as a
+        :class:`GRUPair`: a bidirectional GRU whose grads autograd records,
+        on the route ``rnn_kernels.gru_pair_applies`` sees from the input
+        (a card where the paired backward fits, no tracer)."""
+        if not (self.bidirectional and self.rnn_type == "gru" and torch.is_grad_enabled()):
+            return False
+        layers = (self.fwd[layer], self.bwd[layer])
+        if not (x.requires_grad or any(p.requires_grad for l in layers
+                                       for p in l.parameters())):
+            return False
+        return rnn_kernels.gru_pair_applies(x, self.hidden_size)
 
     def step(self, x_t, state: Optional[RNNState]):
         """Single-step stateful mode (unidirectional only). x_t: (B, in)."""

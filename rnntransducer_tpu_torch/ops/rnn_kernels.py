@@ -36,6 +36,14 @@ memory (:func:`step_max_hidden`), the per-step kernels stream the slice
 through shared memory in K chunks (route ``"step_chunked"``, the same
 launch counts), so every H runs; :func:`step_chunked_reference` mirrors
 that arithmetic on the CPU.
+
+The two directions of a bidirectional GRU layer may take their backward
+scans together (:func:`gru_scan_backward_pair`, :class:`GRUPairScanFunction`):
+one gates GEMM launch for both, then one persistent launch that runs both
+chains, each on its own half of the SMs (2 launches a pair), where
+:func:`gru_pair_fits`.  ``utils.profiling`` counts the backward scans the
+kernels ran while a profiler records: ``kernels/gru_bwd_pair`` per paired
+launch, ``kernels/gru_bwd_single`` per scan run alone.
 """
 
 from __future__ import annotations
@@ -49,10 +57,12 @@ import torch.nn.functional as F
 
 from rnntransducer_tpu_torch.ops import build, library
 from rnntransducer_tpu_torch.ops.device import device_limits
+from rnntransducer_tpu_torch.utils import profiling
 from rnntransducer_tpu_torch.utils.precision import full_precision_matmul
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_WIDTH = 8                    # GRU hidden units per block (kJT in the kernels)
+_PAIR_TILE_WIDTH = 16              # GRU units per block of the paired backward (kPairJT)
 _LSTM_STEP_TILE_WIDTH = 4          # LSTM units per block, per-step route (kStepJT)
 _LSTM_CHAIN_ROWS = 8               # rows of a persistent LSTM chain slice (CC)
 _K_ALIGN = 64                      # the kernel's K loop walks 64 at a time
@@ -214,6 +224,53 @@ def gru_max_hidden(B: int, dtype: torch.dtype, device=None, *,
     while H > 0 and not gru_fits(H, B, dtype, device, sms=sms, smem=smem):
         H -= 1
     return H
+
+
+def gru_pair_smem_bytes(H: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the paired backward kernel
+    (``csrc/gru_bwd.cu::gru_bwd_pair``): 16 chain rows of Kc, bf16 rows padded
+    by 32 values, plus a 128-row fp32 dot buffer."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    K = _padded(3 * H)
+    C = _PAIR_TILE_WIDTH
+    return e * C * (K + 32 if e == 2 else K) + 4 * 128 * C
+
+
+@functools.lru_cache(maxsize=None)
+def _reported_pair_blocks(H: int, dtype: torch.dtype, device: torch.device) -> int:
+    """The paired backward kernel's co-resident blocks at hidden size H, as
+    its own occupancy query on the card reports them (-1 where a block does
+    not fit)."""
+    with torch.cuda.device(device):
+        return _bwd_library().gru_scan_bwd_pair_max_blocks(_padded(3 * H),
+                                                           _DTYPE_CODES[dtype])
+
+
+def gru_pair_fits(H: int, B: int, dtype: torch.dtype, device=None, *,
+                  sms: Optional[int] = None, smem: Optional[int] = None) -> bool:
+    """Whether the paired backward kernel takes both directions of a
+    bidirectional GRU layer of hidden size H on the card of ``device`` (or
+    one with ``sms`` SMs and ``smem`` bytes of opt-in shared memory per
+    block; the H100 SXM where neither is given): 2 ceil(H / 16) blocks, one
+    per SM, must be co-resident, each holding its 16-row chain slice.  B
+    does not move the limit (64-row chunks inside a step)."""
+    del B
+    n_sms, n_smem = _limits(device, sms, smem)
+    blocks = 2 * -(-H // _PAIR_TILE_WIDTH)
+    if blocks > n_sms or gru_pair_smem_bytes(H, dtype) > n_smem:
+        return False
+    if _is_cuda(device):
+        return blocks <= _reported_pair_blocks(H, dtype, torch.device(device))
+    return True
+
+
+def gru_pair_applies(x: torch.Tensor, H: int) -> bool:
+    """Whether the two directions of a bidirectional GRU layer of hidden
+    size H over the input x (B, T, F) take the paired backward: on a card,
+    outside a tracer (no registered op stands for the pair) and where
+    :func:`gru_pair_fits` on x's card and dtype."""
+    return (x.device.type == "cuda" and not library.tracing(x)
+            and gru_pair_fits(H, x.shape[0], x.dtype, x.device))
 
 
 def gru_route(H: int, B: int, dtype: torch.dtype, device=None, *,
@@ -518,7 +575,10 @@ def _bwd_library():
         lib.gru_scan_bwd_step_chunked_smem.restype = i
         lib.gru_bwd_gates.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.gru_bwd_gates.restype = i
-        for fn in (lib.gru_scan_bwd_smem, lib.gru_scan_bwd_max_blocks):
+        lib.gru_scan_bwd_pair.argtypes = [p] * 3 + [i] * 7 + [p]
+        lib.gru_scan_bwd_pair.restype = i
+        for fn in (lib.gru_scan_bwd_smem, lib.gru_scan_bwd_max_blocks,
+                   lib.gru_scan_bwd_pair_smem, lib.gru_scan_bwd_pair_max_blocks):
             fn.argtypes = [i, i]
             fn.restype = i
         lib._argtypes_set = True
@@ -573,12 +633,13 @@ def gru_bwd_gates(h_prev, w_hh, b_hh):
 gru_bwd_gates.launches = 0
 
 
-def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
-                            reverse):
+def _check_backward_args(op, xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin):
+    """Raise unless the backward kernel takes these arguments: shapes that
+    agree, one device, one float32 or bfloat16 dtype, dense xw, w_hh, b_hh
+    and g_hall.  Returns (T, B, H)."""
     dev = xw.device
     if xw.dim() != 3 or xw.shape[2] % 3:
-        raise ValueError(f"gru_scan_backward: xw must be (T, B, 3H), got "
-                         f"{tuple(xw.shape)}")
+        raise ValueError(f"{op}: xw must be (T, B, 3H), got {tuple(xw.shape)}")
     T, B, G = xw.shape
     H = G // 3
     named = (("h_prev", h_prev, (T, B, H)), ("w_hh", w_hh, (H, G)),
@@ -586,21 +647,28 @@ def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
              ("g_hall", g_hall, (T, B, H)), ("g_hfin", g_hfin, (B, H)))
     for name, x, shape in named:
         if x.device != dev:
-            raise ValueError(f"gru_scan_backward: {name} is on {x.device}, xw on {dev}")
+            raise ValueError(f"{op}: {name} is on {x.device}, xw on {dev}")
         if tuple(x.shape) != shape:
-            raise ValueError(f"gru_scan_backward: {name} has shape {tuple(x.shape)}, "
+            raise ValueError(f"{op}: {name} has shape {tuple(x.shape)}, "
                              f"expected {shape} for xw {tuple(xw.shape)}")
     if xw.dtype not in _DTYPE_CODES:
-        raise TypeError(f"gru_scan_backward kernel takes float32 or bfloat16, "
-                        f"got {xw.dtype}")
+        raise TypeError(f"{op} kernel takes float32 or bfloat16, got {xw.dtype}")
     for name, x in (("h_prev", h_prev), ("w_hh", w_hh), ("b_hh", b_hh),
                     ("g_hall", g_hall), ("g_hfin", g_hfin)):
         if x.dtype != xw.dtype:
-            raise TypeError(f"gru_scan_backward kernel needs {name} in xw's dtype "
+            raise TypeError(f"{op} kernel needs {name} in xw's dtype "
                             f"{xw.dtype}, got {x.dtype}")
     if not all(x.is_contiguous() for x in (xw, w_hh, b_hh, g_hall)):
-        raise ValueError("gru_scan_backward kernel needs contiguous xw, w_hh, "
-                         "b_hh and g_hall")
+        raise ValueError(f"{op} kernel needs contiguous xw, w_hh, b_hh and g_hall")
+    return T, B, H
+
+
+def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
+                            reverse):
+    dev = xw.device
+    T, B, H = _check_backward_args("gru_scan_backward", xw, h_prev, w_hh, b_hh,
+                                   lengths, g_hall, g_hfin)
+    G = 3 * H
     route = gru_route(H, B, xw.dtype, dev, backward=True)
     persistent = route == "persistent"
 
@@ -645,6 +713,7 @@ def _gru_scan_backward_cuda(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
     if err != 0:
         raise _cuda_error("gru_scan_backward", err)
     gru_scan_backward.launches += 2 if persistent else T + 1
+    profiling.count("kernels/gru_bwd_single")
     return dxw, dnr, dh0
 
 
@@ -667,6 +736,101 @@ def gru_scan_backward(xw, h_prev, w_hh, b_hh, lengths, g_hall, g_hfin,
 gru_scan_backward.launches = 0
 
 
+def gru_scan_backward_pair_reference(fwd, bwd, lengths):
+    """Plain version of the paired backward: :func:`gru_scan_backward_reference`
+    of each direction.  ``fwd`` / ``bwd`` are (xw, h_prev, w_hh, b_hh, g_hall,
+    g_hfin) of the forward and the reversed direction."""
+    return tuple(gru_scan_backward_reference(*d[:4], lengths, *d[4:], reverse)
+                 for d, reverse in ((fwd, False), (bwd, True)))
+
+
+def _gru_scan_backward_pair_cuda(fwd, bwd, lengths):
+    op = "gru_scan_backward_pair"
+    shapes = [_check_backward_args(op, *d[:4], lengths, *d[4:]) for d in (fwd, bwd)]
+    xw = fwd[0]
+    dev = xw.device
+    if shapes[0] != shapes[1] or bwd[0].dtype != xw.dtype or bwd[0].device != dev:
+        raise ValueError(f"{op}: the directions differ: xw {tuple(xw.shape)} "
+                         f"{xw.dtype} on {dev}, {tuple(bwd[0].shape)} {bwd[0].dtype} "
+                         f"on {bwd[0].device}")
+    T, B, H = shapes[0]
+    G = 3 * H
+    if not gru_pair_fits(H, B, xw.dtype, dev):
+        raise ValueError(f"{op}: H={H} in {xw.dtype} does not fit the paired kernel "
+                         "on this card (gru_pair_fits)")
+
+    lib = _bwd_library()
+    Hk, Kc = _padded(H), _padded(G)
+    with torch.cuda.device(dev):
+        outs = [(torch.empty((T, B, G), dtype=xw.dtype, device=dev),
+                 torch.empty((T, B, H), dtype=xw.dtype, device=dev),
+                 torch.empty((B, H), dtype=xw.dtype, device=dev)) for _ in range(2)]
+        if T == 0:
+            return tuple((dxw, dnr, d[5].clone())
+                         for (dxw, dnr, _), d in zip(outs, (fwd, bwd)))
+        bufs = []
+        for (xw_d, h_prev, w_hh, b_hh, g_hall, g_hfin), out in zip((fwd, bwd), outs):
+            hprev, w_t = _gemm_operands(h_prev, w_hh, Hk)
+            bufs += [xw_d, hprev, g_hall, w_t, _chain_tiles(w_hh, H, Kc, _PAIR_TILE_WIDTH),
+                     b_hh, torch.empty((T, B, G), dtype=torch.float32, device=dev),
+                     torch.zeros((2, B, Kc), dtype=xw.dtype, device=dev),
+                     _fp32_copy(g_hfin), *out]
+        ptrs = (ctypes.c_void_p * len(bufs))(*[b.data_ptr() for b in bufs])
+        lens = lengths.to(torch.int32).contiguous()
+        count = torch.zeros((2,), dtype=torch.int32, device=dev)
+        err = lib.gru_scan_bwd_pair(ptrs, lens.data_ptr(), count.data_ptr(), T, B, H, Hk,
+                                    Kc, _PAIR_TILE_WIDTH, _DTYPE_CODES[xw.dtype],
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise _cuda_error(op, err)
+    gru_scan_backward_pair.launches += 2
+    profiling.count("kernels/gru_bwd_pair")
+    return tuple(outs)
+
+
+def gru_scan_backward_pair(fwd, bwd, lengths):
+    """Backward through both directions of a bidirectional GRU layer at once.
+
+    ``fwd`` and ``bwd`` are (xw, h_prev, w_hh, b_hh, g_hall, g_hfin) of the
+    forward and the reversed direction, as :func:`gru_scan_backward` takes
+    them; ``lengths`` (B,) is shared.  Returns ((dxw, dnr, dh0) of fwd,
+    (dxw, dnr, dh0) of bwd).  A CPU tensor goes to
+    :func:`gru_scan_backward_pair_reference`; a CUDA tensor to the paired
+    kernel (``csrc/gru_bwd.cu::gru_scan_bwd_pair``: one gates GEMM launch for
+    both directions, then one persistent launch of both chains, each on half
+    the SMs; ``.launches`` counts 2), which must fit (:func:`gru_pair_fits`),
+    or the call raises.  Each direction's outputs equal
+    :func:`gru_scan_backward`'s bit for bit."""
+    xw = fwd[0]
+    if xw.device.type == "cpu":
+        return gru_scan_backward_pair_reference(fwd, bwd, lengths)
+    if xw.device.type != "cuda":
+        raise ValueError(f"gru_scan_backward_pair runs on cpu or cuda, not {xw.device}")
+    return _gru_scan_backward_pair_cuda(fwd, bwd, lengths)
+
+
+gru_scan_backward_pair.launches = 0
+
+
+def _backward_inputs(xw, h_all, w_hh, b_hh, h0, lengths, g_hall, g_hfin, reverse):
+    """The backward scan's arguments (xw, h_prev, w_hh, b_hh, g_hall, g_hfin)
+    from a scan's saved tensors and its cotangents; a missing cotangent of
+    h_all or h_final counts as zeros."""
+    g_hall = (torch.zeros_like(h_all) if g_hall is None
+              else g_hall.to(h_all.dtype).contiguous())
+    g_hfin = (torch.zeros_like(h0, dtype=h_all.dtype) if g_hfin is None
+              else g_hfin.to(h_all.dtype))
+    return xw, prev_all(h_all, h0, lengths, reverse), w_hh, b_hh, g_hall, g_hfin
+
+
+def _direction_grads(args, h0, dxw, dnr, dh0):
+    """Grads for xw, w_hh, b_hh and h0 of one direction from its backward
+    scan's outputs (the off-loop weight GEMMs)."""
+    _, h_prev, w_hh, b_hh, _, _ = args
+    dw, db = gru_weight_grads(h_prev, dxw, dnr, w_hh.dtype)
+    return dxw, dw, db.to(b_hh.dtype), dh0.to(h0.dtype)
+
+
 class GRUScanFunction(torch.autograd.Function):
     """``gru_scan`` with the JAX package's custom VJP: the backward is the
     backward scan plus the off-loop weight GEMMs.  Returns grads for xw,
@@ -683,15 +847,37 @@ class GRUScanFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_hall, g_hfin):
         xw, h_all, w_hh, b_hh, h0, lengths = ctx.saved_tensors
-        g_hall = (torch.zeros_like(h_all) if g_hall is None
-                  else g_hall.to(h_all.dtype).contiguous())
-        g_hfin = (torch.zeros_like(h0, dtype=h_all.dtype) if g_hfin is None
-                  else g_hfin.to(h_all.dtype))
-        h_prev = prev_all(h_all, h0, lengths, ctx.reverse)
-        dxw, dnr, dh0 = gru_scan_backward(xw, h_prev, w_hh, b_hh, lengths,
-                                          g_hall, g_hfin, ctx.reverse)
-        dw, db = gru_weight_grads(h_prev, dxw, dnr, w_hh.dtype)
-        return dxw, dw, db.to(b_hh.dtype), dh0.to(h0.dtype), None, None
+        args = _backward_inputs(xw, h_all, w_hh, b_hh, h0, lengths, g_hall, g_hfin,
+                                ctx.reverse)
+        outs = gru_scan_backward(*args[:4], lengths, *args[4:], ctx.reverse)
+        return _direction_grads(args, h0, *outs) + (None, None)
+
+
+class GRUPairScanFunction(torch.autograd.Function):
+    """Both directions of a bidirectional GRU layer: the forward is
+    ``gru_scan`` of each direction, as two :class:`GRUScanFunction` s run it;
+    the backward one :func:`gru_scan_backward_pair` call for both, then the
+    off-loop weight GEMMs of each.  Inputs: xw, w_hh, b_hh, h0 of the forward
+    direction, the same of the reversed one, and the shared lengths; outputs
+    (h_all, h_final) of each.  Grads equal two GRUScanFunction's."""
+
+    @staticmethod
+    def forward(ctx, xw_f, w_f, b_f, h0_f, xw_b, w_b, b_b, h0_b, lengths):
+        f_all, f_fin = gru_scan(xw_f, w_f, b_f, h0_f, lengths, False)
+        b_all, b_fin = gru_scan(xw_b, w_b, b_b, h0_b, lengths, True)
+        ctx.save_for_backward(xw_f, f_all, w_f, b_f, h0_f, xw_b, b_all, w_b, b_b, h0_b,
+                              lengths)
+        return f_all, f_fin, b_all, b_fin
+
+    @staticmethod
+    def backward(ctx, gf_all, gf_fin, gb_all, gb_fin):
+        saved = ctx.saved_tensors
+        lengths = saved[10]
+        fwd = _backward_inputs(*saved[0:5], lengths, gf_all, gf_fin, False)
+        bwd = _backward_inputs(*saved[5:10], lengths, gb_all, gb_fin, True)
+        outs = gru_scan_backward_pair(fwd, bwd, lengths)
+        return (_direction_grads(fwd, saved[4], *outs[0])
+                + _direction_grads(bwd, saved[9], *outs[1]) + (None,))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
 """The persistent GRU kernels' pieces that run without a card.
 
 The kernels themselves (``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu``) run only
-on the card (the ``cuda`` test below and ``chip_smoke.py``).  Here: the
-layouts the wrappers hand them, the co-residency limit, the plain mirrors
-of the backward's two pieces (the off-chain gates GEMM and the chain)
-against numpy and against ``jax.grad`` through ``rnn_pallas.gru_scan`` in
-interpret mode, and the launch counts ``chip_smoke.py`` expects.
+on the card (the ``cuda`` tests below and in ``test_torch_gru_pair_card.py``,
+and ``chip_smoke.py``).  Here: the layouts the wrappers hand them, the
+co-residency limits (the single scans' and the paired backward's), the
+routes the callers take to the paired and the single backward, the plain
+mirrors of the backward's two pieces (the off-chain gates GEMM and the
+chain) against numpy and against ``jax.grad`` through
+``rnn_pallas.gru_scan`` in interpret mode, and the launch counts
+``chip_smoke.py`` expects.
 
 Tolerances: the gates GEMM at 1e-6 against numpy in float64 (fp32 sums of
 H=16 terms); the decomposed backward at 1e-6 in fp32 against the Pallas
@@ -19,11 +22,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from rnntransducer_tpu.ops import rnn_pallas as rp
 
 from rnntransducer_tpu_torch.config import base_config, tiny_config
+from rnntransducer_tpu_torch.models.cells import StackedRNN
 from rnntransducer_tpu_torch.ops import device, rnn_kernels
+from rnntransducer_tpu_torch.parallel import mesh as pmesh
+from rnntransducer_tpu_torch.parallel.pipeline import pipeline_scan
+from rnntransducer_tpu_torch.parallel.wavefront import wavefront_scan
+from rnntransducer_tpu_torch.utils import profiling
 
 from _torch_parity import close, t
 # the kernel libraries replaced by a recorder, so the CUDA wrappers'
@@ -258,6 +267,179 @@ def test_gates_gemm_wrapper_runs_only_on_the_card():
 
 
 # ---------------------------------------------------------------------------
+# the paired backward: its limit, its export, and who takes it
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_limit_on_a_card_of_132_sms(dtype):
+    """2 ceil(H / 16) blocks of 16 chain rows of Kc each (bf16 rows padded
+    by 32 values) plus the 128-row dot buffer: H=1024 fits in both dtypes,
+    and H=1057, the first whose 2 ceil(H / 16) = 134 blocks exceed 132 SMs,
+    does not."""
+    e, pad = (2, 32) if dtype == torch.bfloat16 else (4, 0)
+    assert rnn_kernels.gru_pair_smem_bytes(1024, dtype) == e * 16 * (3072 + pad) + 4 * 128 * 16
+    assert rnn_kernels.gru_pair_smem_bytes(1056, dtype) <= SMEM_LIMIT
+    assert rnn_kernels.gru_pair_fits(1024, 64, dtype, sms=132)
+    first = next(h for h in range(1, 4096) if 2 * -(-h // 16) > 132)
+    assert first == 1057
+    assert rnn_kernels.gru_pair_fits(first - 1, 64, dtype, sms=132)
+    assert not rnn_kernels.gru_pair_fits(first, 64, dtype, sms=132)
+    # fewer SMs, or less shared memory than a block's slice, refuse it
+    assert not rnn_kernels.gru_pair_fits(1024, 64, dtype, sms=127)
+    assert not rnn_kernels.gru_pair_fits(
+        1024, 64, dtype, smem=rnn_kernels.gru_pair_smem_bytes(1024, dtype) - 1)
+    # the route is a card's: never on the CPU
+    assert not rnn_kernels.gru_pair_applies(torch.zeros(2, 3, 4, dtype=dtype), 16)
+
+
+def test_pair_chain_tiles_hold_sixteen_rows_a_block():
+    """A paired block holds the 16 rows j = 16 i + jj of its direction's W_hh,
+    padded to Kc; rows j >= H are zero."""
+    Hs, jt = 20, rnn_kernels._PAIR_TILE_WIDTH
+    Kc = rnn_kernels._padded(3 * Hs)
+    w = torch.arange(Hs * 3 * Hs, dtype=torch.float32).view(Hs, 3 * Hs) + 1
+    tiles = rnn_kernels._chain_tiles(w, Hs, Kc, jt)
+    assert tiles.shape == (2, 16, Kc)
+    for j in range(32):
+        row = tiles[j // 16, j % 16]
+        assert torch.equal(row[:3 * Hs], w[j]) if j < Hs else not row.any()
+        assert not row[3 * Hs:].any()
+
+
+def _direction(T, B, Hs, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g).to(dtype)  # noqa: E731
+    return (r(T, B, 3 * Hs), r(T, B, Hs), r(Hs, 3 * Hs), r(3 * Hs), r(T, B, Hs), r(B, Hs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_wrapper_calls_the_pair_export_once(stand_in, dtype):
+    """One call of the pair export, 2 launches counted on the pair's own
+    wrapper and none on the single scan's: both directions' 12 buffers,
+    direction-major, each in gru_scan_bwd's order (xw, h_prev, g_hall, W_hh^T,
+    the 16-row chain tiles, b_hh, then the scratch and the outputs), the
+    shared lengths, two barrier counters, and (T, B, H, Hk, Kc, 16, dtype)."""
+    T, B, Hs = 3, 2, 40
+    fwd, bwd = _direction(T, B, Hs, 1, dtype), _direction(T, B, Hs, 2, dtype)
+    lengths = torch.tensor([3, 1])
+    before = (rnn_kernels.gru_scan_backward.launches,
+              rnn_kernels.gru_scan_backward_pair.launches)
+    outs = rnn_kernels._gru_scan_backward_pair_cuda(fwd, bwd, lengths)
+    assert [n for n, _ in stand_in.calls] == ["gru_scan_bwd_pair"]
+    assert (rnn_kernels.gru_scan_backward.launches - before[0],
+            rnn_kernels.gru_scan_backward_pair.launches - before[1]) == (0, 2)
+    args = stand_in.calls[0][1]
+    ptrs = list(args[0])
+    assert len(ptrs) == 24
+    Hk, Kc = rnn_kernels._padded(Hs), rnn_kernels._padded(3 * Hs)
+    assert args[3:] == (T, B, Hs, Hk, Kc, 16, rnn_kernels._DTYPE_CODES[dtype], 0)
+    for d, (xw, _, _, b, g_all, _), out in zip((0, 12), (fwd, bwd), outs):
+        assert ptrs[d + 0] == xw.data_ptr() and ptrs[d + 2] == g_all.data_ptr()
+        assert ptrs[d + 5] == b.data_ptr()
+        assert ptrs[d + 9:d + 12] == [o.data_ptr() for o in out]
+        assert [tuple(o.shape) for o in out] == [(T, B, 3 * Hs), (T, B, Hs), (B, Hs)]
+    assert len(set(ptrs)) == 24
+
+
+def test_pair_wrapper_refuses_what_does_not_fit(stand_in):
+    T, B = 2, 2
+    fwd, bwd = _direction(T, B, 16, 1), _direction(T, B, 16, 2)
+    with pytest.raises(ValueError, match="directions differ"):
+        rnn_kernels._gru_scan_backward_pair_cuda(fwd, _direction(T, B, 24, 2),
+                                                 torch.tensor([2, 1]))
+    big = 1057
+    with pytest.raises(ValueError, match="does not fit"):
+        rnn_kernels._gru_scan_backward_pair_cuda(_direction(1, 1, big, 1),
+                                                 _direction(1, 1, big, 2), torch.tensor([1]))
+    assert stand_in.calls == []
+
+
+@pytest.fixture
+def card_routes(stand_in, monkeypatch):
+    """The GRU wrappers' CPU branches sent down their CUDA routes into the
+    stand-in library, and the pair's route taken from the shape alone, as
+    on an H100 SXM: a step on CPU tensors calls the exports a card would."""
+    monkeypatch.setattr(rnn_kernels, "gru_scan_reference", rnn_kernels._gru_scan_cuda)
+    monkeypatch.setattr(rnn_kernels, "gru_scan_backward_reference",
+                        rnn_kernels._gru_scan_backward_cuda)
+    monkeypatch.setattr(rnn_kernels, "gru_scan_backward_pair_reference",
+                        rnn_kernels._gru_scan_backward_pair_cuda)
+    monkeypatch.setattr(rnn_kernels, "gru_pair_applies",
+                        lambda x, H: rnn_kernels.gru_pair_fits(H, x.shape[0], x.dtype))
+    profiling.reset()
+    yield stand_in
+    profiling.reset()
+
+
+def _stack_step(rnn, B=4, T=6):
+    x = torch.randn(B, T, rnn.fwd[0].w_ih.shape[0], requires_grad=True)
+    out, _ = rnn(x, torch.tensor([T, T - 1, 2, 1][:B]))
+    out.sum().backward()
+
+
+def test_flagship_shaped_step_runs_eight_pairs(card_routes):
+    """The flagship's 8 bidirectional GRU layers (H=16 here) take the paired
+    backward: under a profiler the counters read 8 pairs and no single scan,
+    and the stand-in saw 16 forward scans and 8 pair calls."""
+    rnn = StackedRNN(80, 16, 8, "gru", bidirectional=True)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _stack_step(rnn)
+    counts = profiling.recorded()
+    assert counts["kernels/gru_bwd_pair"] == {"count": 8}
+    assert "kernels/gru_bwd_single" not in counts
+    names = [n for n, _ in card_routes.calls]
+    assert names.count("gru_scan_fwd") == 16 and names.count("gru_scan_bwd_pair") == 8
+    assert "gru_scan_bwd" not in names
+
+
+@pytest.mark.parametrize("caller", ["unidirectional", "pipeline", "wavefront",
+                                    "no_grad_inputs", "too_wide"])
+def test_other_callers_keep_the_single_backward(card_routes, caller):
+    """A unidirectional stack, the pipeline and the wavefront (which scan one
+    direction at a time), a bidirectional stack whose grads nobody records,
+    and an H above the pair's limit call gru_scan_bwd, never the pair; the
+    single counter reads each scan it ran."""
+    H, L = 16, 2
+    with profile(activities=[ProfilerActivity.CPU]):
+        if caller == "unidirectional":
+            _stack_step(StackedRNN(12, H, L, "gru"))
+            singles = L
+        elif caller in ("pipeline", "wavefront"):
+            bi = caller == "pipeline"
+            rnn = StackedRNN(2 * H if bi else 12, H, L, "gru", bidirectional=bi)
+            params = dict(rnn.named_parameters())
+            x = torch.randn(4, 6, rnn.fwd[0].w_ih.shape[0], requires_grad=True)
+            lengths = torch.tensor([6, 5, 2, 1])
+            if bi:
+                out = pipeline_scan(params, x, lengths, rnn_type="gru", num_layers=L,
+                                    bidirectional=True, num_microbatches=1,
+                                    mesh=pmesh.Mesh({"stage": 1}, {"stage": 0}, {}, {}, {}))
+            else:
+                out, _ = wavefront_scan(params, x, lengths, rnn_type="gru", num_layers=L,
+                                        mesh=pmesh.Mesh({"time": 1}, {"time": 0}, {}, {}, {}))
+            out.sum().backward()
+            singles = 2 * L if bi else L
+        elif caller == "no_grad_inputs":
+            rnn = StackedRNN(12, H, L, "gru", bidirectional=True).requires_grad_(False)
+            x = torch.randn(4, 6, 12)
+            with torch.no_grad():
+                rnn(x)
+            singles = 0
+        else:
+            assert not rnn_kernels.gru_pair_fits(1057, 1, torch.float32)
+            rnn = StackedRNN(12, 1057, 1, "gru", bidirectional=True)
+            _stack_step(rnn, B=1, T=2)
+            singles = 2
+    names = [n for n, _ in card_routes.calls]
+    assert "gru_scan_bwd_pair" not in names
+    assert names.count("gru_scan_bwd") + names.count("gru_scan_bwd_step") == singles
+    counts = profiling.recorded()
+    assert "kernels/gru_bwd_pair" not in counts
+    assert counts.get("kernels/gru_bwd_single", {"count": 0}) == {"count": singles}
+
+
+# ---------------------------------------------------------------------------
 # the plain mirrors of the backward's two pieces
 # ---------------------------------------------------------------------------
 
@@ -347,7 +529,8 @@ def test_step_launches_of_the_main_paths():
     assert chip_smoke.scan_launches("lstm", 512, hidden=2048,
                                     dtype=torch.float32) == (512, 513)
     base = chip_smoke.step_launches(base_config(), 512, 48)
-    assert base == {"gru_fwd": 16, "gru_bwd": 32, "lstm_fwd": 2, "lstm_bwd": 4,
+    # the 8 bidirectional layers' backward scans run as 8 pairs, 2 launches each
+    assert base == {"gru_fwd": 16, "gru_bwd": 16, "lstm_fwd": 2, "lstm_bwd": 4,
                     "rnnt_sweep": 1, "logmel": 0}
     assert chip_smoke.step_launches(base_config(), 512, 48, raw_pcm=True)["logmel"] == 1
     tiny = chip_smoke.step_launches(tiny_config(), 512, 48)

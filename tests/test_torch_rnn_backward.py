@@ -161,6 +161,68 @@ def test_gru_backward_on_cpu_is_the_plain_version():
     assert rnn_kernels.gru_scan_backward.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_function_equals_two_scan_functions(dtype):
+    """GRUPairScanFunction (both directions, one paired backward) gives the
+    outputs and grads of two GRUScanFunction applications bit for bit, ragged
+    lengths (T, 7, 4, 2, 1) and missing cotangents included."""
+    T, B = 10, 5
+    lengths = t(np.array([10, 7, 4, 2, 1], np.int32))
+    leaves = []
+    for seed in (21, 22):
+        args, _ = _inputs(T, B, seed)
+        leaves.append([t(a).to(dtype).requires_grad_() for a in args[:4]])
+    rng = np.random.RandomState(23)
+    g_f = t(rng.randn(T, B, H).astype(np.float32)).to(dtype)
+    g_b = t(rng.randn(T, B, H).astype(np.float32)).to(dtype)
+    g_fin = t(rng.randn(B, H).astype(np.float32)).to(dtype)
+    pair = rnn_kernels.GRUPairScanFunction.apply(*leaves[0], *leaves[1], lengths)
+    one = (rnn_kernels.GRUScanFunction.apply(*leaves[0], lengths, False)
+           + rnn_kernels.GRUScanFunction.apply(*leaves[1], lengths, True))
+    for a, b in zip(pair, one):
+        assert torch.equal(a, b)
+
+    def grads(outs):
+        # no cotangent for the forward direction's final state
+        loss = ((outs[0].float() * g_f.float()).sum() + (outs[2].float() * g_b.float()).sum()
+                + (outs[3].float() * g_fin.float()).sum())
+        return torch.autograd.grad(loss, leaves[0] + leaves[1])
+
+    for name, g, w in zip(("dxw", "dw_hh", "db_hh", "dh0") * 2, grads(pair), grads(one)):
+        assert g.dtype == dtype and torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_bidirectional_stack_grads_unchanged_through_the_pair(monkeypatch, remat):
+    """A bidirectional GRU StackedRNN's outputs, final state and loss grads
+    (input and every weight) are the same bit for bit whether its layers run
+    their directions one by one or as pairs, with inter-layer dropout and
+    ragged lengths (0 included); under ``remat`` each pair is recomputed in
+    the backward as one unit."""
+    from rnntransducer_tpu_torch.models.cells import StackedRNN
+
+    def run(paired):
+        torch.manual_seed(1)
+        rnn = StackedRNN(12, H, 3, "gru", bidirectional=True, dropout=0.2,
+                         remat=remat and paired)
+        for p in rnn.parameters():
+            torch.nn.init.uniform_(p, -0.3, 0.3)
+        x = torch.randn(4, 9, 12, requires_grad=True)
+        taken = []
+
+        def applies(x, hidden):
+            taken.append(paired)
+            return paired
+        monkeypatch.setattr(rnn_kernels, "gru_pair_applies", applies)
+        out, state = rnn(x, torch.tensor([9, 6, 2, 0]), generator=torch.Generator().manual_seed(5))
+        loss = (out ** 2).sum() + (state.h * torch.linspace(-1, 1, H)).sum()
+        assert taken == [paired] * 3
+        return (out, state.h) + torch.autograd.grad(loss, [x] + list(rnn.parameters()))
+
+    for a, b in zip(run(False), run(True)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_gru_backward_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
