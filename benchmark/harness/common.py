@@ -7,6 +7,9 @@ per-layer metric lives in a file of its own, found by the name
 * ``configs/<config>.json`` (the file ``BENCHMARK.json`` names): the sizes
   as run (``run``, the port's configuration schema), the source, the
   published and assumed values;
+* the model's parts by the names its ``run.model`` gives them
+  (``reference/parts.py``): ``reference/{encoders,prednets,joints}/<name>.py``
+  and their FLOPs in ``roofline/{encoders,prednets,joints}/<name>.py``;
 * ``traffic/<traffic>.json``: the mix's parameters and the ``driver`` that
   plays it;
 * ``drivers/<driver>.py``: ``run(cell) -> Outcome``;
@@ -115,8 +118,21 @@ def load_cell(workload: str, seed: int, seconds: float, trace: bool,
         config = deep_update(config, config.get("rehearsal", {}))
         traffic = deep_update(traffic, traffic.get("rehearsal", {}))
         limits = deep_update(limits, limits.get("rehearsal", {}))
+    check_parts(workload, config["run"]["model"])
     return Cell(workload, bench, wl, config, traffic, limits, seed, seconds, trace,
                 device, rehearsal)
+
+
+def check_parts(workload: str, model: dict) -> None:
+    """Every part of ``model`` has its reference and FLOP modules; else exit
+    naming the file to add."""
+    from benchmark.reference import parts
+    from benchmark.roofline import counts
+    try:
+        parts.of(model)
+        counts.check(model)
+    except parts.MissingPart as e:
+        raise SystemExit(f"{workload}: {e}") from None
 
 
 def with_deferred(bench: dict) -> dict:

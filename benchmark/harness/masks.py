@@ -9,7 +9,9 @@ program's own function on ones, with a copy of the generator in the state
 the real call will find, and then makes the real call: the copy's draws are
 the real call's draws, so the ones come back as the mask the real call
 applies.  The real call, its generator and everything after it are left as
-they are.  The window runs the program unwrapped.
+they are.  Calls inside the backward pass (a checkpointed block's recompute,
+which replays its forward's draws) are not recorded again.  The window runs
+the program unwrapped.
 
 What is kept, on the host, per step and in the order of the calls: each
 dropout mask as a keep mask (bool, the shape of the dropped tensor) and
@@ -56,7 +58,9 @@ def read_back(log: MaskLog):
     drop0, spec0 = cells.fast_dropout, specaugment.spec_augment
 
     def fast_dropout(x, rate, generator):
-        if generator is not None:
+        # a checkpointed block's recompute in the backward replays its
+        # forward's masks: those are recorded once, in the forward
+        if generator is not None and torch._C._current_graph_task_id() == -1:
             ones = torch.ones_like(x)
             m = drop0(ones, rate, _copy(generator))
             if m is not ones:

@@ -14,7 +14,8 @@ each SpecAugment mask's form: at most ``freq_mask_cnt`` bands of fewer than
 
 ``masks`` of a step is ``{"dropout": [bool keep masks], "spec": [bool keep
 mask (B, T, n_mels)]}``, in the order the program made them: SpecAugment,
-the encoder's stack (inputs of layers 1..L-1), the prediction network's.
+then each part's dropout sites in the order its module states them (the
+encoder's, the prediction network's, the joint's).
 """
 
 from __future__ import annotations
@@ -23,42 +24,43 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from benchmark.reference import parts
+
 
 class MaskMismatch(ValueError):
     """The program's masks do not fit the step the configuration states."""
 
 
-def _rates(model: Mapping) -> Tuple[float, float, int, int]:
-    tn, pn = model["transnet"], model["prednet"]
-    if tn.get("arch", "rnn") != "rnn" and tn.get("dropout", 0.0) > 0:
-        raise MaskMismatch("the reference applies dropout to recurrent stacks only")
-    enc = tn.get("dropout", 0.0) if tn["num_layers"] > 1 else 0.0
-    pred = pn.get("dropout", 0.0) if pn["num_layers"] > 1 else 0.0
-    return (enc, pred, tn["num_layers"] - 1 if enc > 0 else 0,
-            pn["num_layers"] - 1 if pred > 0 else 0)
-
-
-def expects_masks(cfg: Mapping) -> bool:
-    """Whether a training step of ``cfg`` draws masks."""
-    enc, pred, _, _ = _rates(cfg["model"])
-    return bool(cfg["data"]["audio"].get("spec_augment", False)) or enc > 0 or pred > 0
+def sites(model: Mapping) -> Tuple[List[float], List[float], List[float]]:
+    """The rate of each dropout mask a training step draws, in the program's
+    call order, in the encoder, the prediction network and the joint: what
+    each part's module (``reference.parts``) states."""
+    enc, pred, joint = parts.of(model)
+    return (enc.dropout_sites(model["transnet"]), pred.dropout_sites(model["prednet"]),
+            joint.dropout_sites(model["jointnet"]))
 
 
 def split(masks: Optional[Mapping], cfg: Mapping):
-    """(SpecAugment keep mask or None, encoder keep masks, prediction
-    network keep masks) of one step; ``MaskMismatch`` where their number
-    is not what the configuration's step draws."""
-    enc, pred, n_enc, n_pred = _rates(cfg["model"])
+    """(SpecAugment keep mask or None, the encoder's, the prediction
+    network's and the joint's dropout keep masks) of one step;
+    ``MaskMismatch`` where their number is not what the configuration's
+    step draws."""
+    groups = sites(cfg["model"])
+    n_drop = sum(len(g) for g in groups)
     spec_on = bool(cfg["data"]["audio"].get("spec_augment", False))
     if masks is None:
-        if spec_on or n_enc or n_pred:
+        if spec_on or n_drop:
             raise MaskMismatch("the configuration drops and masks; no masks were read back")
-        return None, [], []
+        return None, [], [], []
     drop, spec = list(masks.get("dropout", [])), list(masks.get("spec", []))
-    if len(spec) != int(spec_on) or len(drop) != n_enc + n_pred:
+    if len(spec) != int(spec_on) or len(drop) != n_drop:
         raise MaskMismatch(f"read back {len(spec)} SpecAugment and {len(drop)} dropout "
-                           f"masks; the step draws {int(spec_on)} and {n_enc + n_pred}")
-    return (spec[0] if spec else None), drop[:n_enc], drop[n_enc:]
+                           f"masks; the step draws {int(spec_on)} and {n_drop}")
+    out, i = [], 0
+    for g in groups:
+        out.append(drop[i:i + len(g)])
+        i += len(g)
+    return (spec[0] if spec else None), out[0], out[1], out[2]
 
 
 def spec_augment(feats: torch.Tensor, keep: Optional[torch.Tensor], lengths: torch.Tensor,
@@ -85,37 +87,34 @@ def spec_augment(feats: torch.Tensor, keep: Optional[torch.Tensor], lengths: tor
     return feats * k[:, :T].to(feats.dtype)
 
 
-def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
-    """Inverted dropout of ``x`` (B, T, D) at ``rate`` on the kept elements
-    of ``keep`` (B, >= T, D)."""
-    B, T, D = x.shape
-    if keep.shape[0] != B or keep.shape[1] < T or keep.shape[2] != D:
-        raise MaskMismatch(f"dropout mask {tuple(keep.shape)} for a tensor {(B, T, D)}")
-    return torch.where(keep[:, :T].to(x.device), x / (1.0 - rate), torch.zeros_like(x))
+def dropout(x: torch.Tensor, keep: torch.Tensor, rate: float,
+            time_dims: Sequence[int] = (1,)) -> torch.Tensor:
+    """Inverted dropout of ``x`` at ``rate`` on the kept elements of
+    ``keep``, which has ``x``'s shape but may be longer on ``time_dims``
+    (the program pads to its bucket; the first frames are used)."""
+    ok = keep.dim() == x.dim() and all(
+        k >= n if d in time_dims else k == n
+        for d, (k, n) in enumerate(zip(keep.shape, x.shape)))
+    if not ok:
+        raise MaskMismatch(f"dropout mask {tuple(keep.shape)} for a tensor {tuple(x.shape)}")
+    k = keep[tuple(slice(0, n) for n in x.shape)]
+    return torch.where(k.to(x.device), x / (1.0 - rate), torch.zeros_like(x))
 
 
 def share_gap(steps: Sequence[Optional[Mapping]], cfg: Mapping) -> float:
     """By the worst mask of the steps, the gap between its dropped share and
-    the configuration's rate, over the rate; 1 where a step read back masks
-    that do not fit (as a step that drops nothing reads), 0 where the
-    configuration drops nothing."""
-    enc, pred, _, _ = _rates(cfg["model"])
+    its site's rate, over the rate; 1 where a step read back masks that do
+    not fit (as a step that drops nothing reads), 0 where the configuration
+    drops nothing."""
+    rates = sites(cfg["model"])
     worst = 0.0
     for masks in steps:
         try:
-            _, enc_keep, pred_keep = split(masks, cfg)
+            keeps = split(masks, cfg)[1:]
         except MaskMismatch:
             return 1.0
-        for keeps, rate in ((enc_keep, enc), (pred_keep, pred)):
-            for k in keeps:
+        for group, group_rates in zip(keeps, rates):
+            for k, rate in zip(group, group_rates):
                 dropped = 1.0 - float(k.float().mean())
                 worst = max(worst, abs(dropped - rate) / rate)
     return worst
-
-
-def layer_masks(keeps: List[torch.Tensor], rate: float):
-    """The function the reference's stacks call between layers: layer
-    ``l`` >= 1 gets ``keeps[l - 1]``; no masks, no dropout."""
-    if not keeps:
-        return None
-    return lambda layer, x: dropout(x, keeps[layer - 1], rate)

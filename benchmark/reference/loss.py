@@ -14,8 +14,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 
-def _chunk_logprobs(A, C, labels, blank):
-    logits = A[:, :, None, :] + C[:, None, :, :]             # (b, T, U+1, V)
+def logprobs_of(logits, labels, blank):
+    """Blank and label log-probabilities (b, T, U+1) / (b, T, U) of joint
+    logits (b, T, U+1, V)."""
     lse = torch.logsumexp(logits, -1)
     lpb = logits[..., blank] - lse
     U = labels.shape[1]
@@ -24,21 +25,30 @@ def _chunk_logprobs(A, C, labels, blank):
     return lpb, lpe
 
 
-def lattice_logprobs(A, C, labels, blank: int = 0, rows: int = 4):
-    """Blank and label log-probabilities (B, T, U+1) / (B, T, U) of the joint
-    ``A[t] + C[u]`` (A (B, T, V), C (B, U+1, V)), a few rows at a time and
-    recomputed in the backward, so the (T, U+1, V) lattice of only those
-    rows is ever held."""
+def _chunk_logprobs(A, C, labels, blank):
+    return logprobs_of(A[:, :, None, :] + C[:, None, :, :], labels, blank)
+
+
+def in_row_blocks(chunk, enc, dec, labels, blank: int = 0, rows: int = 4):
+    """``chunk(enc, dec, labels, blank) -> (lpb, lpe)`` over a few rows of
+    the batch at a time, recomputed in the backward, so the (T, U+1, V)
+    lattice of only those rows is ever held."""
     outs_b, outs_e = [], []
-    for r in range(0, A.shape[0], rows):
-        args = (A[r:r + rows], C[r:r + rows], labels[r:r + rows])
+    for r in range(0, enc.shape[0], rows):
+        args = (enc[r:r + rows], dec[r:r + rows], labels[r:r + rows])
         if torch.is_grad_enabled():
-            lpb, lpe = checkpoint(_chunk_logprobs, *args, blank, use_reentrant=False)
+            lpb, lpe = checkpoint(chunk, *args, blank, use_reentrant=False)
         else:
-            lpb, lpe = _chunk_logprobs(*args, blank)
+            lpb, lpe = chunk(*args, blank)
         outs_b.append(lpb)
         outs_e.append(lpe)
     return torch.cat(outs_b), torch.cat(outs_e)
+
+
+def lattice_logprobs(A, C, labels, blank: int = 0, rows: int = 4):
+    """Blank and label log-probabilities (B, T, U+1) / (B, T, U) of the joint
+    ``A[t] + C[u]`` (A (B, T, V), C (B, U+1, V)), in row blocks."""
+    return in_row_blocks(_chunk_logprobs, A, C, labels, blank, rows)
 
 
 def rnnt_nll(lpb, lpe, T_len, U_len):

@@ -16,7 +16,7 @@ import torch
 
 from benchmark.reference import augment
 from benchmark.reference.frontend import int16_transfer, logmel
-from benchmark.reference.loss import lattice_logprobs, rnnt_nll
+from benchmark.reference.loss import rnnt_nll
 from benchmark.reference.model import Reference
 
 
@@ -69,8 +69,7 @@ def batch_loss(ref: Reference, cfg: Mapping, rows: Sequence[dict], device,
     PCM.  ``masks``: the step's dropout and SpecAugment masks
     (``reference.augment``), where the configuration trains with them."""
     audio = cfg["data"]["audio"]
-    model = cfg["model"]
-    spec_keep, enc_keep, pred_keep = augment.split(masks, cfg)
+    spec_keep, enc_keep, pred_keep, joint_keep = augment.split(masks, cfg)
     waves = [torch.from_numpy(int16_transfer(r["wav"]) if int16 else r["wav"])
              for r in rows]
     with torch.no_grad():
@@ -83,12 +82,9 @@ def batch_loss(ref: Reference, cfg: Mapping, rows: Sequence[dict], device,
     ulen = torch.tensor([len(r["labels"]) for r in rows], dtype=torch.int64)
     labels, ulen = labels.to(device), ulen.to(device)
     text_in = torch.cat([torch.zeros_like(labels[:, :1]), labels], 1)
-    enc, elen = ref.encode(feats, flen, augment.layer_masks(
-        enc_keep, model["transnet"].get("dropout", 0.0)))
-    dec = ref.predict(text_in, ulen + 1, augment.layer_masks(
-        pred_keep, model["prednet"].get("dropout", 0.0)))
-    A, C = ref.factors(enc, dec)
-    lpb, lpe = lattice_logprobs(A, C, labels, ref.blank)
+    enc, elen = ref.encode(feats, flen, enc_keep)
+    dec = ref.predict(text_in, ulen + 1, pred_keep)
+    lpb, lpe = ref.lattice_logprobs(enc, dec, labels, joint_keep)
     return rnnt_nll(lpb, lpe, elen, ulen).mean()
 
 

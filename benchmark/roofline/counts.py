@@ -5,7 +5,9 @@ limit: 989 TFLOP/s bf16, 67 TFLOP/s fp32 outside the tensor cores, 3.35
 TB/s of HBM3.
 
 The step FLOPs count 2 m n k per forward product and three forward passes a
-training step (forward, and the backward's two products); the kernel bounds
+training step (forward, and the backward's two products), each part's in a
+module of its own (``encoders/``, ``prednets/``, ``joints/``, found by the
+configuration's names as the reference's parts are); the kernel bounds
 are the larger of operations over the peak rate and bytes over HBM
 bandwidth, each input read once and each output written once.  They are
 copies of the arithmetic the repository's chip smoke test has
@@ -17,15 +19,18 @@ script; the per-row forms count each row at its own length.
 
 from __future__ import annotations
 
-import functools
-from typing import Mapping, Sequence, Tuple
+from pathlib import Path
+from types import ModuleType
+from typing import Mapping, Optional, Sequence, Tuple
+
+from benchmark.reference import parts
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": PEAK_BF16_FLOPS, "fp32": PEAK_FP32_FLOPS}
 ELEMENT_BYTES = {"bf16": 2, "fp32": 4}
-GATES = {"gru": 3, "lstm": 4, "rnn": 1}
+HERE = Path(__file__).resolve().parent
 
 
 def _bound(flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
@@ -35,70 +40,46 @@ def _bound(flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
 
 
 # --------------------------------------------------------------- step FLOPs
-def _prednet_joint_fwd(model: Mapping, batch: int, t_enc: float, u_labels: float) -> float:
-    tn, pn, jn = model["transnet"], model["prednet"], model["jointnet"]
-    Hp, u1 = pn["hidden_size"], u_labels + 1
-    pg = {**GATES, "stateless": 0}[pn["rnn_type"].lower()]
-    fwd = pn["num_layers"] * 2 * batch * u1 * pg * Hp * (Hp + Hp) if pg else 0.0
-    fwd += 2 * batch * u1 * Hp * pn["output_size"]
-    fwd += 2 * batch * t_enc * tn["output_size"] * jn["num_classes"]
-    fwd += 2 * batch * u1 * pn["output_size"] * jn["num_classes"]
-    return fwd
+def part(model: Mapping, which: str) -> ModuleType:
+    """The FLOP module of ``model``'s encoder, prediction network or joint,
+    found by the name the reference's part is found by
+    (``reference.parts``): ``encoders/<arch>.py`` (``step_flops(model,
+    batch, t_frames, u_labels)``, the whole training step's, and
+    ``decode_encoder(tn, frames, keys) -> (FLOPs, output frames)``),
+    ``prednets/<kind>.py`` (``train_fwd(pn, batch, u1)``,
+    ``step_flops(pn)``), ``joints/<combine>.py`` (``train_fwd(model,
+    batch, t_enc, u1)``, ``frame_flops(model, t_enc)``,
+    ``label_flops(model)``)."""
+    section, key, _, directory = parts.PARTS[which]
+    return parts.find_module(f"benchmark.roofline.{directory}", HERE / directory,
+                             f"{section}.{key}", parts.name_of(model, which))
 
 
-def rnn_step_flops(model: Mapping, batch: int, t_frames: float, u_labels: float) -> float:
-    """Matmul FLOPs of one RNN-encoder training step (``step_model_flops``)."""
-    tn = model["transnet"]
-    H, dirs = tn["hidden_size"], 2 if tn["bidirectional"] else 1
-    g = GATES[tn["rnn_type"].lower()]
-    fwd, in_size = 0.0, tn["input_size"]
-    for _ in range(tn["num_layers"]):
-        fwd += dirs * 2 * batch * t_frames * g * H * (in_size + H)
-        in_size = dirs * H
-    fwd += 2 * batch * t_frames * in_size * tn["output_size"]
-    return 3.0 * (fwd + _prednet_joint_fwd(model, batch, t_frames, u_labels))
+def check(model: Mapping) -> None:
+    """``MissingPart`` where a part of ``model`` has no FLOP module."""
+    for which in parts.PARTS:
+        part(model, which)
 
 
-@functools.lru_cache(maxsize=4096)
-def _attended(tp: int, chunk: int, left: int) -> int:
-    """Query-key pairs of ``tp`` frames under full context (chunk 0) or the
-    chunked-causal window."""
-    if chunk <= 0:
-        return tp * tp
-    total = 0
-    for q in range(tp):
-        c = q // chunk
-        total += min(tp, (c + 1) * chunk) - max(0, (c - left) * chunk)
-    return total
-
-
-def conformer_step_flops(model: Mapping, batch: int, t_frames: int, u_labels: float,
-                         padded: bool = False) -> float:
-    """Matmul FLOPs of one Conformer training step (``conformer_step_flops``
-    with its prediction-net and joint terms).  ``padded`` counts T'^2
-    attention pairs as that copy does; otherwise only the pairs the
-    chunked-causal mask lets a frame attend."""
-    tn = model["transnet"]
-    d, ff, s = tn["hidden_size"], tn["ff_multiplier"], tn.get("time_reduction_stride", 1)
-    tp = t_frames // s if padded else -(-t_frames // s)
-    pairs = tp * tp if padded else _attended(tp, tn.get("attention_chunk", 0),
-                                             tn.get("attention_left_chunks", 4))
-    fwd = 2 * batch * tp * (tn["input_size"] * s) * d
-    per_block = (2 * (2 * 2 * batch * tp * d * ff * d)
-                 + 4 * 2 * batch * tp * d * d
-                 + 2 * 2 * batch * pairs * d
-                 + 2 * batch * tp * d * 2 * d
-                 + 2 * batch * tp * d * d)
-    fwd += tn["num_layers"] * per_block
-    fwd += 2 * batch * tp * d * tn["output_size"]
-    return 3.0 * (fwd + _prednet_joint_fwd(model, batch, tp, u_labels))
+def prednet_joint_fwd(model: Mapping, batch: int, t_enc: float, u_labels: float) -> float:
+    """Forward FLOPs of the prediction network and the joint of a training
+    step over ``t_enc`` encoder frames and ``u_labels`` labels a row."""
+    u1 = u_labels + 1
+    fwd = part(model, "prednet").train_fwd(model["prednet"], batch, u1)
+    return fwd + part(model, "joint").train_fwd(model, batch, t_enc, u1)
 
 
 def train_step_flops(model: Mapping, frames: Sequence[int], labels: Sequence[int]) -> float:
     """A step's model FLOPs, each row at its own frame and label counts."""
-    if model["transnet"].get("arch", "rnn") == "conformer":
-        return sum(conformer_step_flops(model, 1, int(t), u) for t, u in zip(frames, labels))
-    return sum(rnn_step_flops(model, 1, t, u) for t, u in zip(frames, labels))
+    enc = part(model, "encoder")
+    return sum(enc.step_flops(model, 1, int(t), u) for t, u in zip(frames, labels))
+
+
+def gru_scans(model: Mapping) -> Optional[int]:
+    """The GRU scans (K1 / K2) a pass of ``model``'s encoder runs, where its
+    FLOP module counts them; None where it runs none."""
+    scans = getattr(part(model, "encoder"), "gru_scans", None)
+    return scans(model["transnet"]) if scans else None
 
 
 # ---------------------------------------------------------------- kernels
@@ -163,23 +144,7 @@ def decode_flops(model: Mapping, frames: float, tokens: float, keys: int = 0) ->
     query attends ``keys`` keys: its chunk and the left chunks), the joint's
     encoder side per encoder frame, and per label the prediction network
     and the joint's prediction side."""
-    tn, pn, jn = model["transnet"], model["prednet"], model["jointnet"]
-    V, De = jn["num_classes"], tn["output_size"]
-    if tn.get("arch", "rnn") == "conformer":
-        d, ff, s = tn["hidden_size"], tn["ff_multiplier"], tn.get("time_reduction_stride", 1)
-        tp = frames / s
-        per = (2 * (2 * 2 * d * ff * d) + 4 * 2 * d * d + 2 * 2 * keys * d
-               + 2 * d * 2 * d + 2 * d * d)
-        enc = tp * (2 * tn["input_size"] * s * d + tn["num_layers"] * per + 2 * d * De)
-    else:
-        H, dirs = tn["hidden_size"], 2 if tn["bidirectional"] else 1
-        g = GATES[tn["rnn_type"].lower()]
-        tp, enc, in_size = frames, 0.0, tn["input_size"]
-        for _ in range(tn["num_layers"]):
-            enc += dirs * 2 * frames * g * H * (in_size + H)
-            in_size = dirs * H
-        enc += 2 * frames * in_size * De
-    Hp = pn["hidden_size"]
-    pred = (pn["num_layers"] * 2 * GATES[pn["rnn_type"].lower()] * Hp * (Hp + Hp)
-            + 2 * Hp * pn["output_size"] + 2 * pn["output_size"] * V)
-    return enc + tp * 2 * De * V + tokens * pred
+    enc, tp = part(model, "encoder").decode_encoder(model["transnet"], frames, keys)
+    joint = part(model, "joint")
+    pred = part(model, "prednet").step_flops(model["prednet"]) + joint.label_flops(model)
+    return enc + joint.frame_flops(model, tp) + tokens * pred

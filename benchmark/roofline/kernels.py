@@ -7,17 +7,19 @@ from __future__ import annotations
 from typing import Optional
 
 from benchmark.harness.trace import kernel_seconds, owned_gemm_seconds
-from benchmark.roofline.counts import gru_bound_ms, gru_bwd_bound_ms
+from benchmark.roofline.counts import gru_bound_ms, gru_bwd_bound_ms, gru_scans
 
 
 def gru_roofline(ctx: dict, kind: str, backward: bool) -> Optional[float]:
     """K1 (``backward=False``) or K2 of the GRU encoder in a ``kind`` window
     ("train" or "infer"), in %; None where the window ran no GRU scan."""
-    trace, tn = ctx.get("trace"), ctx.get("model", {}).get("transnet", {})
-    if (ctx.get("kind") != kind or not trace or tn.get("arch", "rnn") != "rnn"
-            or tn.get("rnn_type") != "gru" or tn.get("time_reduction_stride", 1) != 1):
+    trace = ctx.get("trace")
+    if ctx.get("kind") != kind or not trace or "model" not in ctx:
         return None
-    scans = tn["num_layers"] * (2 if tn["bidirectional"] else 1)
+    scans = gru_scans(ctx["model"])
+    if not scans:
+        return None
+    tn = ctx["model"]["transnet"]
     bound = gru_bwd_bound_ms if backward else gru_bound_ms
     dtype = ctx["precision"]
     least_ms = sum(scans * bound(s["T"], len(s["frames"]), tn["hidden_size"], dtype,

@@ -150,20 +150,16 @@ def test_onecycle_matches_the_port_schedule():
         assert onecycle_lr(run["train"], c) == pytest.approx(sched(c), rel=1e-12)
 
 
-@pytest.mark.parametrize("name", CONFIGS)
-def test_reference_steps_follow_the_port_fp32_steps(name):
+def _follow_port_steps(run, w):
     """Three fp32 AdamW steps of the port's ``train_step`` on raw int16 PCM
-    against ``reference_steps``: every reading small.  Not at fp32 rounding:
-    the port's log-mel (K6's plain version here too) multiplies by bf16 DFT
-    matrices, which moves the loss by about 1e-4 of itself.  The flagship
-    trains with dropout and SpecAugment: the port's masks are read back
-    and handed to the reference."""
+    and ``reference_steps`` from the same weights, the port's dropout and
+    SpecAugment masks read back and handed to the reference: (readings,
+    the masks of each step)."""
     from benchmark.harness.masks import MaskLog, read_back
     from rnntransducer_tpu_torch.config import Config
     from rnntransducer_tpu_torch.data.collate import collate_waveforms
     from rnntransducer_tpu_torch.data.prefetch import to_device
     from rnntransducer_tpu_torch.train.state import TrainState, train_step
-    run, w = _tiny(name)
     run = copy.deepcopy(run)
     run["train"]["precision"] = "fp32"
     P = _params(run, w)
@@ -188,8 +184,40 @@ def test_reference_steps_follow_the_port_fp32_steps(name):
     change = {n: float((p.detach().double() - params0[n].double()).norm())
               for n, p in state.model.named_parameters()}
     ref = reference_steps(run, params0, batches, "cpu", masks=masks)
-    got = readings({"losses": losses, "grad1": grad1, "change": change}, ref)
+    return readings({"losses": losses, "grad1": grad1, "change": change}, ref), masks
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_reference_steps_follow_the_port_fp32_steps(name):
+    """Every reading small.  Not at fp32 rounding: the port's log-mel (K6's
+    plain version here too) multiplies by bf16 DFT matrices, which moves the
+    loss by about 1e-4 of itself.  The flagship trains with dropout and
+    SpecAugment."""
+    got, _ = _follow_port_steps(*_tiny(name))
     assert got["loss_rel"] < 5e-4 and got["grad1_leaf"] < 1e-2 and got["change_leaf"] < 5e-3, got
+
+
+@pytest.mark.parametrize("rate,remat", [(0.1, False), (0.1, True), (26 / 256, False)])
+def test_conformer_dropout_sites_follow_the_port(rate, remat):
+    """The Conformer with dropout: the port draws one mask after its input
+    projection and seven a block (a checkpointed block's recompute adds
+    none), and the reference given them follows its steps within the GRU
+    flagship's tolerances.  The port drops a whole number of 256ths: at
+    0.1 it scales the kept elements by 256 / 230, the reference by 1 / 0.9,
+    which moves the parameters' change by ~7e-3 after 3 steps; at 26 / 256
+    the two scales are one and every reading is held."""
+    from benchmark.reference.augment import share_gap, sites
+    run, w = _tiny("conformer_l_stream")
+    run = copy.deepcopy(run)
+    run["model"]["transnet"].update(dropout=rate, remat=remat)
+    got, masks = _follow_port_steps(run, w)
+    enc_sites = sites(run["model"])[0]
+    assert len(enc_sites) == 1 + 7 * run["model"]["transnet"]["num_layers"]
+    assert all(len(m["dropout"]) == len(enc_sites) for m in masks)
+    assert share_gap(masks, run) < 1.0   # the masks fit the sites (tiny masks' shares swing)
+    assert got["loss_rel"] < 5e-4 and got["grad1_leaf"] < 1e-2, got
+    if float(rate * 256).is_integer():
+        assert got["change_leaf"] < 5e-3, got
 
 
 def test_walk_reads_zero_on_the_port_greedy_and_catches_an_altered_token():

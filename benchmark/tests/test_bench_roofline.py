@@ -6,6 +6,8 @@ import torch
 
 from benchmark.harness.common import BENCH_DIR, load_json
 from benchmark.roofline import counts
+from benchmark.roofline.encoders.conformer import conformer_step_flops
+from benchmark.roofline.encoders.rnn import rnn_step_flops
 
 
 @pytest.fixture(scope="module")
@@ -21,7 +23,7 @@ def _flagship():
 def test_flagship_padded_step_flops_equal_chip_smoke(smoke):
     from rnntransducer_tpu_torch.config import base_config
     want = smoke.step_model_flops(base_config(), 64, 512, 48)
-    assert counts.rnn_step_flops(_flagship(), 64, 512, 48) == pytest.approx(want, rel=1e-12)
+    assert rnn_step_flops(_flagship(), 64, 512, 48) == pytest.approx(want, rel=1e-12)
     # per row at full length sums to the padded batch
     assert counts.train_step_flops(_flagship(), [512] * 64, [48] * 64) == pytest.approx(
         want, rel=1e-12)
@@ -34,10 +36,10 @@ def test_conformer_padded_step_flops_equal_chip_smoke(smoke):
     tn = dataclasses.replace(cfg.model.transnet, num_layers=17, conv_kernel_size=32)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, transnet=tn))
     want = smoke.conformer_step_flops(cfg, 64, 512, 48)
-    got = counts.conformer_step_flops(model, 64, 512, 48, padded=True)
+    got = conformer_step_flops(model, 64, 512, 48, padded=True)
     assert got == pytest.approx(want, rel=1e-12)
     # the chunked window attends fewer pairs than T'^2
-    assert counts.conformer_step_flops(model, 64, 512, 48) < got
+    assert conformer_step_flops(model, 64, 512, 48) < got
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
@@ -64,5 +66,5 @@ def test_kernel_bounds_equal_chip_smoke(smoke, dtype):
 def test_decode_flops_count_the_encoder_once():
     m = _flagship()
     enc_only = counts.decode_flops(m, 100, 0)
-    assert enc_only == pytest.approx(counts.rnn_step_flops(m, 1, 100, -1) / 3.0
+    assert enc_only == pytest.approx(rnn_step_flops(m, 1, 100, -1) / 3.0
                                      - (2 * 0 * 512 * 72), rel=1e-2)
